@@ -5,8 +5,11 @@ its public layouts (NHWC images and probabilities, ``(B, T, 3C)`` fused qkv),
 imports ``torch``, numpy and scipy only, and runs its entry points on
 ``cuda`` unless the caller passes ``device="cpu"``.
 
-Slice ported so far: the unet16 MC-dropout + TTA softmax uncertainty path
-(config, weights, DiffUnet forward with the hand-written fused-qkv attention
-kernel, TTA warps, sampler, heatmaps, per-image metrics and the toy-128
-quality eval).
+Slices ported so far: the unet16 MC-dropout + TTA softmax uncertainty path
+(config, weights, DiffUnet forward, TTA warps, sampler, heatmaps, per-image
+metrics and the toy-128 quality eval) and the unet16 diffusion path (time
+embedding, time-conditioned DiffUnet, schedules and DDIM/DDPM reverse
+samplers, the flat trajectory sampler). Both TPU kernels of the JAX package
+run as hand-written CUDA kernels: the fused-qkv attention and the
+GroupNorm+activation.
 """

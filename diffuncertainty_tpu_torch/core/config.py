@@ -1,12 +1,12 @@
 """The slice's configuration as Python constants (no YAML).
 
 Holds the fields of ``diffuncertainty_tpu/core/config.py`` that the ported
-unet16 + MC-dropout + softmax path reads, with the values that
-``load_config(data="lidc128", network="unet16", model="softmax",
-eu_method="dropout")`` composes from ``configs/{data/lidc128,
-network/unet16, model/softmax, eu_method/dropout}.yaml``. Field names are
-kept so the two can be compared field by field. Other groups are not ported
-yet and raise.
+paths read, with the values that the JAX ``load_config`` composes from
+``configs/{data/lidc128, network/unet16, model/softmax, model/diffusion,
+eu_method/dropout, eu_method/none}.yaml``: the unet16 + MC-dropout softmax
+path (``model="softmax", eu_method="dropout"``) and the unet16 diffusion path
+(``model="diffusion", eu_method="none"``). Field names are kept so the two
+can be compared field by field. Other groups are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -26,12 +26,39 @@ class NetworkConfig:
     channel_mult: tuple[int, ...] = (1, 2, 4, 8)
     attention_resolutions: tuple[int, ...] = (-2, -1)
     num_heads: int = 4
+    use_scale_shift_norm: bool = False
     conv_resample: bool = True
+    final_act: str = "none"  # none | softmax (model/diffusion.yaml sets softmax)
+    dropout: float = 0.0  # rate when eu_method does not patch the dropout spec
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    """``model.diffusion`` (``configs/model/diffusion.yaml``)."""
+
+    schedule_name: str = "cosine"
+    input_scale: float = 0.1
+    model_pred_type: str = "X"
+    weights_type: str = "uniform"
+    sampler_type: str = "uniform_low_d"
+    var_type: str = "large"
+    loss_type: str = "MSE"
+    logsnr_min: float = -10.0
+    logsnr_max: float = 10.0
+    decouple_loss_weights: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionSampling:
+    num_steps: int = 10
+    sampler: str = "ddpm"
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     au_type: str = "softmax"
+    diffusion: DiffusionConfig = DiffusionConfig()
+    diffusion_sampling: DiffusionSampling = DiffusionSampling()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,11 +96,18 @@ class ExperimentConfig:
 _GROUPS = {
     "data": {"lidc128": DataConfig()},  # configs/data/lidc128.yaml
     "network": {"unet16": NetworkConfig()},  # configs/network/unet16.yaml
-    "model": {"softmax": ModelConfig()},  # configs/model/softmax.yaml
-    "eu_method": {  # configs/eu_method/dropout.yaml
+    "model": {
+        "softmax": ModelConfig(),  # configs/model/softmax.yaml
+        "diffusion": ModelConfig(au_type="diffusion"),  # configs/model/diffusion.yaml
+    },
+    "eu_method": {
+        # configs/eu_method/dropout.yaml
         "dropout": EUConfig(dropout=DropoutSpec(enabled=True, probability_values=(0.2,))),
+        "none": EUConfig(name="none"),  # configs/eu_method/none.yaml
     },
 }
+# network fields a model group sets (configs/model/diffusion.yaml: network.final_act)
+_MODEL_NETWORK = {"diffusion": {"final_act": "softmax"}}
 
 
 def load_config(
@@ -93,6 +127,7 @@ def load_config(
                 f"config '{name}' in group '{group}' is not ported; "
                 f"available: {sorted(options)}")
         picked[group] = options[name]
+    picked["network"] = dataclasses.replace(picked["network"], **_MODEL_NETWORK.get(model, {}))
     if precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be fp32 or bf16, got {precision!r}")
     return ExperimentConfig(**picked, trainer=TrainerConfig(precision=precision))

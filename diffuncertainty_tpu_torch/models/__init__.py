@@ -1,1 +1,1 @@
-"""The DiffUnet (softmax head) and the model factory."""
+"""The DiffUnet (softmax and diffusion families), the diffusion process and the model factory."""

@@ -1,5 +1,5 @@
-"""ADM-style 2D U-Net ("DiffUnet"), softmax head (port of
-``diffuncertainty_tpu/models/unet.py``, ``members=0``).
+"""ADM-style 2D U-Net ("DiffUnet") for the softmax and diffusion families
+(port of ``diffuncertainty_tpu/models/unet.py``, ``members=0``).
 
 Public layout is NHWC like the JAX model. Convolutions run on NCHW views of
 the NHWC tensors (channels-last memory, which cuDNN takes as is); 1x1 convs
@@ -9,8 +9,17 @@ are the flax paths with '.' for '/' (``core/params.py``).
 
 Parameters stay float32; ``dtype`` is the compute dtype the convs, dense
 layers and attention run in (weights are cast per call, as flax's
-``promote_dtype`` does). GroupNorm statistics are float32. The output head
-runs in the input's dtype, as in the JAX model.
+``promote_dtype`` does). Every GroupNorm goes through the hand-written
+GroupNorm+activation kernel (``ops/cuda_groupnorm.py``), with float32
+statistics and, where SiLU follows the norm, the SiLU fused in. The output
+head runs in the input's dtype, as in the JAX model, and ends in
+``final_act`` (softmax for the diffusion family).
+
+With ``diffusion=True`` the input is ``concat([x_t, image])`` and the forward
+takes continuous times ``t``: a sinusoidal embedding through
+``time_embed_0`` -> SiLU -> ``time_embed_1`` feeds every ResBlock
+(``emb_proj``), added before ``out_norm`` or, with ``use_scale_shift_norm``,
+applied as ``norm(h) * (1 + scale) + shift``.
 
 MC-dropout (``ChannelDropout``) zeroes whole channels with a (B, C) mask and
 scales by 1/(1-p). It is always live when its rate is positive and draws from
@@ -27,8 +36,9 @@ from torch import nn
 
 from ..core.specs import DropoutSpec
 from ..ops.attention import qkv_attention
-from ..ops.norm import group_norm_32, num_groups_for
+from ..ops.cuda_groupnorm import group_norm_act
 from ..ops.resample import downsample_avgpool2x, upsample2x
+from ..ops.time_embed import timestep_embedding
 
 
 class Conv(nn.Module):
@@ -65,16 +75,17 @@ class Dense(nn.Module):
 
 
 class GroupNorm32(nn.Module):
-    """Learned-affine GroupNorm with float32 statistics (``ops/norm.py``)."""
+    """Learned-affine GroupNorm with float32 statistics, then ``act``
+    ("silu" or "none"), through the GroupNorm+activation kernel."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, act: str = "none"):
         super().__init__()
+        self.act = act
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = x.shape[-1]
-        return group_norm_32(x, self.weight, self.bias, num_groups=num_groups_for(c))
+        return group_norm_act(x, self.weight, self.bias, self.act)
 
 
 class ChannelDropout(nn.Module):
@@ -103,25 +114,40 @@ class ChannelDropout(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """Residual block without time conditioning (the softmax path)."""
+    """Residual block; time-conditioned through ``emb_proj`` when
+    ``emb_channels`` is set (the diffusion family)."""
 
     def __init__(self, cin: int, cout: int, *, dropout: float, per_block: bool,
-                 residual_dropout: float):
+                 residual_dropout: float, emb_channels: int = 0,
+                 use_scale_shift_norm: bool = False):
         super().__init__()
-        self.in_norm = GroupNorm32(cin)
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.in_norm = GroupNorm32(cin, act="silu")
         self.in_dropout = ChannelDropout(0.0 if per_block else dropout)
         self.in_conv = Conv(cin, cout, 3)
-        self.out_norm = GroupNorm32(cout)
+        self.emb_proj = None
+        if emb_channels:
+            self.emb_proj = Dense(emb_channels, 2 * cout if use_scale_shift_norm else cout)
+        # scale-shift applies between the norm and the SiLU, so it cannot fuse
+        self.out_norm = GroupNorm32(cout, act="none" if use_scale_shift_norm else "silu")
         self.out_dropout = ChannelDropout(dropout)
         self.out_conv = Conv(cout, cout, 3)
         self.skip_conv = Conv(cin, cout, 1) if cin != cout else None
         self.residual_dropout = ChannelDropout(residual_dropout)
 
-    def forward(self, x, dtype, generator):
-        h = F.silu(self.in_norm(x))
+    def forward(self, x, dtype, generator, emb=None):
+        h = self.in_norm(x)
         h = self.in_dropout(h, generator)
         h = self.in_conv(h, dtype)
-        h = F.silu(self.out_norm(h))
+        if emb is None:
+            h = self.out_norm(h)
+        else:
+            emb_out = self.emb_proj(F.silu(emb), dtype).to(h.dtype)[:, None, None, :]
+            if self.use_scale_shift_norm:
+                scale, shift = emb_out.chunk(2, dim=-1)
+                h = F.silu(self.out_norm(h) * (1 + scale) + shift)
+            else:
+                h = self.out_norm(h + emb_out)
         h = self.out_dropout(h, generator)
         h = self.out_conv(h, dtype)
         skip = x if self.skip_conv is None else self.skip_conv(x, dtype)
@@ -134,7 +160,7 @@ class AttentionBlock(nn.Module):
     def __init__(self, channels: int, num_heads: int):
         super().__init__()
         self.num_heads = num_heads
-        self.norm = GroupNorm32(channels)
+        self.norm = GroupNorm32(channels, act="none")
         self.qkv = Dense(channels, 3 * channels)
         self.proj_out = Dense(channels, channels)
 
@@ -166,8 +192,8 @@ class Upsample(nn.Module):
 
 
 class DiffUnet(nn.Module):
-    """The U-Net of the softmax family: SiLU, concat skips, nearest upsampling,
-    no final activation, the same head count in encoder and decoder."""
+    """The U-Net of the softmax and diffusion families: SiLU, concat skips,
+    nearest upsampling, the same head count in encoder and decoder."""
 
     def __init__(
         self,
@@ -181,20 +207,32 @@ class DiffUnet(nn.Module):
         channel_mult: tuple[int, ...] = (1, 2, 4, 8),
         conv_resample: bool = True,
         num_heads: int = 4,
+        use_scale_shift_norm: bool = False,
+        diffusion: bool = False,
+        final_act: str = "none",
         dropout_spec: DropoutSpec = DropoutSpec(),
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if final_act not in ("none", "softmax"):
+            raise ValueError(f"final_act must be none or softmax, got {final_act!r}")
         if channel_mult[0] != 1:
             raise ValueError("channel_mult[0] must be 1")
         nres = tuple(num_res_blocks)
         if len(nres) != len(channel_mult):
             raise ValueError("num_res_blocks and channel_mult differ in length")
         self.dtype = dtype
+        self.diffusion = diffusion
+        self.final_act = final_act
         spec = dropout_spec
         n_levels = len(channel_mult)
         attn_res = {r + n_levels if r < 0 else r for r in attention_resolutions}
         mc = model_channels
+        self.model_channels = mc
+        emb_ch = 4 * mc if diffusion else 0
+        if diffusion:
+            self.time_embed_0 = Dense(mc, emb_ch)
+            self.time_embed_1 = Dense(emb_ch, emb_ch)
         # forward plan: ("block", prefix) | ("down", name) | ("push", "")
         # | ("cat", skip-dropout name or "") | ("up", name)
         self.plan: list[tuple[str, str]] = []
@@ -203,7 +241,8 @@ class DiffUnet(nn.Module):
             rate = spec.stage_rate(stage, depth)
             self.add_module(f"{prefix}_res", ResBlock(
                 cin, cout, dropout=rate, per_block=spec.per_block,
-                residual_dropout=rate if spec.residual_connections else 0.0))
+                residual_dropout=rate if spec.residual_connections else 0.0,
+                emb_channels=emb_ch, use_scale_shift_norm=use_scale_shift_norm))
             if attention and depth in attn_res:
                 self.add_module(f"{prefix}_attn", AttentionBlock(cout, num_heads))
             self.plan.append(("block", prefix))
@@ -252,20 +291,37 @@ class DiffUnet(nn.Module):
                     self.plan.append(("up", f"up{resolution}"))
                 block_idx += 1
 
-        self.out_norm = GroupNorm32(ch)
+        self.out_norm = GroupNorm32(ch, act="silu")
         self.out_conv = Conv(ch, out_channels, 3)
         for name, module in self.named_modules():
             if isinstance(module, ChannelDropout):
                 module.path = name
 
-    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        """Logits ``(B, H, W, out_channels)`` of NHWC input ``(B, H, W, in_channels)``."""
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                timesteps: torch.Tensor | float | None = None) -> torch.Tensor:
+        """Output ``(B, H, W, out_channels)`` of NHWC input ``(B, H, W, in_channels)``:
+        logits, or with ``final_act="softmax"`` their softmax.
+
+        For the diffusion family ``x`` is ``concat([x_t, image], -1)`` and
+        ``timesteps`` a ``(B,)`` tensor or a scalar of continuous times.
+        """
         dtype = self.dtype
+        emb = None
+        if self.diffusion:
+            if timesteps is None:
+                raise ValueError("timesteps must be provided when diffusion=True")
+            t = torch.as_tensor(timesteps, device=x.device)
+            if t.ndim == 0:
+                t = t.expand(x.shape[0])
+            emb = timestep_embedding(t, self.model_channels)
+            emb = self.time_embed_1(F.silu(self.time_embed_0(emb, dtype)), dtype)
+        elif timesteps is not None:
+            raise ValueError("timesteps must be None when diffusion=False")
         h = self.input_conv(x.to(dtype), dtype)
         skips = [h]
         for op, name in self.plan:
             if op == "block":
-                h = getattr(self, f"{name}_res")(h, dtype, generator)
+                h = getattr(self, f"{name}_res")(h, dtype, generator, emb)
                 attn = getattr(self, f"{name}_attn", None)
                 if attn is not None:
                     h = attn(h, dtype)
@@ -279,4 +335,5 @@ class DiffUnet(nn.Module):
                     skip = getattr(self, name)(skip, generator)
                 h = torch.cat([h, skip], dim=-1)
         features = h.to(x.dtype)
-        return self.out_conv(F.silu(self.out_norm(features)), x.dtype)
+        out = self.out_conv(self.out_norm(features), x.dtype)
+        return torch.softmax(out, dim=-1) if self.final_act == "softmax" else out

@@ -1,2 +1,3 @@
-"""Tensor ops of the slice: norm, attention (with its CUDA kernel),
-resampling, warps and the entropy decomposition."""
+"""Tensor ops of the ported slices: norm (with its GroupNorm+activation
+CUDA kernel), attention (with its CUDA kernel), time embedding, resampling,
+warps and the entropy decomposition."""

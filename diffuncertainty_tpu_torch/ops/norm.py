@@ -24,6 +24,18 @@ def group_norm_32(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """GroupNorm over the trailing channel axis of ``(B, ..., C)``; affine (C,)."""
+    return group_norm_f32(x, scale, bias, num_groups=num_groups, eps=eps).to(x.dtype)
+
+
+def group_norm_f32(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    num_groups: int | None = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """:func:`group_norm_32` before the cast back: the float32 result."""
     c = x.shape[-1]
     groups = num_groups_for(c) if num_groups is None else num_groups
     if c % groups:
@@ -41,4 +53,4 @@ def group_norm_32(
     a = inv * scale.float()
     b = bias.float() - g_mean.repeat_interleave(cpg, dim=-1) * a
     bshape = (batch,) + (1,) * len(spatial) + (c,)
-    return (xf * a.view(bshape) + b.view(bshape)).to(x.dtype)
+    return xf * a.view(bshape) + b.view(bshape)

@@ -44,8 +44,8 @@ def rotation_matrix(angle_deg: torch.Tensor, scale: torch.Tensor,
     return torch.stack([row0, row1], dim=-2)
 
 
-def hflip_matrix(width: int, device: torch.device | str = "cpu") -> torch.Tensor:
-    """x -> W-1-x as a 2x3 affine."""
+def hflip_matrix(width: int, device: torch.device | str) -> torch.Tensor:
+    """x -> W-1-x as a 2x3 affine on ``device``."""
     return torch.tensor([[-1.0, 0.0, width - 1.0], [0.0, 1.0, 0.0]], device=device)
 
 

@@ -1,1 +1,1 @@
-"""TTA and the prediction sampler of the softmax + MC-dropout path."""
+"""TTA and the prediction sampler of the softmax and diffusion paths."""

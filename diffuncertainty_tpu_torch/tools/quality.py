@@ -36,15 +36,17 @@ def toy128_dataset(hw: int = 128) -> MultiRaterDataset:
     return MultiRaterDataset(splits, toy, split="id", num_raters=4)
 
 
-SEED_BASE = 777  # batch bi draws from a generator seeded SEED_BASE + bi
-
-
 def toy128_quality_eval(built, sampler, data_cfg, *, batch: int = 16, hw: int = 128,
-                        device: str | torch.device = "cuda") -> dict:
+                        device: str | torch.device = "cuda",
+                        num_images: int | None = None, seed_base: int = 777) -> dict:
     """Dice/GED/AURC/ECE of ``sampler`` on the toy-128 id split.
 
     ``data_cfg``: the model's data config; its augmentation mean/std
-    normalize the inputs.
+    normalize the inputs. ``num_images``: score only the first images of the
+    split. The test cases are drawn in order after the train and val cases,
+    so the first 32 are the whole 32-image split the JAX package measured
+    its round-2 and round-3 numbers on (256 images since round 4).
+    Batch ``bi`` draws from a generator seeded ``seed_base + bi``.
     """
     device = torch.device(device)
     loader = BatchLoader(toy128_dataset(hw), batch)
@@ -52,9 +54,11 @@ def toy128_quality_eval(built, sampler, data_cfg, *, batch: int = 16, hw: int = 
     aug = data_cfg.augmentations
     dices, geds, tu_means, eces = [], [], [], []
     for bi, b in enumerate(loader):
+        if num_images is not None and bi * batch >= num_images:
+            break
         images = normalize_batch(torch.from_numpy(b["image"]).to(device), aug.mean, aug.std)
         gt = torch.from_numpy(b["seg"]).to(device)
-        gen = torch.Generator(device).manual_seed(SEED_BASE + bi)
+        gen = torch.Generator(device).manual_seed(seed_base + bi)
         stack = sampler(images, gen)
         out = bm(stack, gt)
         dices.extend(out["dice"].tolist())

@@ -86,7 +86,7 @@ def test_kernel_source_matches_python_limits():
 def test_build_names_library_by_source_hash_and_finds_nvcc(monkeypatch, tmp_path):
     path = _build._lib_path("qkv_attention")
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libqkv_attention_")
-    assert _build.sources() == ["qkv_attention"]
+    assert _build.sources() == ["group_norm_act", "qkv_attention"]
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     fake = tmp_path / "bin" / "nvcc"

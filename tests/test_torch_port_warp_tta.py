@@ -74,7 +74,7 @@ def test_affine_helpers_match_jax(rng):
     m = tta_matrices(rng, 6, 9, 8)
     np.testing.assert_allclose(twarp.invert_affine(torch.from_numpy(m)).numpy(),
                                np.asarray(jwarp.invert_affine(jnp.asarray(m))), atol=1e-5)
-    np.testing.assert_allclose(twarp.hflip_matrix(8).numpy(), np.asarray(jwarp.hflip_matrix(8)))
+    np.testing.assert_allclose(twarp.hflip_matrix(8, "cpu").numpy(), np.asarray(jwarp.hflip_matrix(8)))
     m2 = tta_matrices(rng, 6, 9, 8)
     np.testing.assert_allclose(
         twarp.compose_affine(torch.from_numpy(m2), torch.from_numpy(m)).numpy(),
