@@ -7,11 +7,17 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: every ``csrc/*.cu`` with plain ``nvcc``, one process per source,
    all started together (seconds printed);
+   and what ``-Xptxas -v`` reports for each kernel instantiation
+   (registers, spills);
 3. each kernel against its plain PyTorch twin on the card, at the shapes the
-   main paths give it: the fused-qkv attention kernel in bf16, the
-   GroupNorm+activation kernel at every norm shape of one 256-row unet16
-   forward in bf16 and fp32; kernel, twin and library-call times (CUDA
-   events, median of 20 after a warm-up) beside the bound;
+   main paths give it: the fused-qkv attention kernel in bf16 at unet16's two
+   attention shapes, and at every other head width the repo's networks use
+   (one 256-row attention site of a network that has it, at 128x128) and at
+   ragged token counts (8 rows, and 2 rows past 2048 tokens at d=16 and
+   d=192); the GroupNorm+activation kernel at every
+   norm shape of one 256-row unet16 forward in bf16 and fp32; kernel, twin
+   and library-call times (CUDA events, median of 20 after a warm-up) beside
+   the bound;
 4. the softmax path: unet16 with the trained toy-128 weights, 16 MC-dropout
    members x TTA folded into one 256-row bf16 forward on 16 images at
    128x128, with the kernels' launch counts read around that one call;
@@ -31,6 +37,8 @@ is not printed. The last line is the device JSON.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -66,6 +74,16 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 BATCH, HW, MEMBERS = 16, 128, 16
 TRAJECTORIES, DDIM_STEPS = 16, 10
+# (T, C, network) of one attention site at 128x128 (4 heads) for every head
+# width beside unet16's 32 and 64; timed at the main path's 256 rows
+ATTENTION_WIDTH_SITES = ((1024, 64, "unet4"), (1024, 96, "prob-U-Net"),
+                         (256, 192, "prob-U-Net"), (64, 384, "unet64"),
+                         (256, 512, "unet256"), (64, 768, "unet256"))
+# ragged token counts checked (not timed) at every head width, 8 rows
+RAGGED_TOKENS = (1, 80, 1000)
+# ragged token counts past the Pallas kernel's 2048, checked at the narrowest
+# and widest head width, 2 rows
+LONG_TOKENS = (2049, 4100)
 
 
 def log(msg: str) -> None:
@@ -120,19 +138,50 @@ def phase_device():
     return smi
 
 
-def phase_build():
+def _kernel_name(demangled: str) -> str:
+    """``void <unnamed>::kernel<(int)32>(args)`` -> ``kernel<32>``."""
+    name = re.sub(r"\((?:int|bool)\)", "", demangled).replace("(anonymous namespace)", "")
+    return re.sub(r"\(.*", "", name).split("::")[-1]
+
+
+def ptxas_report(out: str) -> dict:
+    """{kernel instantiation: registers and spills} from ``nvcc -Xptxas -v``."""
+    names, entry, report = [], None, {}
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            names.append(entry)
+        elif entry and ("registers" in line or "spill" in line):
+            report.setdefault(entry, []).append(line.split(":", 1)[-1].strip()
+                                                if "ptxas" in line else line.strip())
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    if filt and names:
+        plain = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(plain) == len(names):
+            short = {n: _kernel_name(p) for n, p in zip(names, plain)}
+            report = {short[k]: v for k, v in report.items()}
+    return {k: "; ".join(v) for k, v in report.items()}
+
+
+def phase_build() -> dict:
     from diffuncertainty_tpu_torch.ops import _build
 
     seconds = _build.build_all()
     log(f"build: {_build.sources()} with {_build.find_nvcc()} in {seconds:.2f}s "
         f"(one nvcc per source, in parallel)")
+    reports = {}
     for name, out in _build.build_log.items():
-        for line in out.strip().splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  nvcc[{name}]: {line.strip()}")
+        if "error" in out.lower():
+            log(f"  nvcc[{name}]: {out.strip()}")
+        reports[name] = ptxas_report(out)
+        for entry, text in reports[name].items():
+            log(f"  ptxas[{name}] {entry}: {text}")
+    return reports
 
 
-def attention_case(b: int, t: int, c: int, heads: int, seed: int) -> dict:
+def attention_case(b: int, t: int, c: int, heads: int, seed: int, timed: bool = True) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -143,10 +192,15 @@ def attention_case(b: int, t: int, c: int, heads: int, seed: int) -> dict:
     out = ca.qkv_attention_cuda(qkv, heads)
     ref = ca.qkv_attention_reference(qkv, heads)
     torch.cuda.synchronize()
-    max_err = check_close(f"qkv_attention kernel at B={b} T={t} C={c}", out, ref, "bfloat16")
+    ch = c // heads
+    max_err = check_close(f"qkv_attention kernel at B={b} T={t} C={c} d={ch}", out, ref,
+                          "bfloat16")
+    case = {"B": b, "T": t, "C": c, "heads": heads, "d": ch, "max_abs_err": max_err}
+    if not timed:
+        log(f"qkv_attention B={b} T={t} C={c} d={ch}: max|kernel-twin| {max_err:.3e}")
+        return case
     ms = median_ms(lambda: ca.qkv_attention_cuda(qkv, heads))
     plain_ms = median_ms(lambda: ca.qkv_attention_reference(qkv, heads), runs=5, warmup=1)
-    ch = c // heads
     qh = qkv.view(b, t, heads, 3 * ch).permute(0, 2, 1, 3)
     q, k, v = (qh[..., i * ch:(i + 1) * ch].contiguous() for i in range(3))
     library_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=ch ** -0.5))
@@ -154,20 +208,42 @@ def attention_case(b: int, t: int, c: int, heads: int, seed: int) -> dict:
     nbytes = 2.0 * (b * t * 3 * c + b * t * c)
     bound_flops_ms = flops / PEAK_BF16_FLOPS * 1e3
     bound_bytes_ms = nbytes / PEAK_BYTES * 1e3
-    case = {
-        "B": b, "T": t, "C": c, "heads": heads, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "library_ms": library_ms,
+    case.update({
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bound_flops_ms, bound_bytes_ms),
         "bound_by": "operations" if bound_flops_ms >= bound_bytes_ms else "bytes",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-    }
+    })
     log(f"qkv_attention B={b} T={t} C={c} d={ch}: max|kernel-twin| {max_err:.3e}, "
-        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-        f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}: {case['gflop']:.1f} GFLOP, "
-        f"{case['mbytes']:.1f} MB)")
+        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
+        f"(kernel/sdpa {ms / library_ms:.2f}), bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}: {case['gflop']:.1f} GFLOP, {case['mbytes']:.1f} MB; "
+        f"kernel/bound {ms / case['bound_ms']:.2f})")
     del qkv, out, ref, q, k, v, qh
     torch.cuda.empty_cache()
     return case
+
+
+def attention_width_cases() -> list[dict]:
+    """Every other head width, timed at one network site, then every head
+    width at ragged token counts, then long ragged inputs past 2048 tokens."""
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+
+    rows = BATCH * MEMBERS
+    cases = []
+    for i, (t, c, network) in enumerate(ATTENTION_WIDTH_SITES):
+        cases.append(dict(attention_case(rows, t, c, 4, seed=100 + i), network=network))
+    for ch in ca.HEAD_DIMS:
+        for t in RAGGED_TOKENS:
+            cases.append(attention_case(8, t, 4 * ch, 4, seed=200 + ch + t, timed=False))
+    for ch in (ca.HEAD_DIMS[0], ca.HEAD_DIMS[-1]):
+        cases.append(attention_case(8, 2048, 4 * ch, 4, seed=300 + ch, timed=False))
+        for t in LONG_TOKENS:
+            cases.append(attention_case(2, t, 4 * ch, 4, seed=400 + ch + t, timed=False))
+    widths = {c["d"] for c in cases}
+    if widths != set(ca.HEAD_DIMS):
+        raise AssertionError(f"head widths checked {sorted(widths)} != {ca.HEAD_DIMS}")
+    return cases
 
 
 def norm_sites() -> list[tuple]:
@@ -455,11 +531,12 @@ def main() -> int:
     smi = phase_device()
     import torch
 
-    phase_build()
+    ptxas = phase_build()
     # unet16 attends at its two deepest levels: HW/4 (C=128) and HW/8 (C=256)
     attn_cases = [attention_case(BATCH * MEMBERS, (HW // 4) ** 2, 128, 4, seed=1),
                   attention_case(BATCH * MEMBERS, (HW // 8) ** 2, 256, 4, seed=2)]
     attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
+    width_cases = attention_width_cases()
 
     sites = norm_sites()
     rows = BATCH * MEMBERS
@@ -496,7 +573,7 @@ def main() -> int:
         "launches": launches["qkv_attention"],
         "launches_by_path": {"softmax_call": launches["qkv_attention"],
                              "diffusion_call": diff_launches["qkv_attention"]},
-        "max_abs_err": max(c["max_abs_err"] for c in attn_cases),
+        "max_abs_err": max(c["max_abs_err"] for c in attn_cases + width_cases),
         "ms": attn_per["ms"],
         "plain_ms": attn_per["plain_ms"],
         "bound_ms": attn_per["bound_ms"],
@@ -507,6 +584,8 @@ def main() -> int:
             f"{attn_calls[(c['B'], c['T'], c['C'])]} calls at B={c['B']} T={c['T']} C={c['C']}"
             for c in attn_cases),
         "shapes": attn_cases,
+        "other_widths": width_cases,
+        "ptxas": ptxas.get("qkv_attention", {}),
     }, {
         "name": "group_norm_act",
         "route": "cuda",
@@ -526,6 +605,7 @@ def main() -> int:
                f"bf16 path's shapes and dtypes; a diffusion call is {DDIM_STEPS} forwards",
         "per_diffusion_call": {k: DDIM_STEPS * v for k, v in norm_per.items()},
         "shapes": list(norm_cases.values()),
+        "ptxas": ptxas.get("group_norm_act", {}),
     }]
     log(f"softmax path {img_s:.2f} img/s, diffusion path {diff_img_s:.3f} img/s; "
         f"quality {quality}")

@@ -5,7 +5,9 @@ Port of ``diffuncertainty_tpu/ops/pallas_attention.py``: the TPU kernel
 ``nvcc`` and called through ctypes (``ops/_build.py``).
 ``qkv_attention_reference`` computes the same math in PyTorch; the wrapper
 uses it only for tensors on the CPU. For a CUDA tensor the wrapper launches
-the kernel or raises. No backward: this slice only serves.
+the kernel or raises: the kernel takes the head widths in ``HEAD_DIMS`` (every
+width the repo's networks give with 4 heads) and any token count. No
+backward: this slice only serves.
 """
 
 from __future__ import annotations
@@ -16,15 +18,8 @@ import torch
 
 from . import _build
 
-_SHARED_BYTES = 232448  # per-block shared memory the kernel may opt into (sm_90)
-HEAD_DIMS = (32, 64)  # head widths the kernel is instantiated for
+HEAD_DIMS = (16, 24, 32, 48, 64, 96, 128, 192)  # head widths the kernel is instantiated for
 _launches = 0
-
-
-def kernel_supports(t: int, ch: int) -> bool:
-    """Whether the kernel takes ``t`` tokens at head width ``ch``: K and V of
-    one head (2*t*ch bf16) are staged in shared memory."""
-    return ch in HEAD_DIMS and 4 * t * ch <= _SHARED_BYTES
 
 
 def launch_count() -> int:
@@ -79,21 +74,21 @@ def qkv_attention_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     global _launches
     if qkv.device.type == "cpu":
         return qkv_attention_reference(qkv, num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"qkv_attention_cuda: unsupported device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
         raise TypeError(f"qkv_attention_cuda takes bfloat16, got {qkv.dtype}")
     if qkv.ndim != 3 or qkv.shape[2] % 3 or (qkv.shape[2] // 3) % num_heads:
         raise ValueError(f"qkv shape {tuple(qkv.shape)} is not (B, T, 3C) with C % {num_heads} == 0")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("qkv_attention_cuda needs a contiguous, 16-byte aligned qkv")
     b, t, c3 = qkv.shape
     c = c3 // 3
     ch = c // num_heads
-    if not kernel_supports(t, ch):
-        raise ValueError(f"kernel does not take T={t} at head width {ch}")
+    if ch not in HEAD_DIMS:
+        raise ValueError(f"kernel has no head width {ch}; it is built for {HEAD_DIMS}")
+    if qkv.device.type != "cuda":
+        raise ValueError(f"qkv_attention_cuda: unsupported device {qkv.device}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("qkv_attention_cuda needs a contiguous, 16-byte aligned qkv")
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
-    if b == 0:
+    if out.numel() == 0:
         return out
     err = _library().qkv_attention_bf16(
         qkv.data_ptr(), out.data_ptr(), b, t, c, num_heads, _scale2(ch),

@@ -62,16 +62,16 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec) -> Callable:
     ``generator``: a ``torch.Generator`` on that device, consumed by the TTA
     draws and then the dropout masks (softmax), or by the start noise and
     then each step's dropout masks (diffusion). Runs without autograd.
+    TTA applies to the softmax path only: the diffusion path ignores
+    ``spec.tta``, as the JAX sampler does.
     """
     if built.au_type not in ("softmax", "diffusion"):
         raise NotImplementedError(f"AU type '{built.au_type}' is not ported")
-    if built.au_type == "diffusion" and spec.tta:
-        raise NotImplementedError("TTA on the diffusion path is not ported")
     if spec.member_mode not in ("single", "dropout"):
         raise NotImplementedError(f"member_mode '{spec.member_mode}' is not ported")
     module = built.module
     n_members = spec.n_members if spec.member_mode != "single" else 1
-    member_is_generative = built.is_generative or spec.tta
+    member_is_generative = built.is_generative or (built.au_type == "softmax" and spec.tta)
     num_steps = spec.diffusion_num_steps or built.diffusion_num_steps
     sampler_type = spec.diffusion_sampler or built.diffusion_sampler_type
     samples_per_member = spec.n_pred if member_is_generative else 1

@@ -366,3 +366,42 @@ def test_quality_eval_scores_only_the_first_images():
     assert len(calls) == 2 + 16
     assert set(first) == set(every) == {"dice", "ged_bma", "aurc", "ece"}
     assert first != every
+
+
+def test_diffusion_ignores_tta_as_the_jax_sampler_does(monkeypatch):
+    """The JAX sampler never applies TTA on the diffusion path (it ignores
+    ``spec.tta`` there). With tta=True, trained weights, DDIM-2, 2
+    trajectories x 2 images at 16x16 and the JAX draw of x_init injected,
+    the port gives the JAX sampler's grouping and stack, and from the same
+    generator exactly its own tta=False stack."""
+    from diffuncertainty_tpu.sampling.tta import TTAConfig as JTTAConfig
+    from diffuncertainty_tpu_torch.sampling.tta import TTAConfig
+
+    n_pred, b, hw = 2, 2, 16
+    tta = dict(hflip_p=0.5, rotation_limit=22.5, scale_limit=(-0.2, 0.2))
+    tb = build_model(tconfig.load_config(model="diffusion", eu_method="none"), device="cpu")
+    load_into(tb.module, ASSET)
+    jb = j_build_model(j_load_config(data="lidc128", network="unet16", model="diffusion",
+                                     eu_method="none"))
+    images = np.random.default_rng(5).standard_normal((b, hw, hw, 3)).astype(np.float32)
+    key = jax.random.key(7)
+    x_init = np.array(jax.random.normal(jax.random.split(key)[0], (n_pred * b, hw, hw, 2)))
+    monkeypatch.setattr(t_sampler_mod, "initial_noise",
+                        lambda shape, generator, dtype: torch.from_numpy(x_init).to(dtype))
+    stacks = {}
+    for flag in (False, True):
+        spec = dict(n_pred=n_pred, diffusion_sampler="ddim", diffusion_num_steps=2, tta=flag)
+        fn = t_sampler_mod.make_sampler(
+            tb, t_sampler_mod.SamplerSpec(**spec, tta_config=TTAConfig(**tta)))
+        stacks[flag] = fn(torch.from_numpy(images), torch.Generator().manual_seed(7))
+    j_fn = j_sampler_mod.make_sampler(jb, j_sampler_mod.SamplerSpec(
+        n_pred=n_pred, diffusion_sampler="ddim", diffusion_num_steps=2, tta=True,
+        tta_config=JTTAConfig(**tta)))
+    ref = jax.jit(j_fn)(j_load_npz(ASSET), jnp.asarray(images), key)
+    assert tuple(fn.meta) == tuple(j_fn.meta) == (n_pred, 1, (True, True))
+    assert stacks[True].groups.shape == (n_pred, 1, b, hw, hw, 2)
+    for k in ("groups", "group_means", "mean"):
+        np.testing.assert_allclose(getattr(stacks[True], k).numpy(), np.asarray(getattr(ref, k)),
+                                   atol=1e-5, err_msg=k)
+        torch.testing.assert_close(getattr(stacks[True], k), getattr(stacks[False], k),
+                                   atol=0, rtol=0)

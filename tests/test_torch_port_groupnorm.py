@@ -10,11 +10,17 @@ limits, which the wrapper mirrors in Python, are pinned to the source here.
 import re
 from pathlib import Path
 
+import flax.linen as nn
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from diffuncertainty_tpu.core.config import load_config as j_load_config
+from diffuncertainty_tpu.models import unet as junet
+from diffuncertainty_tpu.models.factory import build_model as j_build_model
+from diffuncertainty_tpu.ops.norm import group_norm_32 as j_group_norm_32
 from diffuncertainty_tpu.ops.pallas_groupnorm import fused_group_norm_act
 from diffuncertainty_tpu_torch.core.config import load_config
 from diffuncertainty_tpu_torch.models import unet as tunet
@@ -141,3 +147,64 @@ def test_diffunet_calls_group_norm_act_at_all_56_sites(monkeypatch, model):
     assert all(contig for *_, contig in calls)
     assert [dt for _, dt, _, _ in calls].count(torch.float32) == 1  # the head, on f32 features
     assert calls[-1][:3] == ((2, 32, 32, 32), torch.float32, "silu")
+
+
+def norm_widths_of(network: str, hw: int) -> list[int]:
+    """The width of every GroupNorm in one softmax forward of the JAX
+    package's network at hw x hw, traced with ``jax.eval_shape`` (no compute)."""
+    cfg = j_load_config(network=network, model="softmax", eu_method="none")
+    built = j_build_model(cfg)
+    widths = []
+
+    def record(next_fun, args, kwargs, context):
+        if context.method_name == "__call__" and isinstance(context.module, junet.GroupNorm32):
+            widths.append(args[0].shape[-1])
+        return next_fun(*args, **kwargs)
+
+    x = jnp.zeros((1, hw, hw, cfg.network.in_channels))
+    with nn.intercept_methods(record):
+        jax.eval_shape(lambda: built.module.init(jax.random.key(0), x))
+    return widths
+
+
+@pytest.fixture(scope="module")
+def norm_widths():
+    """Every GroupNorm width of one forward of each DiffUnet config at 128 px."""
+    return {net: norm_widths_of(net, 128) for net in ("unet4", "unet16", "unet64", "unet256")}
+
+
+def test_kernel_takes_every_network_norm_width_but_unet256s_widest(norm_widths):
+    """The kernel takes every width up to 1024 channels the networks give,
+    in bf16 and fp32; unet256's decoder concatenates 1280 and 1536 channels,
+    which it does not take yet (the port does not build unet256, and on the
+    card the wrapper raises there). unet16's 56 sites all take the kernel."""
+    rejected = {}
+    for net, widths in norm_widths.items():
+        for c in sorted(set(widths)):
+            for dtype in (torch.bfloat16, torch.float32):
+                if not gn.kernel_supports(c, dtype):
+                    rejected.setdefault(net, set()).add((c, dtype))
+    assert rejected == {"unet256": {(c, dt) for c in (1280, 1536)
+                                    for dt in (torch.bfloat16, torch.float32)}}
+    assert len(norm_widths["unet16"]) == 56
+    assert all(gn.kernel_supports(c, torch.bfloat16) for c in norm_widths["unet16"])
+    assert max(norm_widths["unet256"]) == 1536 and len(norm_widths["unet256"]) == 94
+
+
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_group_norm_32_gives_the_jax_result_at_1536_channels(rng, act):
+    """unet256's widest norm, on the CPU (where the wrapper runs the twin and
+    launches nothing), gives the JAX ``group_norm_32`` result."""
+    x, s, b = _inputs(rng, (2, 4, 4, 1536))
+    norm = tunet.GroupNorm32(1536, act=act)
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(s))
+        norm.bias.copy_(torch.from_numpy(b))
+    gn.reset_launch_count()
+    with torch.no_grad():
+        got = norm(torch.from_numpy(x))
+    assert gn.launch_count() == 0
+    ref = j_group_norm_32(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b))
+    if act == "silu":
+        ref = jax.nn.silu(ref)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)

@@ -66,20 +66,37 @@ def test_cuda_wrapper_uses_twin_only_on_cpu(rng):
         ca.qkv_attention_cuda(torch.empty(2, 64, 192, dtype=torch.bfloat16, device="meta"), 4)
 
 
-@pytest.mark.parametrize("t,ch,ok", [(1024, 32, True), (256, 64, True), (1816, 32, True),
-                                     (1817, 32, False), (908, 64, True), (909, 64, False),
-                                     (64, 16, False), (64, 128, False)])
-def test_kernel_gate(t, ch, ok):
-    assert ca.kernel_supports(t, ch) is ok
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("t,ch,dtype,route", [
+    (1024, 32, BF16, "kernel"), (256, 64, BF16, "kernel"), (1817, 32, BF16, "kernel"),
+    (2048, 192, BF16, "kernel"), (49, 24, BF16, "kernel"), (1, 16, BF16, "kernel"),
+    (4096, 128, BF16, "kernel"), (2049, 96, BF16, "kernel"), (64, 40, BF16, "raises"),
+    (64, 256, BF16, "raises"), (64, 8, BF16, "raises"), (1024, 32, F32, "twin")])
+def test_kernel_gate(t, ch, dtype, route):
+    """K and V stream through shared memory in tiles, so every bf16 input of
+    an instantiated head width reaches the kernel's launch, whatever T; any
+    other width raises; fp32 takes the twin. On a ``meta`` tensor the wrapper
+    gets past every check of the input and stops at the device."""
+    qkv = torch.empty(2, t, 3 * 4 * ch, dtype=dtype, device="meta")
+    if route == "twin":
+        assert qkv_attention(qkv, 4).shape == (2, t, 4 * ch)
+        return
+    match = "unsupported device meta" if route == "kernel" else f"no head width {ch}"
+    with pytest.raises(ValueError, match=match):
+        qkv_attention(qkv, 4)
 
 
 def test_kernel_source_matches_python_limits():
-    """The head widths and the shared-memory limit the wrapper checks are the
-    ones the CUDA source instantiates."""
+    """The head widths the wrapper checks are the ones the CUDA source
+    instantiates, and its products and copies are the tensor-core and
+    asynchronous ones."""
     src = (Path(_build.CSRC) / "qkv_attention.cu").read_text()
-    cases = tuple(int(d) for d in re.findall(r"case (\d+):\s*\n\s*return launch<\1,", src))
+    cases = tuple(int(d) for d in re.findall(r"case (\d+):\s*\n\s*return launch<\1>\(", src))
     assert cases == ca.HEAD_DIMS
-    assert int(re.search(r"kMaxSharedBytes = (\d+)", src).group(1)) == ca._SHARED_BYTES
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "cp.async.cg.shared.global" in src and "ldmatrix.sync.aligned" in src
     assert "extern \"C\"" in src and "cudaGetLastError()" in src
 
 
