@@ -15,9 +15,13 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    (one 256-row attention site of a network that has it, at 128x128) and at
    ragged token counts (8 rows, and 2 rows past 2048 tokens at d=16 and
    d=192); the GroupNorm+activation kernel at every
-   norm shape of one 256-row unet16 forward in bf16 and fp32; kernel, twin
-   and library-call times (CUDA events, median of 20 after a warm-up) beside
-   the bound;
+   norm shape of one unet16 forward in bf16 and fp32, at 256 rows and at the
+   batch-1 path's 16 rows, with each launch's cluster plan (K, mode, shared
+   memory, how many such clusters the card runs at once), and at unet256's
+   1280- and 1536-channel norm shapes (2 rows, not timed); kernel, twin and
+   library-call times (CUDA events, median of 20 after a warm-up) beside the
+   bound, and for GroupNorm also the kernel's device time (torch.profiler,
+   the last 20 of 40 launches);
 4. the softmax path: unet16 with the trained toy-128 weights, 16 MC-dropout
    members x TTA folded into one 256-row bf16 forward on 16 images at
    128x128, with the kernels' launch counts read around that one call;
@@ -84,28 +88,15 @@ RAGGED_TOKENS = (1, 80, 1000)
 # ragged token counts past the Pallas kernel's 2048, checked at the narrowest
 # and widest head width, 2 rows
 LONG_TOKENS = (2049, 4100)
+# the GroupNorm kernel's row counts: the main paths' and the batch-1 path's
+NORM_ROWS = (BATCH * MEMBERS, BATCH)
+# unet256's norms wider than 1024 channels at 128x128 (shape without batch),
+# checked (not timed) at 2 rows
+WIDE_NORM_SITES = ((8, 8, 1280), (8, 8, 1536), (16, 16, 1280))
 
 
 def log(msg: str) -> None:
     print(f"[chip_smoke {time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
-
-
-def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def check_close(name: str, out, ref, dtype_name: str) -> float:
@@ -186,6 +177,7 @@ def attention_case(b: int, t: int, c: int, heads: int, seed: int, timed: bool = 
     import torch.nn.functional as F
 
     from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.tools.groupnorm_sites import event_ms as median_ms
 
     gen = torch.Generator("cuda").manual_seed(seed)
     qkv = torch.randn((b, t, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -246,33 +238,15 @@ def attention_width_cases() -> list[dict]:
     return cases
 
 
-def norm_sites() -> list[tuple]:
-    """(shape without batch, dtype name, act) of every GroupNorm call in one
-    bf16 unet16 forward at HW x HW, from a one-row forward on the host; the
-    diffusion unet16 differs only in its input conv and time embedding."""
-    import torch
-
-    from diffuncertainty_tpu_torch.core.config import load_config
-    from diffuncertainty_tpu_torch.models.factory import build_model
-    from diffuncertainty_tpu_torch.models.unet import GroupNorm32
-
-    built = build_model(load_config(precision="bf16"), device="cpu")
-    sites = []
-    for m in built.module.modules():
-        if isinstance(m, GroupNorm32):
-            m.register_forward_pre_hook(lambda mod, args: sites.append(
-                (tuple(args[0].shape[1:]), str(args[0].dtype).split(".")[-1], mod.act)))
-    with torch.no_grad():
-        built.module(torch.zeros(1, HW, HW, 3), torch.Generator().manual_seed(0))
-    return sites
-
-
-def group_norm_case(shape: tuple, dtype_name: str, act: str, seed: int) -> dict:
+def group_norm_case(shape: tuple, dtype_name: str, act: str, seed: int,
+                    timed: bool = True) -> dict:
     import torch
     import torch.nn.functional as F
 
     from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
     from diffuncertainty_tpu_torch.ops.norm import num_groups_for
+    from diffuncertainty_tpu_torch.tools.groupnorm_sites import device_ms
+    from diffuncertainty_tpu_torch.tools.groupnorm_sites import event_ms as median_ms
 
     dtype = getattr(torch, dtype_name)
     gen = torch.Generator("cuda").manual_seed(seed)
@@ -285,7 +259,21 @@ def group_norm_case(shape: tuple, dtype_name: str, act: str, seed: int) -> dict:
     torch.cuda.synchronize()
     max_err = check_close(f"group_norm_act kernel at {shape} {dtype_name} {act}", out, ref,
                           dtype_name)
+    s = x.numel() // (shape[0] * c)
+    plan = gn.cluster_plan(s, c, dtype, shape[0])
+    clusters = gn.max_active_clusters(s, c, dtype, act, plan, x.device)
+    case = {"shape": list(shape), "dtype": dtype_name, "act": act, "max_abs_err": max_err,
+            "cluster": plan.cluster, "mode": plan.mode, "smem": plan.smem,
+            "threads": plan.threads, "cache_pix": plan.cache_pix,
+            "slice_pix": plan.slice_pix, "active_clusters": clusters}
+    plan_text = (f"K={plan.cluster} {plan.mode} ({plan.cache_pix}/{plan.slice_pix} px cached), "
+                 f"{plan.threads} threads, {plan.smem} B shared, {clusters} clusters at once")
+    if not timed:
+        log(f"group_norm_act {shape} {dtype_name} {act}: max|kernel-twin| {max_err:.3e}; "
+            f"{plan_text}")
+        return case
     ms = median_ms(lambda: gn.group_norm_act(x, scale, bias, act))
+    dev_ms = device_ms(lambda: gn.group_norm_act(x, scale, bias, act))
     plain_ms = median_ms(lambda: gn.group_norm_act_reference(x, scale, bias, act), runs=5,
                          warmup=1)
     # library: one F.group_norm (+ F.silu) on the channels-last NCHW view
@@ -304,17 +292,19 @@ def group_norm_case(shape: tuple, dtype_name: str, act: str, seed: int) -> dict:
     flops = numel * (5.0 + (3.0 if act == "silu" else 0.0))
     bound_bytes_ms = nbytes / PEAK_BYTES * 1e3
     bound_flops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    case = {
-        "shape": list(shape), "dtype": dtype_name, "act": act, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    case.update({
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(bound_bytes_ms, bound_flops_ms),
         "bound_by": "bytes" if bound_bytes_ms >= bound_flops_ms else "operations",
         "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_flops_ms,
         "mbytes": nbytes / 1e6,
-    }
-    log(f"group_norm_act {shape} {dtype_name} {act}: max|kernel-twin| {max_err:.3e}, "
-        f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, F.group_norm {library_ms:.4f} ms, "
-        f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}: {case['mbytes']:.1f} MB)")
+    })
+    device = "not measured" if dev_ms is None else (
+        f"{dev_ms:.4f} ms, {dev_ms / case['bound_ms']:.2f}x the bound")
+    log(f"group_norm_act {shape} {dtype_name} {act}: max|kernel-twin| {max_err:.3e}; "
+        f"{plan_text}; kernel {ms:.4f} ms (device {device}), twin {plain_ms:.4f} ms, "
+        f"F.group_norm {library_ms:.4f} ms, bound {case['bound_ms']:.4f} ms "
+        f"({case['bound_by']}: {case['mbytes']:.1f} MB)")
     del x, xv, out, ref
     torch.cuda.empty_cache()
     return case
@@ -532,25 +522,30 @@ def main() -> int:
     import torch
 
     ptxas = phase_build()
+    from diffuncertainty_tpu_torch.tools.groupnorm_sites import fmt, norm_sites, per_forward
     # unet16 attends at its two deepest levels: HW/4 (C=128) and HW/8 (C=256)
     attn_cases = [attention_case(BATCH * MEMBERS, (HW // 4) ** 2, 128, 4, seed=1),
                   attention_case(BATCH * MEMBERS, (HW // 8) ** 2, 256, 4, seed=2)]
     attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
     width_cases = attention_width_cases()
 
-    sites = norm_sites()
+    sites = norm_sites(HW)
     rows = BATCH * MEMBERS
     distinct = sorted(set(sites), key=lambda s: (-s[0][0], s))
     log(f"GroupNorm sites of one forward: {len(sites)}, distinct (shape, dtype, act): "
         f"{len(distinct)}")
     # every site's shape in both dtypes: bf16 as the bf16 paths give it (and
-    # fp32 at the head), fp32 as the fp32 paths give it
+    # fp32 at the head), fp32 as the fp32 paths give it; at the main paths'
+    # 256 rows and the batch-1 path's 16
     norm_cases = {}
-    for shape, act in sorted({(shape, act) for shape, _, act in distinct},
-                             key=lambda sa: (-sa[0][0], sa)):
-        for dt in ("bfloat16", "float32"):
-            norm_cases[((rows,) + shape, dt, act)] = group_norm_case(
-                (rows,) + shape, dt, act, seed=10 + len(norm_cases))
+    for n_rows in NORM_ROWS:
+        for shape, act in sorted({(shape, act) for shape, _, act in distinct},
+                                 key=lambda sa: (-sa[0][0], sa)):
+            for dt in ("bfloat16", "float32"):
+                norm_cases[((n_rows,) + shape, dt, act)] = group_norm_case(
+                    (n_rows,) + shape, dt, act, seed=10 + len(norm_cases))
+    wide_cases = [group_norm_case((2,) + shape, dt, "silu", seed=500 + i, timed=False)
+                  for i, shape in enumerate(WIDE_NORM_SITES) for dt in ("bfloat16", "float32")]
     norm_checked = {((rows,) + shape, dt, act) for shape, dt, act in distinct}
 
     launches, attn_calls, norm_seen, img_s = phase_main_path(attn_checked, norm_checked)
@@ -562,9 +557,16 @@ def main() -> int:
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     bound_by = max(attn_cases,
                    key=lambda c: attn_calls[(c["B"], c["T"], c["C"])] * c["bound_ms"])
-    norm_per = {k: sum(norm_cases[site][k] for site in norm_seen)
-                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms",
-                          "bound_ops_ms")}
+    # GroupNorm per forward at 256 rows (the main paths) and at 16 (batch-1)
+    norm_keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms",
+                 "bound_ops_ms")
+    norm_per, norm_per16 = ({k: per_forward([
+        dict(norm_cases[((n_rows,) + shape[1:], dt, act)], calls=1) for shape, dt, act in norm_seen],
+        k) for k in norm_keys} for n_rows in NORM_ROWS)
+    log(f"GroupNorm per forward: {rows} rows device {fmt(norm_per['device_ms'])} (events "
+        f"{fmt(norm_per['ms'])}), bound {fmt(norm_per['bound_ms'])}, F.group_norm "
+        f"{fmt(norm_per['library_ms'])}; {BATCH} rows device {fmt(norm_per16['device_ms'])} "
+        f"(events {fmt(norm_per16['ms'])}), bound {fmt(norm_per16['bound_ms'])}")
     kernels = [{
         "name": "qkv_attention",
         "route": "cuda",
@@ -594,8 +596,9 @@ def main() -> int:
         "launches": launches["group_norm_act"],
         "launches_by_path": {"softmax_call": launches["group_norm_act"],
                              "diffusion_call": diff_launches["group_norm_act"]},
-        "max_abs_err": max(c["max_abs_err"] for c in norm_cases.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in list(norm_cases.values()) + wide_cases),
         "ms": norm_per["ms"],
+        "device_ms": norm_per["device_ms"],
         "plain_ms": norm_per["plain_ms"],
         "bound_ms": norm_per["bound_ms"],
         "bound_by": ("bytes" if norm_per["bound_bytes_ms"] >= norm_per["bound_ops_ms"]
@@ -603,8 +606,11 @@ def main() -> int:
         "library_ms": norm_per["library_ms"],
         "per": f"one {rows}-row unet16 forward: its {len(norm_seen)} GroupNorm sites at the "
                f"bf16 path's shapes and dtypes; a diffusion call is {DDIM_STEPS} forwards",
-        "per_diffusion_call": {k: DDIM_STEPS * v for k, v in norm_per.items()},
+        "per_diffusion_call": {k: None if v is None else DDIM_STEPS * v
+                               for k, v in norm_per.items()},
+        "rows16": dict(norm_per16, per=f"one {BATCH}-row unet16 forward (the batch-1 path)"),
         "shapes": list(norm_cases.values()),
+        "wide_shapes": wide_cases,
         "ptxas": ptxas.get("group_norm_act", {}),
     }]
     log(f"softmax path {img_s:.2f} img/s, diffusion path {diff_img_s:.3f} img/s; "

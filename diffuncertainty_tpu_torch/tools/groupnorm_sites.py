@@ -1,0 +1,231 @@
+"""Per-site times of the GroupNorm+activation kernel on the card.
+
+    python3 diffuncertainty_tpu_torch/tools/groupnorm_sites.py [--rows 256 16] [--root DIR] [--alternatives]
+
+For every distinct GroupNorm site of one bf16 unet16 forward at 128x128
+(shape, dtype and activation as the bf16 paths give them), at each row count:
+the kernel's time as CUDA events around one wrapper call (median of 20 after
+a warm-up; a launch shorter than the wrapper's host time counts the host
+time too) and as device time (``torch.profiler``'s CUDA time of the kernel,
+the mean of the last 20 of 40 launches), beside the byte bound (each input read
+once and each output written once at 3.35 TB/s), and the wrapper's host time
+per call. Then the per-forward sums
+(each site times its calls in one forward). ``--root`` times the
+``diffuncertainty_tpu_torch`` package of another checkout (say, the parent
+commit unpacked beside this one), so two versions compare in one call; the
+script imports only modules every version of the port has.
+``--alternatives`` also times, per site, the launches that ``cluster_plan``
+passes over: every slice held whole by blocks of one to an SM (up to 227 KB
+of shared memory each), and K doubled until the grid fills the card twice
+over (264 blocks). Prints one JSON line last. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+HW = 128
+
+
+def norm_sites(hw: int = HW) -> list[tuple]:
+    """(shape without batch, dtype name, act) of every GroupNorm call in one
+    bf16 unet16 forward at hw x hw, in call order, from a one-row forward on
+    the host; the diffusion unet16 differs only in its input conv and time
+    embedding."""
+    import torch
+
+    from diffuncertainty_tpu_torch.core.config import load_config
+    from diffuncertainty_tpu_torch.models.factory import build_model
+    from diffuncertainty_tpu_torch.models.unet import GroupNorm32
+
+    built = build_model(load_config(precision="bf16"), device="cpu")
+    sites = []
+    for m in built.module.modules():
+        if isinstance(m, GroupNorm32):
+            m.register_forward_pre_hook(lambda mod, args: sites.append(
+                (tuple(args[0].shape[1:]), str(args[0].dtype).split(".")[-1], mod.act)))
+    with torch.no_grad():
+        built.module(torch.zeros(1, hw, hw, 3), torch.Generator().manual_seed(0))
+    return sites
+
+
+def device_ms(fn, n: int = 20, match: str = "group_norm_act", tries: int = 3) -> float | None:
+    """Device time in ms of one launch of ``fn``: the mean CUDA time of the
+    last ``n`` kernels whose name holds ``match`` in a ``torch.profiler``
+    trace of 2n calls. The trace can miss launches (on the H100 it kept as
+    few as 4 of the first 20, and once none of 40), so the first n calls
+    only warm it up, a trace that kept fewer than n is taken again, up to
+    ``tries`` times, and then the time is None: not measured."""
+    import torch
+    from torch.autograd import DeviceType
+
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(2 * n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA and match in e.name),
+                         key=lambda e: e.time_range.start)
+        if len(kernels) >= n:
+            return sum(e.time_range.elapsed_us() for e in kernels[-n:]) / n / 1e3
+    return None
+
+
+def event_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Median of ``runs`` CUDA-event times around one call, after ``warmup``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time in µs of one call of ``fn`` (the launch, not the kernel):
+    the host clock over ``n`` calls issued back to back, before the device
+    is waited for."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / n * 1e6
+
+
+def inputs(shape: tuple, dtype_name: str, seed: int):
+    """x ~ 3 N(0, 1) + 1 in ``dtype_name``, scale and bias ~ N(0, 1) in fp32."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = (3.0 * torch.randn(shape, generator=gen, device="cuda") + 1.0).to(
+        getattr(torch, dtype_name))
+    scale = torch.randn(shape[-1], generator=gen, device="cuda")
+    bias = torch.randn(shape[-1], generator=gen, device="cuda")
+    return x, scale, bias
+
+
+def bound_ms(shape: tuple, dtype_name: str) -> float:
+    """Each input value read once and each output written once at 3.35 TB/s,
+    plus the fp32 affine."""
+    import math
+
+    numel = math.prod(shape)
+    elem = 2 if dtype_name == "bfloat16" else 4
+    return (2.0 * numel * elem + 2 * shape[-1] * 4) / PEAK_BYTES * 1e3
+
+
+def per_forward(per_site: list[dict], key: str) -> float | None:
+    """Sum over the sites of calls x ``key``; None if a site lacks it."""
+    values = [p["calls"] * p[key] for p in per_site if p[key] is not None]
+    return sum(values) if len(values) == len(per_site) else None
+
+
+def fmt(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def alternatives(gn, shape: tuple, dtype, rows: int) -> dict:
+    """The launches ``cluster_plan`` passes over for ``rows`` elements of
+    ``shape``: "one_per_sm", the smallest K whose blocks hold their whole slice
+    in up to 227 KB each; "fill", the plan's K doubled until 264 blocks."""
+    import math
+
+    s, c = math.prod(shape[:-1]), shape[-1]
+    plan = gn.cluster_plan(s, c, dtype, rows)
+    wide = gn.block_threads(c, dtype)
+    held = [gn.plan_for(s, c, dtype, k, wide, gn.SMEM_LIMIT) for k in gn.CLUSTER_SIZES]
+    out = {"one_per_sm": next((p for p in held if p.mode == "resident"), held[-1])}
+    k = plan.cluster
+    while k < gn.CLUSTER_SIZES[-1] and rows * k < 2 * gn.SMS and 2 * k <= s:
+        k *= 2
+    if k != plan.cluster:
+        budget = gn.THIRD_SMEM if plan.smem <= gn.THIRD_SMEM else gn.PAIR_SMEM
+        out["fill"] = gn.plan_for(s, c, dtype, k, plan.threads, budget)
+    return {name: p for name, p in out.items() if p != plan}
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--rows", type=int, nargs="+", default=[256, 16])
+    parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
+                        help="checkout whose diffuncertainty_tpu_torch is timed")
+    parser.add_argument("--alternatives", action="store_true",
+                        help="also time the launches cluster_plan passes over")
+    args = parser.parse_args()
+    sys.path.insert(0, str(args.root.resolve()))
+    import torch
+
+    from diffuncertainty_tpu_torch.ops import _build
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+
+    if not torch.cuda.is_available():
+        raise SystemExit("groupnorm_sites needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"package {Path(gn.__file__).resolve().parents[1]}; {smi}", flush=True)
+    _build.build_all()
+    for line in _build.build_log.get("group_norm_act", "").splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print(line.strip(), flush=True)
+    sites = norm_sites()
+    distinct = sorted(set(sites), key=lambda s: (-s[0][0], s))
+    small = torch.ones(16, device="cuda")
+    add_us = host_us(lambda: torch.add(small, small))
+    print(f"host time of one torch.add for reference: {add_us:.1f} us", flush=True)
+    result = {"root": str(args.root.resolve()), "device": smi, "add_host_us": add_us, "rows": {}}
+    for rows in args.rows:
+        per_site = []
+        for i, (shape, dtype_name, act) in enumerate(distinct):
+            x, scale, bias = inputs((rows,) + shape, dtype_name, seed=10 + i)
+            call = lambda x=x, scale=scale, bias=bias, act=act: gn.group_norm_act(  # noqa: E731
+                x, scale, bias, act)
+            per_site.append({"shape": list(shape), "dtype": dtype_name, "act": act,
+                             "calls": sites.count((shape, dtype_name, act)),
+                             "ms": event_ms(call), "device_ms": device_ms(call),
+                             "host_us": host_us(call),
+                             "bound_ms": bound_ms((rows,) + shape, dtype_name)})
+            if args.alternatives:
+                per_site[-1]["alternatives"] = {
+                    name: {"plan": plan._asdict(), "device_ms": device_ms(
+                        lambda plan=plan: gn.group_norm_act(x, scale, bias, act, plan=plan))}
+                    for name, plan in alternatives(gn, shape, x.dtype, rows).items()}
+            del x, scale, bias
+        sums = {k: per_forward(per_site, k) for k in ("ms", "device_ms", "bound_ms")}
+        for p in per_site:
+            alt = "".join(f"; {name} {a['plan']['cluster']}x{a['plan']['threads']} "
+                          f"{a['plan']['mode']} {fmt(a['device_ms'])}"
+                          for name, a in p.get("alternatives", {}).items())
+            print(f"rows {rows} {tuple(p['shape'])} {p['dtype']} {p['act']} x{p['calls']}: "
+                  f"event {fmt(p['ms'])}, device {fmt(p['device_ms'])}, bound "
+                  f"{fmt(p['bound_ms'])}, host {p['host_us']:.1f} us a call" + alt, flush=True)
+        print(f"rows {rows} per forward: event {fmt(sums['ms'])}, device "
+              f"{fmt(sums['device_ms'])}, bound {fmt(sums['bound_ms'])}", flush=True)
+        result["rows"][rows] = {"sites": per_site, "per_forward": sums}
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

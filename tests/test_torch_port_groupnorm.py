@@ -1,12 +1,15 @@
-"""Port parity: the GroupNorm+activation kernel's twin, its limits, and the
-DiffUnet's use of it.
+"""Port parity: the GroupNorm+activation kernel's twin, its limits, its
+cluster plan, and the DiffUnet's use of it.
 
 The twin runs against the JAX package's Pallas kernel in interpret mode on
 the same numpy inputs, at the JAX package's own kernel tolerance, 2e-6
 (tests/test_pallas_ops.py). The CUDA kernel itself needs the card; its
-limits, which the wrapper mirrors in Python, are pinned to the source here.
+limits and shared-memory layout, which the wrapper mirrors in Python, are
+pinned to the source here, and the plan that picks each launch's cluster is
+pinned at every norm site of unet16 and at unet256's widest.
 """
 
+import math
 import re
 from pathlib import Path
 
@@ -78,7 +81,7 @@ def test_wrapper_uses_twin_only_on_cpu(rng):
     (32, torch.bfloat16, 512), (96, torch.bfloat16, 480), (384, torch.bfloat16, 480),
     (512, torch.bfloat16, 512), (1024, torch.bfloat16, 512), (32, torch.float32, 512),
     (36, torch.float32, 288), (1024, torch.float32, 512), (1025, torch.float32, None),
-    (20, torch.bfloat16, None), (1000, torch.bfloat16, None), (64, torch.float16, None),
+    (20, torch.bfloat16, None), (1000, torch.bfloat16, 512), (64, torch.float16, None),
 ])
 def test_block_threads(c, dtype, threads):
     assert gn.block_threads(c, dtype) == threads
@@ -97,7 +100,10 @@ def test_unet16_channels_all_fit_the_kernel():
 
 def test_kernel_source_matches_python_limits():
     assert int(re.search(r"kMaxThreads = (\d+)", SRC).group(1)) == gn.MAX_THREADS
-    assert int(re.search(r"kMaxChannels = (\d+)", SRC).group(1)) == gn.MAX_CHANNELS
+    assert int(re.search(r"kMaxChannels = (\d+)", SRC).group(1)) == gn.MAX_CHANNELS >= 1536
+    assert int(re.search(r"kMaxCluster = (\d+)", SRC).group(1)) == max(gn.CLUSTER_SIZES) == 16
+    assert int(re.search(r"kSmemLimit = (\d+)", SRC).group(1)) == gn.SMEM_LIMIT == 227 * 1024
+    assert int(re.search(r"kChunks = (\d+)", SRC).group(1)) == gn.CHUNKS
     vec = dict(re.findall(r"struct VecOf<(\w+)> \{\s*static constexpr int N = (\d+);", SRC))
     assert {k: int(v) for k, v in vec.items()} == {"float": 4, "__nv_bfloat16": 8}
     assert all(int(n) * {"float": 4, "__nv_bfloat16": 2}[k] == gn.VECTOR_BYTES
@@ -107,8 +113,42 @@ def test_kernel_source_matches_python_limits():
     dtypes = re.findall(r"case (\d):\s*\n\s*return launch<([\w_]+)>", SRC)
     assert {int(k): v for k, v in dtypes} == {0: "float", 1: "__nv_bfloat16"}
     assert gn.DTYPES == {torch.float32: 0, torch.bfloat16: 1}
-    assert "threads % 32 != 0 || threads % (c / V) != 0" in SRC
+    assert "threads % 32 != 0 || threads < c / V" in SRC
+    assert "cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 ||" in SRC
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in SRC
     assert "extern \"C\"" in SRC and "cudaGetLastError()" in SRC
+
+
+def _source_smem_layout(cache_bytes: int, threads: int, v: int, c: int, groups: int) -> int:
+    """``smem_layout(...).total`` evaluated from the source's own lines."""
+    body = re.search(r"inline Layout smem_layout\(.*?\{(.*?)return l;", SRC, re.S).group(1)
+    rows = re.search(r"int part_rows\(int threads, int cv\) \{\s*return (.*?);", SRC, re.S).group(1)
+    env = {"cache_bytes": cache_bytes, "threads": threads, "v": v, "c": c, "groups": groups,
+           "kChunks": gn.CHUNKS}
+    env["part_rows"] = lambda threads, cv: eval(
+        re.sub(r"(.+) \? (.+) : (.+)", r"(\2) if (\1) else (\3)", rows).replace("/", "//"),
+        {}, {"threads": threads, "cv": cv})
+    for name, expr in re.findall(r"l\.(\w+) = (.*?);", body):
+        env[name] = eval(expr.replace("l.", "").replace("/", "//"), {}, env)
+    return env["total"]
+
+
+@pytest.mark.parametrize("c,dtype", [
+    (8, torch.bfloat16), (32, torch.bfloat16), (96, torch.bfloat16), (192, torch.bfloat16),
+    (1000, torch.bfloat16), (1536, torch.bfloat16), (2048, torch.bfloat16),
+    (8, torch.float32), (36, torch.float32), (256, torch.float32), (384, torch.float32),
+    (1280, torch.float32), (2048, torch.float32),
+])
+def test_fixed_smem_matches_source_layout(c, dtype):
+    """The plan's shared-memory size is the source's ``smem_layout`` total,
+    which the C launch requires exactly."""
+    v = gn.VECTOR_BYTES // gn.ELEMENT_BYTES[dtype]
+    groups = gn.num_groups_for(c)
+    for threads in {gn.block_threads(c, dtype), gn.block_threads(c, dtype, 256)} - {None}:
+        for cache_pix in (0, 3, 64):
+            cache = cache_pix * c * gn.ELEMENT_BYTES[dtype]
+            assert (_source_smem_layout(cache, threads, v, c, groups)
+                    == gn.fixed_smem(c, dtype, threads) + cache)
 
 
 def test_ctypes_signature_is_declared_before_calls():
@@ -120,6 +160,9 @@ def test_ctypes_signature_is_declared_before_calls():
     assert "ctypes.c_longlong, ctypes.c_longlong" in src
     c_sig = re.search(r"int group_norm_act\(([^)]*)\)", SRC).group(1)
     assert c_sig.count("void*") == 5 and c_sig.count("long long") == 2
+    q_sig = re.search(r"int group_norm_act_clusters\(([^)]*)\)", SRC).group(1)
+    assert q_sig.count("long long") == 1 and q_sig.count("int*") == 1
+    assert "ctypes.POINTER(ctypes.c_int)" in src
 
 
 @pytest.mark.parametrize("model", ["softmax", "diffusion"])
@@ -149,22 +192,28 @@ def test_diffunet_calls_group_norm_act_at_all_56_sites(monkeypatch, model):
     assert calls[-1][:3] == ((2, 32, 32, 32), torch.float32, "silu")
 
 
-def norm_widths_of(network: str, hw: int) -> list[int]:
-    """The width of every GroupNorm in one softmax forward of the JAX
-    package's network at hw x hw, traced with ``jax.eval_shape`` (no compute)."""
+def norm_shapes_of(network: str, hw: int) -> list[tuple]:
+    """The input shape, without the batch, of every GroupNorm in one softmax
+    forward of the JAX package's network at hw x hw, traced with
+    ``jax.eval_shape`` (no compute)."""
     cfg = j_load_config(network=network, model="softmax", eu_method="none")
     built = j_build_model(cfg)
-    widths = []
+    shapes = []
 
     def record(next_fun, args, kwargs, context):
         if context.method_name == "__call__" and isinstance(context.module, junet.GroupNorm32):
-            widths.append(args[0].shape[-1])
+            shapes.append(tuple(args[0].shape[1:]))
         return next_fun(*args, **kwargs)
 
     x = jnp.zeros((1, hw, hw, cfg.network.in_channels))
     with nn.intercept_methods(record):
         jax.eval_shape(lambda: built.module.init(jax.random.key(0), x))
-    return widths
+    return shapes
+
+
+def norm_widths_of(network: str, hw: int) -> list[int]:
+    """The width of every GroupNorm in one softmax forward at hw x hw."""
+    return [shape[-1] for shape in norm_shapes_of(network, hw)]
 
 
 @pytest.fixture(scope="module")
@@ -174,21 +223,16 @@ def norm_widths():
 
 
 def test_kernel_takes_every_network_norm_width_but_unet256s_widest(norm_widths):
-    """The kernel takes every width up to 1024 channels the networks give,
-    in bf16 and fp32; unet256's decoder concatenates 1280 and 1536 channels,
-    which it does not take yet (the port does not build unet256, and on the
-    card the wrapper raises there). unet16's 56 sites all take the kernel."""
-    rejected = {}
+    """The kernel takes every width the networks give, in bf16 and fp32, up
+    to and with unet256's decoder concatenations of 1280 and 1536 channels
+    (the name dates from when the kernel stopped at 1024)."""
     for net, widths in norm_widths.items():
         for c in sorted(set(widths)):
             for dtype in (torch.bfloat16, torch.float32):
-                if not gn.kernel_supports(c, dtype):
-                    rejected.setdefault(net, set()).add((c, dtype))
-    assert rejected == {"unet256": {(c, dt) for c in (1280, 1536)
-                                    for dt in (torch.bfloat16, torch.float32)}}
+                assert gn.kernel_supports(c, dtype), (net, c, dtype)
     assert len(norm_widths["unet16"]) == 56
-    assert all(gn.kernel_supports(c, torch.bfloat16) for c in norm_widths["unet16"])
     assert max(norm_widths["unet256"]) == 1536 and len(norm_widths["unet256"]) == 94
+    assert {1280, 1536} <= set(norm_widths["unet256"])
 
 
 @pytest.mark.parametrize("act", ["none", "silu"])
@@ -208,3 +252,71 @@ def test_group_norm_32_gives_the_jax_result_at_1536_channels(rng, act):
     if act == "silu":
         ref = jax.nn.silu(ref)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+# The distinct GroupNorm input shapes (without the batch) of one unet16 forward
+# at 128x128: 19 in bf16 on the bf16 paths, and the head's (128, 128, 32) also
+# in fp32. unet256's norms wider than 1024 channels at 128x128 follow.
+UNET16_SITES = [
+    (1024, 128), (256, 256), (128, 128, 32), (128, 128, 64), (128, 128, 96), (64, 64, 32),
+    (64, 64, 64), (64, 64, 96), (64, 64, 128), (64, 64, 192), (32, 32, 64), (32, 32, 128),
+    (32, 32, 192), (32, 32, 256), (32, 32, 384), (16, 16, 128), (16, 16, 256), (16, 16, 384),
+    (16, 16, 512),
+]
+UNET256_WIDE_SITES = [(8, 8, 1280), (8, 8, 1536), (16, 16, 1280)]
+# the sites whose element 16 blocks of two to an SM do not hold: streamed in part
+STREAMED = {((128, 128, 32), torch.float32), ((128, 128, 64), torch.bfloat16),
+            ((128, 128, 64), torch.float32), ((128, 128, 96), torch.bfloat16),
+            ((128, 128, 96), torch.float32), ((64, 64, 128), torch.float32),
+            ((64, 64, 192), torch.float32)}
+
+
+def test_site_lists_are_the_networks():
+    assert set(norm_shapes_of("unet16", 128)) == set(UNET16_SITES)
+    wide = {shape for shape in norm_shapes_of("unet256", 128) if shape[-1] > 1024}
+    assert wide == set(UNET256_WIDE_SITES)
+
+
+@pytest.mark.parametrize("rows", [256, 16])
+@pytest.mark.parametrize("shape", UNET16_SITES + UNET256_WIDE_SITES)
+def test_cluster_plan_at_network_sites(shape, rows):
+    """One cluster per batch element: K a cluster size, each block's slice
+    of whole pixels within the shared-memory budget, held whole (read once)
+    unless even 16 blocks of two to an SM cannot hold the element, at least
+    FILL_BLOCKS blocks unless K is already 16, and no smaller cluster that
+    would hold the slices at the same budget."""
+    s, c = math.prod(shape[:-1]), shape[-1]
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = gn.cluster_plan(s, c, dtype, rows)
+        pix = c * gn.ELEMENT_BYTES[dtype]
+        fixed = gn.fixed_smem(c, dtype, plan.threads)
+        assert plan.cluster in gn.CLUSTER_SIZES
+        assert plan.threads in (gn.block_threads(c, dtype), gn.block_threads(c, dtype, 256))
+        assert plan.slice_pix == -(-s // plan.cluster)
+        assert (plan.cluster - 1) * plan.slice_pix < s  # no block without pixels
+        assert plan.smem == fixed + plan.cache_pix * pix <= gn.PAIR_SMEM < gn.SMEM_LIMIT
+        assert plan.cluster == 16 or rows * plan.cluster >= gn.FILL_BLOCKS
+        narrow = gn.block_threads(c, dtype, 256) or gn.block_threads(c, dtype)
+        held = gn.fixed_smem(c, dtype, narrow) + -(-s // 16) * pix
+        assert (plan.mode == "stream") is (held > gn.PAIR_SMEM)
+        assert plan.threads == (narrow if plan.mode == "resident" else gn.block_threads(c, dtype))
+        assert (plan.mode == "stream") is ((shape, dtype) in STREAMED)
+        if plan.mode == "resident":
+            assert plan.cache_pix == plan.slice_pix  # read from device memory once
+            budget = gn.THIRD_SMEM if plan.smem <= gn.THIRD_SMEM else gn.PAIR_SMEM
+            smaller = [k for k in gn.CLUSTER_SIZES if k < plan.cluster
+                       and fixed + -(-s // k) * pix <= budget]
+            assert not smaller or rows * smaller[-1] < gn.FILL_BLOCKS
+        else:
+            assert plan.cluster == 16 and 0 < plan.cache_pix < plan.slice_pix
+            # on the bf16 paths (bf16, and the head's fp32), the part that all
+            # blocks, two to an SM, read twice fits the 50 MB L2
+            if dtype == torch.bfloat16 or shape == (128, 128, 32):
+                assert 2 * gn.SMS * (plan.slice_pix - plan.cache_pix) * pix < 50e6
+
+
+def test_cluster_plan_rejects_what_the_kernel_does_not_take():
+    assert gn.cluster_plan(64, 2056, torch.float32, 4) is None  # past MAX_CHANNELS
+    assert gn.cluster_plan(64, 20, torch.bfloat16, 4) is None  # not whole 16-byte packets
+    assert gn.cluster_plan(64, 64, torch.float16, 4) is None
+    assert gn.cluster_plan(1, 32, torch.bfloat16, 1).cluster == 1  # a one-pixel element
