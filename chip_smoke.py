@@ -17,8 +17,12 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    d=192); the GroupNorm+activation kernel at every
    norm shape of one unet16 forward in bf16 and fp32, at 256 rows and at the
    batch-1 path's 16 rows, with each launch's cluster plan (K, mode, shared
-   memory, how many such clusters the card runs at once), and at unet256's
-   1280- and 1536-channel norm shapes (2 rows, not timed); kernel, twin and
+   memory, how many such clusters the card runs at once), at every other
+   norm shape of one SSN and one prob-U-Net forward at their 16 rows (the
+   prob-U-Net's widths 160 and 288 among them), and at unet256's
+   1280- and 1536-channel norm shapes (2 rows, not timed); the attention
+   kernel also at the 16-row sites of the SSN and prob-U-Net paths
+   (d = 32, 64, 24, 48); kernel, twin and
    library-call times (CUDA events, median of 20 after a warm-up) beside the
    bound, and for GroupNorm also the kernel's device time (torch.profiler,
    the last 20 of 40 launches);
@@ -29,9 +33,18 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    16 DDIM-10 trajectories on 16 images at 128x128 (ten 256-row bf16
    forwards per call), with the launch counts read around one call, and bf16
    held against fp32 from the same start noise;
-6. toy-128 quality of the softmax bf16 and fp32 paths and of the diffusion
-   bf16 path, held to bands around the JAX package's recorded numbers
-   (PARITY.md section 3).
+6. the SSN path: unet16 with the trained toy-128 SSN weights, one 16-row
+   bf16 forward on 16 images and 16 draws from its low-rank normal, with the
+   launch counts read around one call, the count of elements whose
+   covariance failed, and bf16 held against fp32 from the same draws;
+7. the prob-U-Net path: the trained toy-128 prob-U-Net (base and prior
+   encoder, one 16-row bf16 forward each, then 16 latent draws decoded by
+   the fcomb), checked as the SSN path;
+8. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
+   bf16 path and of the SSN and prob-U-Net bf16 paths, held to bands around
+   the JAX package's recorded numbers (PARITY.md section 3).
+
+Every counted call also counts the kernels' plain twins and fails if one ran.
 
 The fp32 paths run in true fp32: TF32 is off for cuDNN convolutions and for
 matmuls. Any failure raises, so the exit code is non-zero and the last line
@@ -40,6 +53,7 @@ is not printed. The last line is the device JSON.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -52,6 +66,8 @@ T0 = time.perf_counter()
 REPO = Path(__file__).resolve().parent
 ASSET = REPO / "assets" / "bench_unet16_toy128.npz"
 ASSET_DIFFUSION = REPO / "assets" / "bench_unet16_toy128_diffusion.npz"
+ASSET_SSN = REPO / "assets" / "bench_unet16_toy128_ssn.npz"
+ASSET_PROB_UNET = REPO / "assets" / "bench_unet16_toy128_prob_unet.npz"
 
 # kernel vs its twin: |kernel - twin| <= ATOL + RTOL*|twin| elementwise.
 # bf16: one rounding step of the output is 2^-8 relative; the two differ only
@@ -64,11 +80,14 @@ TOL = {"bfloat16": (4e-3, 2.0 ** -7), "float32": (1e-5, 1e-5)}
 # diffusion numbers were measured in rounds 2 and 3 (BENCH_r02/r03.json) on
 # the 32-image split of that time, which is the first 32 images of today's
 # split, and the diffusion family was not measured again: it is held on
-# those 32 images and only reported on all 256.
+# those 32 images and only reported on all 256. The SSN and prob-U-Net
+# numbers (16 samples each) are on the 256-image split (since round 4).
 PARITY = {
     "bf16": {"dice": 0.9496, "ged_bma": 0.0383, "aurc": 0.04505, "ece": 0.01436},
     "fp32": {"dice": 0.9493, "ged_bma": 0.0377, "aurc": 0.04552, "ece": 0.0138},
     "diffusion_bf16_32": {"dice": 0.9583, "ged_bma": 0.0185, "aurc": 0.03304, "ece": 0.01458},
+    "ssn_bf16": {"dice": 0.9462, "ged_bma": 0.0276, "aurc": 0.04918, "ece": 0.00958},
+    "prob_unet_bf16": {"dice": 0.9486, "ged_bma": 0.0258, "aurc": 0.04531, "ece": 0.00341},
 }
 BANDS = {"dice": 0.005, "ged_bma": 0.005, "aurc": 0.01, "ece": 0.005}
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
@@ -78,6 +97,12 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 BATCH, HW, MEMBERS = 16, 128, 16
 TRAJECTORIES, DDIM_STEPS = 16, 10
+SAMPLES = 16  # SSN logit draws and prob-U-Net latent draws per image
+# (HW / side, C) of the attention sites of the 16-row SSN (unet16) and
+# prob-U-Net (widths x0.75) forwards, T = side**2, 4 heads: d = 32, 64, 24, 48
+ATTENTION_SITES16 = ((4, 128), (8, 256), (4, 96), (8, 192))
+# per 16-row call: (attention launches, GroupNorm launches)
+GENERATIVE16_LAUNCHES = {"ssn": (11, 58), "prob_unet": (16, 81)}
 # (T, C, network) of one attention site at 128x128 (4 heads) for every head
 # width beside unet16's 32 and 64; timed at the main path's 256 rows
 ATTENTION_WIDTH_SITES = ((1024, 64, "unet4"), (1024, 96, "prob-U-Net"),
@@ -319,7 +344,13 @@ def build_path(precision: str, separable: bool, model: str = "softmax"):
     from diffuncertainty_tpu_torch.sampling.sampler import SamplerSpec, make_sampler
     from diffuncertainty_tpu_torch.sampling.tta import TTAConfig
 
-    if model == "diffusion":
+    if model in ("ssn", "prob_unet"):
+        cfg = load_config(data="lidc128", network="unet16", model=model, eu_method="none",
+                          precision=precision)
+        built = build_model(cfg, device="cuda")
+        load_into(built.module, ASSET_SSN if model == "ssn" else ASSET_PROB_UNET)
+        spec = SamplerSpec(n_pred=SAMPLES, n_members=1, member_mode="single")
+    elif model == "diffusion":
         cfg = load_config(data="lidc128", network="unet16", model="diffusion", eu_method="none",
                           precision=precision)
         built = build_model(cfg, device="cuda")
@@ -352,9 +383,39 @@ def test_images(cfg):
     return normalize_batch(images, aug.mean, aug.std)
 
 
+@contextlib.contextmanager
+def counting_twins():
+    """Counts, per kernel, the calls of its plain twin while the block runs:
+    the attention gate's fp32 route and both wrappers' CPU route."""
+    from diffuncertainty_tpu_torch.ops import attention
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+
+    calls = {"qkv_attention": 0, "group_norm_act": 0}
+    sites = ((attention, "qkv_attention_reference", "qkv_attention"),
+             (ca, "qkv_attention_reference", "qkv_attention"),
+             (gn, "group_norm_act_reference", "group_norm_act"))
+    saved = [getattr(mod, name) for mod, name, _ in sites]
+
+    def counter(fn, kernel):
+        def twin(*args, **kwargs):
+            calls[kernel] += 1
+            return fn(*args, **kwargs)
+        return twin
+
+    try:
+        for (mod, name, kernel), fn in zip(sites, saved):
+            setattr(mod, name, counter(fn, kernel))
+        yield calls
+    finally:
+        for (mod, name, _), fn in zip(sites, saved):
+            setattr(mod, name, fn)
+
+
 def counted_call(built, sampler, images, seed: int):
     """One sampler call with both kernels' launch counts set to 0 just before
-    it and read just after, and every attention and GroupNorm input shape."""
+    it and read just after, and every attention and GroupNorm input shape;
+    fails if a kernel's plain twin ran in the call."""
     import torch
 
     from diffuncertainty_tpu_torch.models.unet import AttentionBlock, GroupNorm32
@@ -373,13 +434,16 @@ def counted_call(built, sampler, images, seed: int):
     n_attn = sum(isinstance(m, AttentionBlock) for m in built.module.modules())
     n_norm = sum(isinstance(m, GroupNorm32) for m in built.module.modules())
     torch.cuda.synchronize()
-    ca.reset_launch_count()
-    gn.reset_launch_count()
-    stack = sampler(images, torch.Generator("cuda").manual_seed(seed))
-    torch.cuda.synchronize()
-    launches = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count()}
+    with counting_twins() as twins:
+        ca.reset_launch_count()
+        gn.reset_launch_count()
+        stack = sampler(images, torch.Generator("cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        launches = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count()}
     for h in hooks:
         h.remove()
+    if any(twins.values()):
+        raise AssertionError(f"plain twins ran in the counted call: {twins}")
     return stack, launches, n_attn, n_norm, attn_seen, norm_seen
 
 
@@ -483,6 +547,52 @@ def phase_diffusion(norm_checked: set):
     return launches, BATCH / per_call
 
 
+def phase_generative16(model: str, attn_checked: set, norm_checked: set):
+    """The SSN or prob-U-Net path: one counted 16-row call, the stack, the
+    SSN's covariance failures, bf16 against fp32 from the same draws, and
+    the time per call."""
+    import torch
+
+    cfg, built, sampler = build_path("bf16", separable=True, model=model)
+    images = test_images(cfg)
+    stack, launches, _, _, attn_seen, norm_seen = counted_call(built, sampler, images, 0)
+    n_attn, n_norm = GENERATIVE16_LAUNCHES[model]
+    check_launches(f"{model} path", launches, {"qkv_attention": n_attn, "group_norm_act": n_norm})
+    if (len(attn_seen), len(norm_seen)) != (n_attn, n_norm):
+        raise AssertionError(f"{model}: {len(attn_seen)} attention and {len(norm_seen)} "
+                             f"GroupNorm calls seen, expected {n_attn} and {n_norm}")
+    shapes = {(b, hh * ww, c) for b, hh, ww, c in attn_seen}
+    if not shapes <= attn_checked:
+        raise AssertionError(f"{model} attention shapes {shapes - attn_checked} unchecked")
+    if not set(norm_seen) <= norm_checked:
+        raise AssertionError(f"{model} norm sites {set(norm_seen) - norm_checked} unchecked")
+    attn_calls = {s: sum(1 for b, hh, ww, c in attn_seen if (b, hh * ww, c) == s) for s in shapes}
+    check_stack(f"{model} path", stack)
+    if stack.groups.shape != (SAMPLES, 1, BATCH, HW, HW, 2):
+        raise AssertionError(f"{model} stack shape {tuple(stack.groups.shape)}")
+    if model == "ssn":
+        from diffuncertainty_tpu_torch.models.ssn import build_distribution
+
+        with torch.no_grad():
+            out = built.module(images)
+        failed = int(build_distribution(out.ssn_mean, out.ssn_cov_diag,
+                                        out.ssn_cov_factor).cov_failed.sum())
+        log(f"ssn path: cov_failed {failed} of {BATCH} elements")
+        if failed:
+            raise AssertionError(f"ssn: the covariance failed for {failed} elements")
+
+    # the fp32 model from the same generator seed takes the same draws
+    _, _, sampler32 = build_path("fp32", separable=True, model=model)
+    stack32 = sampler32(images, torch.Generator("cuda").manual_seed(0))
+    check_tracks(f"{model} path", stack, stack32)
+    del sampler32, stack32
+
+    per_call = time_calls(sampler, images, 10)
+    log(f"{model} path bf16: {per_call * 1e3:.2f} ms per call of {BATCH} images x {SAMPLES} "
+        f"samples -> {BATCH / per_call:.2f} img/s")
+    return launches, attn_calls, norm_seen, BATCH / per_call
+
+
 def phase_quality():
     from diffuncertainty_tpu_torch.tools.quality import toy128_quality_eval
 
@@ -492,7 +602,9 @@ def phase_quality():
             ("bf16", "bf16", True, "softmax", None), ("fp32", "fp32", False, "softmax", None),
             ("bf16_32", "bf16", True, "softmax", 32),
             ("diffusion_bf16_32", "bf16", True, "diffusion", 32),
-            ("diffusion_bf16", "bf16", True, "diffusion", None)):
+            ("diffusion_bf16", "bf16", True, "diffusion", None),
+            ("ssn_bf16", "bf16", True, "ssn", None),
+            ("prob_unet_bf16", "bf16", True, "prob_unet", None)):
         cfg, built, sampler = build_path(precision, separable, model)
         t0 = time.perf_counter()
         q = toy128_quality_eval(built, sampler, cfg.data, batch=BATCH, hw=HW, device="cuda",
@@ -527,46 +639,78 @@ def main() -> int:
     attn_cases = [attention_case(BATCH * MEMBERS, (HW // 4) ** 2, 128, 4, seed=1),
                   attention_case(BATCH * MEMBERS, (HW // 8) ** 2, 256, 4, seed=2)]
     attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
+    # the SSN's and the prob-U-Net's sites at their 16 rows
+    attn_cases16 = [attention_case(BATCH, (HW // div) ** 2, c, 4, seed=600 + i)
+                    for i, (div, c) in enumerate(ATTENTION_SITES16)]
+    attn_checked16 = {(c["B"], c["T"], c["C"]) for c in attn_cases16}
     width_cases = attention_width_cases()
 
-    sites = norm_sites(HW)
+    sites = {model: norm_sites(model, HW) for model in ("softmax", "ssn", "prob_unet")}
     rows = BATCH * MEMBERS
-    distinct = sorted(set(sites), key=lambda s: (-s[0][0], s))
-    log(f"GroupNorm sites of one forward: {len(sites)}, distinct (shape, dtype, act): "
-        f"{len(distinct)}")
+
+    def distinct(site_list):
+        return sorted(set(site_list), key=lambda s: (-s[0][0], s))
+
+    log("GroupNorm sites of one forward: " + ", ".join(
+        f"{model} {len(sl)} ({len(distinct(sl))} distinct (shape, dtype, act))"
+        for model, sl in sites.items()))
     # every site's shape in both dtypes: bf16 as the bf16 paths give it (and
-    # fp32 at the head), fp32 as the fp32 paths give it; at the main paths'
-    # 256 rows and the batch-1 path's 16
+    # fp32 at the heads), fp32 as the fp32 paths give it; unet16's at the main
+    # paths' 256 rows and the batch-1 path's 16, the SSN's and prob-U-Net's
+    # at the 16 rows their calls run
     norm_cases = {}
-    for n_rows in NORM_ROWS:
-        for shape, act in sorted({(shape, act) for shape, _, act in distinct},
-                                 key=lambda sa: (-sa[0][0], sa)):
+    for n_rows, models in ((rows, ("softmax",)), (BATCH, ("softmax", "ssn", "prob_unet"))):
+        shape_acts = {(shape, act) for m in models for shape, _, act in sites[m]}
+        for shape, act in sorted(shape_acts, key=lambda sa: (-sa[0][0], sa)):
             for dt in ("bfloat16", "float32"):
-                norm_cases[((n_rows,) + shape, dt, act)] = group_norm_case(
-                    (n_rows,) + shape, dt, act, seed=10 + len(norm_cases))
+                key = ((n_rows,) + shape, dt, act)
+                norm_cases[key] = group_norm_case(key[0], dt, act, seed=10 + len(norm_cases))
     wide_cases = [group_norm_case((2,) + shape, dt, "silu", seed=500 + i, timed=False)
                   for i, shape in enumerate(WIDE_NORM_SITES) for dt in ("bfloat16", "float32")]
-    norm_checked = {((rows,) + shape, dt, act) for shape, dt, act in distinct}
+    norm_checked = {((rows,) + shape, dt, act) for shape, dt, act in distinct(sites["softmax"])}
+    norm_checked16 = {((BATCH,) + shape, dt, act) for m in ("ssn", "prob_unet")
+                      for shape, dt, act in sites[m]}
 
     launches, attn_calls, norm_seen, img_s = phase_main_path(attn_checked, norm_checked)
     diff_launches, diff_img_s = phase_diffusion(norm_checked)
+    generative = {model: phase_generative16(model, attn_checked16, norm_checked16)
+                  for model in ("ssn", "prob_unet")}
     quality = phase_quality()
 
     # one entry per kernel; times are for the work of one main-path forward
-    attn_per = {k: sum(attn_calls[(c["B"], c["T"], c["C"])] * c[k] for c in attn_cases)
+    def attn_sum(cases, calls):
+        return {k: sum(calls.get((c["B"], c["T"], c["C"]), 0) * c[k] for c in cases)
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+    attn_per = attn_sum(attn_cases, attn_calls)
     bound_by = max(attn_cases,
                    key=lambda c: attn_calls[(c["B"], c["T"], c["C"])] * c["bound_ms"])
-    # GroupNorm per forward at 256 rows (the main paths) and at 16 (batch-1)
+    attn16 = {f"{model}_forward16": dict(attn_sum(attn_cases16, g[1]), per=(
+        f"one {BATCH}-row {model} call: " + ", ".join(
+            f"{n} calls at B={b} T={t} C={c}" for (b, t, c), n in sorted(g[1].items()))))
+        for model, g in generative.items()}
+    # GroupNorm per forward at 256 rows (the main paths) and at 16 (batch-1,
+    # and the SSN's and prob-U-Net's calls)
     norm_keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_bytes_ms",
                  "bound_ops_ms")
-    norm_per, norm_per16 = ({k: per_forward([
-        dict(norm_cases[((n_rows,) + shape[1:], dt, act)], calls=1) for shape, dt, act in norm_seen],
-        k) for k in norm_keys} for n_rows in NORM_ROWS)
+
+    def norm_sum(seen, n_rows):
+        return {k: per_forward([dict(norm_cases[((n_rows,) + shape[1:], dt, act)], calls=1)
+                                for shape, dt, act in seen], k) for k in norm_keys}
+
+    norm_per, norm_per16 = norm_sum(norm_seen, rows), norm_sum(norm_seen, BATCH)
+    norm16 = {f"{model}_forward16": dict(norm_sum(g[2], BATCH), per=(
+        f"one {BATCH}-row {model} call: its {len(g[2])} GroupNorm sites"))
+        for model, g in generative.items()}
     log(f"GroupNorm per forward: {rows} rows device {fmt(norm_per['device_ms'])} (events "
         f"{fmt(norm_per['ms'])}), bound {fmt(norm_per['bound_ms'])}, F.group_norm "
         f"{fmt(norm_per['library_ms'])}; {BATCH} rows device {fmt(norm_per16['device_ms'])} "
         f"(events {fmt(norm_per16['ms'])}), bound {fmt(norm_per16['bound_ms'])}")
+    for key in norm16:
+        a, n = attn16[key], norm16[key]
+        log(f"{key}: attention kernel {a['ms']:.4f} ms, sdpa {a['library_ms']:.4f} ms, bound "
+            f"{a['bound_ms']:.4f} ms; GroupNorm device {fmt(n['device_ms'])} (events "
+            f"{fmt(n['ms'])}), F.group_norm {fmt(n['library_ms'])}, bound {fmt(n['bound_ms'])}")
     kernels = [{
         "name": "qkv_attention",
         "route": "cuda",
@@ -574,8 +718,10 @@ def main() -> int:
         "replaces": "diffuncertainty_tpu/ops/pallas_attention.py:38",
         "launches": launches["qkv_attention"],
         "launches_by_path": {"softmax_call": launches["qkv_attention"],
-                             "diffusion_call": diff_launches["qkv_attention"]},
-        "max_abs_err": max(c["max_abs_err"] for c in attn_cases + width_cases),
+                             "diffusion_call": diff_launches["qkv_attention"],
+                             "ssn_call": generative["ssn"][0]["qkv_attention"],
+                             "prob_unet_call": generative["prob_unet"][0]["qkv_attention"]},
+        "max_abs_err": max(c["max_abs_err"] for c in attn_cases + attn_cases16 + width_cases),
         "ms": attn_per["ms"],
         "plain_ms": attn_per["plain_ms"],
         "bound_ms": attn_per["bound_ms"],
@@ -585,7 +731,9 @@ def main() -> int:
                f"{DDIM_STEPS}): " + ", ".join(
             f"{attn_calls[(c['B'], c['T'], c['C'])]} calls at B={c['B']} T={c['T']} C={c['C']}"
             for c in attn_cases),
+        **attn16,
         "shapes": attn_cases,
+        "shapes16": attn_cases16,
         "other_widths": width_cases,
         "ptxas": ptxas.get("qkv_attention", {}),
     }, {
@@ -595,7 +743,9 @@ def main() -> int:
         "replaces": "diffuncertainty_tpu/ops/pallas_groupnorm.py:32",
         "launches": launches["group_norm_act"],
         "launches_by_path": {"softmax_call": launches["group_norm_act"],
-                             "diffusion_call": diff_launches["group_norm_act"]},
+                             "diffusion_call": diff_launches["group_norm_act"],
+                             "ssn_call": generative["ssn"][0]["group_norm_act"],
+                             "prob_unet_call": generative["prob_unet"][0]["group_norm_act"]},
         "max_abs_err": max(c["max_abs_err"] for c in list(norm_cases.values()) + wide_cases),
         "ms": norm_per["ms"],
         "device_ms": norm_per["device_ms"],
@@ -609,12 +759,14 @@ def main() -> int:
         "per_diffusion_call": {k: None if v is None else DDIM_STEPS * v
                                for k, v in norm_per.items()},
         "rows16": dict(norm_per16, per=f"one {BATCH}-row unet16 forward (the batch-1 path)"),
+        **norm16,
         "shapes": list(norm_cases.values()),
         "wide_shapes": wide_cases,
         "ptxas": ptxas.get("group_norm_act", {}),
     }]
-    log(f"softmax path {img_s:.2f} img/s, diffusion path {diff_img_s:.3f} img/s; "
-        f"quality {quality}")
+    log(f"softmax path {img_s:.2f} img/s, diffusion path {diff_img_s:.3f} img/s, "
+        + ", ".join(f"{model} path {g[3]:.2f} img/s" for model, g in generative.items())
+        + f"; quality {quality}")
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,17 +3,19 @@
 Holds the fields of ``diffuncertainty_tpu/core/config.py`` that the ported
 paths read, with the values that the JAX ``load_config`` composes from
 ``configs/{data/lidc128, network/unet16, model/softmax, model/diffusion,
-eu_method/dropout, eu_method/none}.yaml``: the unet16 + MC-dropout softmax
-path (``model="softmax", eu_method="dropout"``) and the unet16 diffusion path
-(``model="diffusion", eu_method="none"``). Field names are kept so the two
-can be compared field by field. Other groups are not ported yet and raise.
+model/ssn, model/prob_unet, eu_method/dropout, eu_method/none}.yaml``: the
+unet16 + MC-dropout softmax path (``model="softmax", eu_method="dropout"``)
+and the unet16 diffusion, SSN and prob-U-Net paths (``model="diffusion"``,
+``"ssn"`` or ``"prob_unet"`` with ``eu_method="none"``). Field names are kept
+so the two can be compared field by field. Other groups are not ported yet
+and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from .specs import DropoutSpec
+from .specs import DropoutSpec, ProbUnetSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,9 +58,13 @@ class DiffusionSampling:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    au_type: str = "softmax"
+    au_type: str = "softmax"  # softmax | diffusion | ssn | prob_unet
+    ssn_rank: int = 10
+    ssn_eps: float = 1e-5
+    ssn_pretrain_epochs: int = 0
     diffusion: DiffusionConfig = DiffusionConfig()
     diffusion_sampling: DiffusionSampling = DiffusionSampling()
+    prob_unet: ProbUnetSpec = ProbUnetSpec()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +105,11 @@ _GROUPS = {
     "model": {
         "softmax": ModelConfig(),  # configs/model/softmax.yaml
         "diffusion": ModelConfig(au_type="diffusion"),  # configs/model/diffusion.yaml
+        "ssn": ModelConfig(au_type="ssn", ssn_pretrain_epochs=10),  # configs/model/ssn.yaml
+        # configs/model/prob_unet.yaml (not the ProbUnetSpec defaults)
+        "prob_unet": ModelConfig(au_type="prob_unet", prob_unet=ProbUnetSpec(
+            beta=2.5e-3, beta_warmup_epochs=32, regularizer_coeff=0.0,
+            prior_channel_mult=0.75, posterior_channel_mult=0.75)),
     },
     "eu_method": {
         # configs/eu_method/dropout.yaml

@@ -6,6 +6,9 @@ float16 leaves promoted to float32). ``flax_to_torch`` maps the flax tree to
 the port's ``state_dict`` names: module path ``a/b/kernel`` becomes
 ``a.b.weight`` with conv kernels HWIO -> OIHW and dense kernels (I, O) ->
 (O, I); GroupNorm ``scale`` becomes ``weight``; biases keep their layout.
+Nested trees map the same way: the prob-U-Net's ``prior/encoder/enc0_res/...``
+becomes ``prior.encoder.enc0_res...`` and ``fcomb/body_0/kernel``
+``fcomb.body_0.weight``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""MC-dropout placement spec (``DropoutSpec`` of ``diffuncertainty_tpu/core/specs.py``,
-without the config-dict parser: the port's config is Python constants)."""
+"""Model specs copied from ``diffuncertainty_tpu/core/specs.py``: the MC-dropout
+placement (``DropoutSpec``, without the config-dict parser: the port's config
+is Python constants) and the prob-U-Net block (``ProbUnetSpec``)."""
 
 from __future__ import annotations
 
@@ -36,3 +37,22 @@ class DropoutSpec:
     @property
     def max_rate(self) -> float:
         return max(self.probability_values) if self.probability_values else 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbUnetSpec:
+    """The ``model.prob_unet`` block (``ProbUnetSpec`` of the JAX package,
+    ``core/specs.py:85-95``, without the training-only beta schedule).
+
+    The defaults are the JAX dataclass's, so configs of other families
+    compare field by field; ``configs/model/prob_unet.yaml`` overrides most
+    of them (``core/config.py`` holds its values)."""
+
+    latent_dim: int = 6
+    beta: float = 10.0
+    beta_warmup_epochs: int = 0
+    regularizer_coeff: float = 1e-5
+    num_fcomb_convs: int = 4
+    unet_channel_mult: float = 0.75
+    prior_channel_mult: float = 0.5
+    posterior_channel_mult: float = 0.5

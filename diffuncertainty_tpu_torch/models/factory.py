@@ -1,7 +1,10 @@
 """Model factory for the ported slices (port of
-``diffuncertainty_tpu/models/factory.py``): the softmax and diffusion
-families on the DiffUnet backbone. Diffusion models get
-``in_channels += out_channels`` for the x_t concat."""
+``diffuncertainty_tpu/models/factory.py:104-173``): the softmax, diffusion,
+SSN and prob-U-Net families on the DiffUnet backbone. Diffusion models get
+``in_channels += out_channels`` for the x_t concat; the prob-U-Net is
+assembled by ``build_prob_unet``. HRNet, SWAG and ensembles are not ported
+and raise.
+"""
 
 from __future__ import annotations
 
@@ -13,7 +16,10 @@ from torch import nn
 from ..core.config import ExperimentConfig
 from ..core.specs import DropoutSpec
 from .diffusion import ContinuousGaussianDiffusion
+from .prob_unet import build_prob_unet
 from .unet import DiffUnet
+
+AU_TYPES = ("softmax", "diffusion", "ssn", "prob_unet")
 
 
 @dataclasses.dataclass
@@ -30,12 +36,13 @@ class BuiltModel:
 
 
 def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda") -> BuiltModel:
-    """``DiffUnet`` on ``device`` (compute dtype from ``trainer.precision``)."""
+    """``DiffUnet`` (or ``ProbUnet``) on ``device``, compute dtype from
+    ``trainer.precision``."""
     net = cfg.network
     au_type = cfg.model.au_type
-    if au_type not in ("softmax", "diffusion") or cfg.eu_method.name not in ("dropout", "none"):
+    if au_type not in AU_TYPES or cfg.eu_method.name not in ("dropout", "none"):
         raise NotImplementedError(
-            f"only softmax or diffusion with MC-dropout or no EU method is ported "
+            f"only {', '.join(AU_TYPES)} with MC-dropout or no EU method are ported "
             f"(got {au_type}/{cfg.eu_method.name})")
     if cfg.eu_method.name == "dropout":
         dropout_spec = cfg.eu_method.dropout
@@ -48,7 +55,7 @@ def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda") -> B
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: CUDA requested but torch.cuda.is_available() is False")
-    module = DiffUnet(
+    unet_kwargs = dict(
         in_channels=net.in_channels + (net.out_channels if is_diffusion else 0),
         out_channels=net.out_channels,
         model_channels=net.model_channels,
@@ -61,15 +68,22 @@ def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda") -> B
         use_scale_shift_norm=net.use_scale_shift_norm,
         diffusion=is_diffusion,
         final_act=net.final_act,
+        ssn=au_type == "ssn",
+        ssn_rank=cfg.model.ssn_rank,
+        ssn_eps=cfg.model.ssn_eps,
         dropout_spec=dropout_spec,
         dtype=torch.bfloat16 if cfg.trainer.precision == "bf16" else torch.float32,
-    ).to(device).eval()
+    )
+    if au_type == "prob_unet":
+        module = build_prob_unet(unet_kwargs, cfg.model.prob_unet)
+    else:
+        module = DiffUnet(**unet_kwargs)
     sampling = cfg.model.diffusion_sampling
     return BuiltModel(
-        module=module,
+        module=module.to(device).eval(),
         au_type=au_type,
         eu_type="dropout" if dropout_spec.max_rate > 0.0 else "none",
-        is_generative=is_diffusion,
+        is_generative=au_type != "softmax",
         num_classes=net.out_channels,
         diffusion=(ContinuousGaussianDiffusion(**dataclasses.asdict(cfg.model.diffusion))
                    if is_diffusion else None),

@@ -1,5 +1,6 @@
-"""ADM-style 2D U-Net ("DiffUnet") for the softmax and diffusion families
-(port of ``diffuncertainty_tpu/models/unet.py``, ``members=0``).
+"""ADM-style 2D U-Net ("DiffUnet") for the softmax, diffusion, SSN and
+prob-U-Net families (port of ``diffuncertainty_tpu/models/unet.py``,
+``members=0``).
 
 Public layout is NHWC like the JAX model. Convolutions run on NCHW views of
 the NHWC tensors (channels-last memory, which cuDNN takes as is); 1x1 convs
@@ -21,6 +22,12 @@ takes continuous times ``t``: a sinusoidal embedding through
 (``emb_proj``), added before ``out_norm`` or, with ``use_scale_shift_norm``,
 applied as ``norm(h) * (1 + scale) + shift``.
 
+With ``ssn=True`` two more heads of the same form (``ssn_cov``,
+``ssn_factor``) give the SSN's low-rank covariance over the flattened logits
+(``models/ssn.py``). With ``encoder_only=True`` the network stops after the
+middle blocks and builds no decoder or head: the prob-U-Net's latent
+encoders. ``forward`` returns a :class:`UnetOutput`, as the JAX model does.
+
 MC-dropout (``ChannelDropout``) zeroes whole channels with a (B, C) mask and
 scales by 1/(1-p). It is always live when its rate is positive and draws from
 the ``torch.Generator`` passed to ``forward``.
@@ -28,6 +35,7 @@ the ``torch.Generator`` passed to ``forward``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -39,6 +47,17 @@ from ..ops.attention import qkv_attention
 from ..ops.cuda_groupnorm import group_norm_act
 from ..ops.resample import downsample_avgpool2x, upsample2x
 from ..ops.time_embed import timestep_embedding
+
+
+@dataclasses.dataclass
+class UnetOutput:
+    """Forward results (``UnetOutput`` of the JAX model); unused fields are None."""
+
+    logits: torch.Tensor | None = None  # (B, H, W, out_channels), after final_act
+    features: torch.Tensor | None = None  # decoder features, or the mid block's
+    ssn_mean: torch.Tensor | None = None  # (B, N) flattened logits, N = H*W*out_channels
+    ssn_cov_diag: torch.Tensor | None = None  # (B, N)
+    ssn_cov_factor: torch.Tensor | None = None  # (B, N, rank)
 
 
 class Conv(nn.Module):
@@ -210,6 +229,10 @@ class DiffUnet(nn.Module):
         use_scale_shift_norm: bool = False,
         diffusion: bool = False,
         final_act: str = "none",
+        ssn: bool = False,
+        ssn_rank: int = 10,
+        ssn_eps: float = 1e-5,
+        encoder_only: bool = False,
         dropout_spec: DropoutSpec = DropoutSpec(),
         dtype: torch.dtype = torch.float32,
     ):
@@ -224,6 +247,10 @@ class DiffUnet(nn.Module):
         self.dtype = dtype
         self.diffusion = diffusion
         self.final_act = final_act
+        self.ssn = ssn
+        self.ssn_rank = ssn_rank
+        self.ssn_eps = ssn_eps
+        self.encoder_only = encoder_only
         spec = dropout_spec
         n_levels = len(channel_mult)
         attn_res = {r + n_levels if r < 0 else r for r in attention_resolutions}
@@ -273,34 +300,53 @@ class DiffUnet(nn.Module):
                       attention=i < num_middle_res_blocks - 1)
             ch = ch_mid
 
-        block_idx = 0
-        for level, mult, n_res in zip(reversed(range(n_levels)), channel_mult[::-1], nres[::-1]):
-            for i in range(n_res + 1):
-                depth = resolution
-                skip_name = ""
-                if spec.skip_connections:
-                    skip_name = f"dec{block_idx}_skip_dropout"
-                    self.add_module(skip_name, ChannelDropout(spec.rate_at_depth(depth)))
-                self.plan.append(("cat", skip_name))
-                cin = ch + skip_ch.pop()
-                add_block(cin, mc * mult, "decoder", depth, f"dec{block_idx}")
-                ch = mc * mult
-                if level and i == n_res:
-                    resolution -= 1
-                    self.add_module(f"up{resolution}", Upsample(ch, conv_resample))
-                    self.plan.append(("up", f"up{resolution}"))
-                block_idx += 1
+        if not encoder_only:  # the decoder and the heads
+            block_idx = 0
+            for level, mult, n_res in zip(reversed(range(n_levels)), channel_mult[::-1],
+                                          nres[::-1]):
+                for i in range(n_res + 1):
+                    depth = resolution
+                    skip_name = ""
+                    if spec.skip_connections:
+                        skip_name = f"dec{block_idx}_skip_dropout"
+                        self.add_module(skip_name, ChannelDropout(spec.rate_at_depth(depth)))
+                    self.plan.append(("cat", skip_name))
+                    cin = ch + skip_ch.pop()
+                    add_block(cin, mc * mult, "decoder", depth, f"dec{block_idx}")
+                    ch = mc * mult
+                    if level and i == n_res:
+                        resolution -= 1
+                        self.add_module(f"up{resolution}", Upsample(ch, conv_resample))
+                        self.plan.append(("up", f"up{resolution}"))
+                    block_idx += 1
 
-        self.out_norm = GroupNorm32(ch, act="silu")
-        self.out_conv = Conv(ch, out_channels, 3)
+            self.out_norm = GroupNorm32(ch, act="silu")
+            self.out_conv = Conv(ch, out_channels, 3)
+            if ssn:
+                self.ssn_cov_norm = GroupNorm32(ch, act="silu")
+                self.ssn_cov_conv = Conv(ch, out_channels, 3)
+                self.ssn_factor_norm = GroupNorm32(ch, act="silu")
+                self.ssn_factor_conv = Conv(ch, out_channels * ssn_rank, 3)
+
         for name, module in self.named_modules():
             if isinstance(module, ChannelDropout):
                 module.path = name
 
+    def _head(self, name: str, features: torch.Tensor) -> torch.Tensor:
+        """GroupNorm32 + SiLU, then a 3x3 conv, in the features' dtype."""
+        norm, conv = getattr(self, f"{name}_norm"), getattr(self, f"{name}_conv")
+        return conv(norm(features), features.dtype)
+
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
-                timesteps: torch.Tensor | float | None = None) -> torch.Tensor:
-        """Output ``(B, H, W, out_channels)`` of NHWC input ``(B, H, W, in_channels)``:
-        logits, or with ``final_act="softmax"`` their softmax.
+                timesteps: torch.Tensor | float | None = None, *,
+                mean_only: bool = False) -> UnetOutput:
+        """Forward pass on NHWC input ``(B, H, W, in_channels)``.
+
+        ``logits`` are ``(B, H, W, out_channels)``, or with
+        ``final_act="softmax"`` their softmax; ``features`` the decoder's last
+        activation (the mid block's with ``encoder_only``), in ``x``'s dtype.
+        With ``ssn`` the flattened (H, W, C) mean, diag and factor follow;
+        ``mean_only`` skips the factor head and gives a zero factor.
 
         For the diffusion family ``x`` is ``concat([x_t, image], -1)`` and
         ``timesteps`` a ``(B,)`` tensor or a scalar of continuous times.
@@ -335,5 +381,24 @@ class DiffUnet(nn.Module):
                     skip = getattr(self, name)(skip, generator)
                 h = torch.cat([h, skip], dim=-1)
         features = h.to(x.dtype)
-        out = self.out_conv(self.out_norm(features), x.dtype)
-        return torch.softmax(out, dim=-1) if self.final_act == "softmax" else out
+        if self.encoder_only:
+            return UnetOutput(features=features)
+        logits = self._head("out", features)
+        if self.final_act == "softmax":
+            logits = torch.softmax(logits, dim=-1)
+        if not self.ssn:
+            return UnetOutput(logits=logits, features=features)
+        # SSN low-rank MVN head, flattened in (H, W, C) order
+        b, hh, ww, c = logits.shape
+        mean = logits.reshape(b, -1)
+        eps = self.ssn_eps
+        cov_diag = F.softplus(self._head("ssn_cov", features)) + eps
+        cov_diag = torch.nan_to_num(cov_diag, nan=1.0, posinf=1e6, neginf=eps)
+        cov_diag = torch.clamp(cov_diag, min=eps).reshape(b, -1)
+        if mean_only:
+            cov_factor = mean.new_zeros((b, mean.shape[1], self.ssn_rank))
+        else:
+            factor = self._head("ssn_factor", features).reshape(b, hh, ww, self.ssn_rank, c)
+            cov_factor = factor.transpose(3, 4).reshape(b, -1, self.ssn_rank)  # (B,H,W,C,rank)
+        return UnetOutput(logits=logits, features=features, ssn_mean=mean,
+                          ssn_cov_diag=cov_diag, ssn_cov_factor=cov_factor)

@@ -1,9 +1,11 @@
 """Per-site times of the GroupNorm+activation kernel on the card.
 
-    python3 diffuncertainty_tpu_torch/tools/groupnorm_sites.py [--rows 256 16] [--root DIR] [--alternatives]
+    python3 diffuncertainty_tpu_torch/tools/groupnorm_sites.py [--model softmax|ssn|prob_unet]
+        [--rows 256 16] [--root DIR] [--alternatives]
 
-For every distinct GroupNorm site of one bf16 unet16 forward at 128x128
-(shape, dtype and activation as the bf16 paths give them), at each row count:
+For every distinct GroupNorm site of one bf16 forward of ``--model``'s unet16
+network at 128x128 (shape, dtype and activation as the bf16 paths give them;
+default the softmax DiffUnet), at each row count:
 the kernel's time as CUDA events around one wrapper call (median of 20 after
 a warm-up; a launch shorter than the wrapper's host time counts the host
 time too) and as device time (``torch.profiler``'s CUDA time of the kernel,
@@ -32,25 +34,32 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 HW = 128
 
 
-def norm_sites(hw: int = HW) -> list[tuple]:
+MODELS = ("softmax", "ssn", "prob_unet")
+
+
+def norm_sites(model: str = "softmax", hw: int = HW) -> list[tuple]:
     """(shape without batch, dtype name, act) of every GroupNorm call in one
-    bf16 unet16 forward at hw x hw, in call order, from a one-row forward on
-    the host; the diffusion unet16 differs only in its input conv and time
-    embedding."""
+    bf16 forward of ``model``'s unet16 network at hw x hw, in call order, from
+    a one-row forward on the host. ``softmax``: the DiffUnet (the diffusion
+    unet16 differs only in its input conv and time embedding); ``ssn``: the
+    DiffUnet with its two SSN heads; ``prob_unet``: the base DiffUnet, then
+    the prior encoder (the posterior serves training only)."""
     import torch
 
     from diffuncertainty_tpu_torch.core.config import load_config
     from diffuncertainty_tpu_torch.models.factory import build_model
     from diffuncertainty_tpu_torch.models.unet import GroupNorm32
 
-    built = build_model(load_config(precision="bf16"), device="cpu")
+    eu_method = "dropout" if model == "softmax" else "none"
+    built = build_model(load_config(model=model, eu_method=eu_method, precision="bf16"),
+                        device="cpu")
     sites = []
     for m in built.module.modules():
         if isinstance(m, GroupNorm32):
             m.register_forward_pre_hook(lambda mod, args: sites.append(
                 (tuple(args[0].shape[1:]), str(args[0].dtype).split(".")[-1], mod.act)))
     with torch.no_grad():
-        built.module(torch.zeros(1, hw, hw, 3), torch.Generator().manual_seed(0))
+        built.module(torch.zeros(1, hw, hw, 3), generator=torch.Generator().manual_seed(0))
     return sites
 
 
@@ -168,6 +177,8 @@ def alternatives(gn, shape: tuple, dtype, rows: int) -> dict:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", choices=MODELS, default="softmax",
+                        help="whose forward's sites: the DiffUnet, the SSN or the prob-U-Net")
     parser.add_argument("--rows", type=int, nargs="+", default=[256, 16])
     parser.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
                         help="checkout whose diffuncertainty_tpu_torch is timed")
@@ -189,12 +200,13 @@ def main() -> None:
     for line in _build.build_log.get("group_norm_act", "").splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(line.strip(), flush=True)
-    sites = norm_sites()
+    sites = norm_sites(args.model)
     distinct = sorted(set(sites), key=lambda s: (-s[0][0], s))
     small = torch.ones(16, device="cuda")
     add_us = host_us(lambda: torch.add(small, small))
     print(f"host time of one torch.add for reference: {add_us:.1f} us", flush=True)
-    result = {"root": str(args.root.resolve()), "device": smi, "add_host_us": add_us, "rows": {}}
+    result = {"root": str(args.root.resolve()), "model": args.model, "device": smi,
+              "add_host_us": add_us, "rows": {}}
     for rows in args.rows:
         per_site = []
         for i, (shape, dtype_name, act) in enumerate(distinct):

@@ -1,12 +1,16 @@
 """Device-time breakdown of the main paths on the card.
 
-    python3 -m diffuncertainty_tpu_torch.tools.profile_main_path [--workload diffusion] [--norm-twin]
+    python3 -m diffuncertainty_tpu_torch.tools.profile_main_path
+        [--workload softmax|diffusion|ssn|prob_unet] [--norm-twin]
 
 ``softmax`` (default): the bf16 unet16 MC-dropout + TTA sampler with the
 trained toy-128 weights (16 images at 128x128, 16 members: one 256-row
 forward per call), 3 traced calls. ``diffusion``: the bf16 unet16 diffusion
 sampler with the trained toy-128 diffusion weights (16 images, 16 DDIM-10
-trajectories: ten 256-row forwards per call), 1 traced call. Each is warmed
+trajectories: ten 256-row forwards per call), 1 traced call. ``ssn`` and
+``prob_unet``: the bf16 unet16 SSN and prob-U-Net samplers with their
+trained toy-128 weights (16 images, 16 samples: one 16-row forward, then 16
+low-rank normal draws or 16 latent decodes, per call), 5 traced calls. Each is warmed
 up first, then traced with ``torch.profiler``. Prints the wall time per call
 (CUDA events), the device busy share (the sum of kernel times over the wall
 time; kernels on one stream do not overlap), the kernel time by category and
@@ -37,6 +41,8 @@ TOP = 20
 CATEGORIES = (
     ("attention kernel", ("qkv_attention",)),
     ("groupnorm kernel", ("group_norm_act",)),
+    ("random draws", ("distribution", "philox", "curand")),
+    ("cholesky", ("potrf", "cholesky")),
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "fprop", "nhwc")),
     ("matmul", ("gemm", "cutlass", "sm90_")),
     ("reduction", ("reduce",)),
@@ -53,8 +59,16 @@ def category(name: str) -> str:
     return "other"
 
 
+WORKLOADS = ("softmax", "diffusion", "ssn", "prob_unet")
+
+
 def build_sampler(workload: str):
     """(sampler, traced calls) of one workload, bf16, trained weights."""
+    if workload in ("ssn", "prob_unet"):
+        built = build_model(load_config(model=workload, eu_method="none", precision="bf16"),
+                            device="cuda")
+        load_into(built.module, ASSETS / f"bench_unet16_toy128_{workload}.npz")
+        return make_sampler(built, SamplerSpec(n_pred=16, n_members=1, member_mode="single")), 5
     if workload == "diffusion":
         built = build_model(load_config(model="diffusion", eu_method="none", precision="bf16"),
                             device="cuda")
@@ -71,7 +85,7 @@ def build_sampler(workload: str):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--workload", choices=("softmax", "diffusion"), default="softmax")
+    parser.add_argument("--workload", choices=WORKLOADS, default="softmax")
     parser.add_argument("--norm-twin", action="store_true",
                         help="GroupNorm through the plain float32 twin, not the kernel")
     args = parser.parse_args()

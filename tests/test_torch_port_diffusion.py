@@ -36,7 +36,7 @@ from diffuncertainty_tpu_torch.core.params import flax_to_torch, load_into, load
 from diffuncertainty_tpu_torch.infer.batch_metrics import make_batch_metrics
 from diffuncertainty_tpu_torch.models.diffusion import ContinuousGaussianDiffusion, GammaSchedule
 from diffuncertainty_tpu_torch.models.factory import build_model
-from diffuncertainty_tpu_torch.models.unet import DiffUnet
+from diffuncertainty_tpu_torch.models.unet import DiffUnet, UnetOutput
 from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
 from diffuncertainty_tpu_torch.ops.time_embed import timestep_embedding
 from test_torch_port_model import UNET16, _as_plain
@@ -182,7 +182,7 @@ def test_diffusion_config_matches_jax_load_config():
             assert _as_plain(ours) == _as_plain(theirs), f"{path}.{f.name}"
             n_fields += 1
     assert got.network.final_act == "softmax" and got.model.au_type == "diffusion"
-    assert n_fields == 33  # every field the port keeps was compared
+    assert n_fields == 37  # every field the port keeps was compared
 
 
 def test_factory_builds_the_diffusion_model():
@@ -227,9 +227,10 @@ def test_unet16_diffusion_forward_matches_jax(diffusion_inputs, final_act):
         params, jnp.asarray(x), jnp.asarray(t)))
     module = load_into(DiffUnet(**UNET16_DIFF, final_act=final_act), ASSET)
     with torch.no_grad():
-        got = module(torch.from_numpy(x), timesteps=torch.from_numpy(t)).numpy()
-        scalar = module(torch.from_numpy(x), timesteps=float(t[0])).numpy()
-        same_t = module(torch.from_numpy(x), timesteps=torch.full((2,), float(t[0]))).numpy()
+        got = module(torch.from_numpy(x), timesteps=torch.from_numpy(t)).logits.numpy()
+        scalar = module(torch.from_numpy(x), timesteps=float(t[0])).logits.numpy()
+        same_t = module(torch.from_numpy(x),
+                        timesteps=torch.full((2,), float(t[0]))).logits.numpy()
     if final_act == "none":
         assert np.abs(ref).max() > 1.0  # trained weights, not a zero head
         np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-4)
@@ -265,7 +266,7 @@ def test_scale_shift_norm_branch_matches_jax(rng):
     assert tm.enc0_res.emb_proj.weight.shape == (64, 128)  # scale and shift
     assert tm.enc0_res.out_norm.act == "none"
     with torch.no_grad():
-        got = tm(torch.from_numpy(x), timesteps=torch.from_numpy(t)).numpy()
+        got = tm(torch.from_numpy(x), timesteps=torch.from_numpy(t)).logits.numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-4)
 
 
@@ -332,7 +333,7 @@ def test_flat_diffusion_rows_are_trajectory_major(monkeypatch):
         seen.append(x.clone())
         # an x_0 prediction that names its row: p(class 1) = row index / 100
         rows = torch.arange(x.shape[0], dtype=x.dtype)[:, None, None, None] / 100
-        return torch.cat([1 - rows, rows], -1).expand(x.shape[:3] + (2,))
+        return UnetOutput(logits=torch.cat([1 - rows, rows], -1).expand(x.shape[:3] + (2,)))
 
     monkeypatch.setattr(tb.module, "forward", fake_forward)
     fn = t_sampler_mod.make_sampler(tb, t_sampler_mod.SamplerSpec(

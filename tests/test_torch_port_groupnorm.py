@@ -30,6 +30,7 @@ from diffuncertainty_tpu_torch.models import unet as tunet
 from diffuncertainty_tpu_torch.models.factory import build_model
 from diffuncertainty_tpu_torch.ops import _build
 from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+from diffuncertainty_tpu_torch.tools.groupnorm_sites import norm_sites
 
 SRC = (Path(_build.CSRC) / "group_norm_act.cu").read_text()
 
@@ -192,23 +193,58 @@ def test_diffunet_calls_group_norm_act_at_all_56_sites(monkeypatch, model):
     assert calls[-1][:3] == ((2, 32, 32, 32), torch.float32, "silu")
 
 
-def norm_shapes_of(network: str, hw: int) -> list[tuple]:
-    """The input shape, without the batch, of every GroupNorm in one softmax
-    forward of the JAX package's network at hw x hw, traced with
-    ``jax.eval_shape`` (no compute)."""
-    cfg = j_load_config(network=network, model="softmax", eu_method="none")
-    built = j_build_model(cfg)
-    shapes = []
+@pytest.mark.parametrize("model,n_sites,n_attention", [("ssn", 58, 11), ("prob_unet", 81, 16)])
+def test_ssn_and_prob_unet_call_group_norm_act_at_all_their_sites(monkeypatch, model, n_sites,
+                                                                  n_attention):
+    """Full-width bf16 SSN and prob-U-Net at 32x32: every GroupNorm goes
+    through ``group_norm_act`` with a contiguous channels-last input, SiLU
+    fused everywhere but at the attention norms; the float32 ones are the
+    heads on f32 features (out, ssn_cov, ssn_factor; the base's out)."""
+    calls = []
+
+    def counting(x, scale, bias, act="silu", **kw):
+        calls.append((tuple(x.shape), x.dtype, act, x.is_contiguous()))
+        return gn.group_norm_act(x, scale, bias, act, **kw)
+
+    monkeypatch.setattr(tunet, "group_norm_act", counting)
+    built = build_model(load_config(model=model, eu_method="none", precision="bf16"),
+                        device="cpu")
+    with torch.no_grad():
+        built.module(torch.randn(2, 32, 32, 3))
+    assert len(calls) == n_sites
+    assert sum(act == "none" for _, _, act, _ in calls) == n_attention
+    assert sum(act == "silu" for _, _, act, _ in calls) == n_sites - n_attention
+    assert all(contig for *_, contig in calls)
+    heads = [c for c in calls if c[1] == torch.float32]
+    assert heads == [((2, 32, 32, 32), torch.float32, "silu", True)] * (
+        3 if model == "ssn" else 1)
+
+
+def jax_norm_sites(network: str, hw: int, model: str = "softmax") -> list[tuple]:
+    """(shape without batch, dtype name) of every GroupNorm in one bf16
+    forward of the JAX package's ``network`` for ``model`` at hw x hw (for
+    the prob-U-Net: the base, then the prior encoder), in call order, traced
+    with ``jax.eval_shape`` (no compute)."""
+    cfg = j_load_config(network=network, model=model, eu_method="none",
+                        overrides=["trainer.precision=bf16"])
+    module = j_build_model(cfg).module
+    sites = []
 
     def record(next_fun, args, kwargs, context):
         if context.method_name == "__call__" and isinstance(context.module, junet.GroupNorm32):
-            shapes.append(tuple(args[0].shape[1:]))
+            sites.append((tuple(args[0].shape[1:]), str(args[0].dtype)))
         return next_fun(*args, **kwargs)
 
     x = jnp.zeros((1, hw, hw, cfg.network.in_channels))
     with nn.intercept_methods(record):
-        jax.eval_shape(lambda: built.module.init(jax.random.key(0), x))
-    return shapes
+        jax.eval_shape(lambda: module.init(jax.random.key(0), x))
+    return sites
+
+
+def norm_shapes_of(network: str, hw: int) -> list[tuple]:
+    """The input shape, without the batch, of every GroupNorm in one softmax
+    forward of the JAX package's network at hw x hw."""
+    return [shape for shape, _ in jax_norm_sites(network, hw)]
 
 
 def norm_widths_of(network: str, hw: int) -> list[int]:
@@ -264,21 +300,40 @@ UNET16_SITES = [
     (16, 16, 512),
 ]
 UNET256_WIDE_SITES = [(8, 8, 1280), (8, 8, 1536), (16, 16, 1280)]
+# The SSN's sites are unet16's. The prob-U-Net's (widths scaled by 0.75 to
+# 32/64/96/192) that unet16 lacks, among them the decoder concatenations of
+# 160 and 288 channels; its call runs at 16 rows.
+PROB_UNET_SITES = [
+    (1024, 96), (256, 192), (64, 64, 160), (32, 32, 96), (32, 32, 160), (32, 32, 288),
+    (16, 16, 96), (16, 16, 192), (16, 16, 288),
+]
 # the sites whose element 16 blocks of two to an SM do not hold: streamed in part
 STREAMED = {((128, 128, 32), torch.float32), ((128, 128, 64), torch.bfloat16),
             ((128, 128, 64), torch.float32), ((128, 128, 96), torch.bfloat16),
             ((128, 128, 96), torch.float32), ((64, 64, 128), torch.float32),
-            ((64, 64, 192), torch.float32)}
+            ((64, 64, 192), torch.float32), ((64, 64, 160), torch.float32)}
 
 
 def test_site_lists_are_the_networks():
+    """The site lists above, and ``norm_sites(model)`` (which ``chip_smoke.py``
+    checks the kernel at): every GroupNorm call of the softmax, SSN and
+    prob-U-Net forwards, in order, with the JAX models' shapes and dtypes."""
     assert set(norm_shapes_of("unet16", 128)) == set(UNET16_SITES)
     wide = {shape for shape in norm_shapes_of("unet256", 128) if shape[-1] > 1024}
     assert wide == set(UNET256_WIDE_SITES)
+    sites = {model: norm_sites(model) for model in ("softmax", "ssn", "prob_unet")}
+    for model, n in (("softmax", 56), ("ssn", 58), ("prob_unet", 81)):
+        assert [(shape, dt) for shape, dt, _ in sites[model]] == jax_norm_sites("unet16", 128,
+                                                                            model)
+        assert len(sites[model]) == n
+        assert [dt for _, dt, _ in sites[model]].count("float32") == (3 if model == "ssn" else 1)
+    assert {shape for shape, _, _ in sites["ssn"]} == set(UNET16_SITES)
+    assert {shape for shape, _, _ in sites["prob_unet"]} - set(UNET16_SITES) == set(
+        PROB_UNET_SITES)
 
 
 @pytest.mark.parametrize("rows", [256, 16])
-@pytest.mark.parametrize("shape", UNET16_SITES + UNET256_WIDE_SITES)
+@pytest.mark.parametrize("shape", UNET16_SITES + UNET256_WIDE_SITES + PROB_UNET_SITES)
 def test_cluster_plan_at_network_sites(shape, rows):
     """One cluster per batch element: K a cluster size, each block's slice
     of whole pixels within the shared-memory budget, held whole (read once)

@@ -83,7 +83,7 @@ def test_config_constants_match_jax_load_config(precision):
             ours, theirs = getattr(ours_group, f.name), getattr(theirs_group, f.name)
             assert _as_plain(ours) == _as_plain(theirs), f"{path}.{f.name}"
             n_fields += 1
-    assert n_fields == 21  # every field the port keeps was compared
+    assert n_fields == 25  # every field the port keeps was compared
     with pytest.raises(NotImplementedError):
         tconfig.load_config(network="unet64")
 
@@ -157,7 +157,7 @@ def test_unet16_forward_matches_jax_without_dropout(unet16_pair, jax_logits_no_d
     module = load_into(DiffUnet(**UNET16), ASSET)
     assert sum(isinstance(m, AttentionBlock) for m in module.modules()) == 11
     with torch.no_grad():
-        got = module(torch.from_numpy(x)).numpy()
+        got = module(torch.from_numpy(x)).logits.numpy()
     assert np.abs(ref).max() > 1.0  # trained weights, not a zero head
     _compare(got, ref)
 
@@ -171,8 +171,8 @@ def test_unet16_float32_forwards_against_float64(unet16_pair, jax_logits_no_drop
     m64.dtype = torch.float64
     m32 = load_into(DiffUnet(**UNET16), ASSET)
     with torch.no_grad():
-        y64 = m64(torch.from_numpy(x).double()).numpy()
-        y32 = m32(torch.from_numpy(x)).numpy()
+        y64 = m64(torch.from_numpy(x).double()).logits.numpy()
+        y32 = m32(torch.from_numpy(x)).logits.numpy()
     d_jax = np.abs(jax_logits_no_dropout - y64).max()
     d_port = np.abs(y32 - y64).max()
     print(f"max |logit|: {np.abs(y64).max():.3f}; max |jax f32 - f64|: {d_jax:.3e}; "
@@ -195,8 +195,8 @@ def test_unet16_forward_matches_jax_with_injected_masks(unet16_pair, monkeypatch
     sites = [m.path for m in built.module.modules() if isinstance(m, ChannelDropout) and m.rate > 0]
     assert len(sites) == 8 + 2 + 12  # one per encoder, mid and decoder ResBlock
     with torch.no_grad():
-        got = built.module(torch.from_numpy(x), torch.Generator()).numpy()
-        no_drop = load_into(DiffUnet(**UNET16), ASSET)(torch.from_numpy(x)).numpy()
+        got = built.module(torch.from_numpy(x), torch.Generator()).logits.numpy()
+        no_drop = load_into(DiffUnet(**UNET16), ASSET)(torch.from_numpy(x)).logits.numpy()
     _compare(got, ref)
     assert np.abs(got - no_drop).max() > 0.1  # the masks did act
 
@@ -220,5 +220,5 @@ def test_build_model_bf16_forward_runs_on_cpu():
     built = build_model(tconfig.load_config(precision="bf16"), device="cpu")
     assert built.module.dtype == torch.bfloat16 and built.eu_type == "dropout"
     with torch.no_grad():
-        y = built.module(torch.randn(2, 16, 16, 3), torch.Generator().manual_seed(0))
+        y = built.module(torch.randn(2, 16, 16, 3), torch.Generator().manual_seed(0)).logits
     assert y.dtype == torch.float32 and y.shape == (2, 16, 16, 2) and torch.isfinite(y).all()
