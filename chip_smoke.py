@@ -40,9 +40,17 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
 7. the prob-U-Net path: the trained toy-128 prob-U-Net (base and prior
    encoder, one 16-row bf16 forward each, then 16 latent draws decoded by
    the fcomb), checked as the SSN path;
-8. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
-   bf16 path and of the SSN and prob-U-Net bf16 paths, held to bands around
-   the JAX package's recorded numbers (PARITY.md section 3).
+8. the ensemble path (``bench.py``'s "ensemble stack"): 16 unet16 members
+   drawn on the card from the trained SWAG-diag moments (generator seed 42,
+   scale 1.0), each one 16-row bf16 forward with MC-dropout live and its own
+   TTA draw (``member_mode="params_stack"``), with the launch counts read
+   around one call, the mean EU over pixels, bf16 held against fp32 with the
+   same members and draws, the median time of 10 calls, and what binding a
+   member's weights (``functional_call``) and casting them to bf16 cost;
+9. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
+   bf16 path and of the SSN, prob-U-Net and ensemble bf16 paths, held to
+   bands around the JAX package's recorded numbers (PARITY.md section 3,
+   BENCH_r05.json).
 
 Every counted call also counts the kernels' plain twins and fails if one ran.
 
@@ -54,9 +62,11 @@ is not printed. The last line is the device JSON.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -68,6 +78,7 @@ ASSET = REPO / "assets" / "bench_unet16_toy128.npz"
 ASSET_DIFFUSION = REPO / "assets" / "bench_unet16_toy128_diffusion.npz"
 ASSET_SSN = REPO / "assets" / "bench_unet16_toy128_ssn.npz"
 ASSET_PROB_UNET = REPO / "assets" / "bench_unet16_toy128_prob_unet.npz"
+ASSET_SWAG = REPO / "assets" / "bench_unet16_toy128_swag.npz"
 
 # kernel vs its twin: |kernel - twin| <= ATOL + RTOL*|twin| elementwise.
 # bf16: one rounding step of the output is 2^-8 relative; the two differ only
@@ -81,13 +92,16 @@ TOL = {"bfloat16": (4e-3, 2.0 ** -7), "float32": (1e-5, 1e-5)}
 # the 32-image split of that time, which is the first 32 images of today's
 # split, and the diffusion family was not measured again: it is held on
 # those 32 images and only reported on all 256. The SSN and prob-U-Net
-# numbers (16 samples each) are on the 256-image split (since round 4).
+# numbers (16 samples each) are on the 256-image split (since round 4), and
+# so is the ensemble (16 SWAG-diag members x MC-dropout x TTA, BENCH_r05.json
+# family_quality.ensemble_stack).
 PARITY = {
     "bf16": {"dice": 0.9496, "ged_bma": 0.0383, "aurc": 0.04505, "ece": 0.01436},
     "fp32": {"dice": 0.9493, "ged_bma": 0.0377, "aurc": 0.04552, "ece": 0.0138},
     "diffusion_bf16_32": {"dice": 0.9583, "ged_bma": 0.0185, "aurc": 0.03304, "ece": 0.01458},
     "ssn_bf16": {"dice": 0.9462, "ged_bma": 0.0276, "aurc": 0.04918, "ece": 0.00958},
     "prob_unet_bf16": {"dice": 0.9486, "ged_bma": 0.0258, "aurc": 0.04531, "ece": 0.00341},
+    "ensemble_bf16": {"dice": 0.9484, "ged_bma": 0.0397, "aurc": 0.04406, "ece": 0.00344},
 }
 BANDS = {"dice": 0.005, "ged_bma": 0.005, "aurc": 0.01, "ece": 0.005}
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
@@ -103,6 +117,8 @@ SAMPLES = 16  # SSN logit draws and prob-U-Net latent draws per image
 ATTENTION_SITES16 = ((4, 128), (8, 256), (4, 96), (8, 192))
 # per 16-row call: (attention launches, GroupNorm launches)
 GENERATIVE16_LAUNCHES = {"ssn": (11, 58), "prob_unet": (16, 81)}
+# the ensemble: 16 stacked members drawn from the SWAG-diag moments (seed 42)
+SWAG_SEED = 42
 # (T, C, network) of one attention site at 128x128 (4 heads) for every head
 # width beside unet16's 32 and 64; timed at the main path's 256 rows
 ATTENTION_WIDTH_SITES = ((1024, 64, "unet4"), (1024, 96, "prob-U-Net"),
@@ -335,6 +351,20 @@ def group_norm_case(shape: tuple, dtype_name: str, act: str, seed: int,
     return case
 
 
+@functools.lru_cache(maxsize=1)
+def ensemble_members():
+    """The ensemble's 16 members, drawn once on the card from the SWAG-diag
+    moments and shared by every ensemble sampler (bf16 and fp32)."""
+    import torch
+
+    from diffuncertainty_tpu_torch.core.params import load_swag_npz
+    from diffuncertainty_tpu_torch.tools.bench_assets import swag_draw_members
+
+    moments = load_swag_npz(ASSET_SWAG)
+    return swag_draw_members(moments.mean, moments.std,
+                             torch.Generator("cuda").manual_seed(SWAG_SEED), MEMBERS)
+
+
 def build_path(precision: str, separable: bool, model: str = "softmax"):
     import torch
 
@@ -344,6 +374,7 @@ def build_path(precision: str, separable: bool, model: str = "softmax"):
     from diffuncertainty_tpu_torch.sampling.sampler import SamplerSpec, make_sampler
     from diffuncertainty_tpu_torch.sampling.tta import TTAConfig
 
+    members = None  # the ensemble's stacked member weights
     if model in ("ssn", "prob_unet"):
         cfg = load_config(data="lidc128", network="unet16", model=model, eu_method="none",
                           precision=precision)
@@ -357,17 +388,20 @@ def build_path(precision: str, separable: bool, model: str = "softmax"):
         load_into(built.module, ASSET_DIFFUSION)
         spec = SamplerSpec(n_pred=TRAJECTORIES, n_members=1, member_mode="single",
                            diffusion_sampler="ddim", diffusion_num_steps=DDIM_STEPS)
-    else:
+    else:  # softmax, or the ensemble: bench.py's build() with dropout live
         cfg = load_config(data="lidc128", network="unet16", model="softmax",
                           eu_method="dropout", precision=precision)
         built = build_model(cfg, device="cuda")
-        load_into(built.module, ASSET)
+        if model == "ensemble":
+            members = ensemble_members()
+        else:
+            load_into(built.module, ASSET)
         tta = TTAConfig(hflip_p=0.5, rotation_limit=22.5, scale_limit=(-0.2, 0.2),
                         separable_warp=separable)
-        spec = SamplerSpec(n_pred=1, n_members=MEMBERS, member_mode="dropout", tta=True,
-                           tta_config=tta)
+        spec = SamplerSpec(n_pred=1, n_members=MEMBERS, tta=True, tta_config=tta,
+                           member_mode="dropout" if members is None else "params_stack")
     torch.cuda.synchronize()
-    return cfg, built, make_sampler(built, spec)
+    return cfg, built, make_sampler(built, spec, members=members)
 
 
 def test_images(cfg):
@@ -593,6 +627,116 @@ def phase_generative16(model: str, attn_checked: set, norm_checked: set):
     return launches, attn_calls, norm_seen, BATCH / per_call
 
 
+def median_call_s(sampler, images, n_calls: int) -> float:
+    """Median host time of ``n_calls`` synchronized sampler calls."""
+    import torch
+
+    times = []
+    for i in range(n_calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sampler(images, torch.Generator("cuda").manual_seed(1 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def member_overheads(built, members: dict, n_calls: int = 5) -> dict:
+    """Host time of what a stacked member adds to a forward: binding its
+    weights with ``functional_call`` (on a module that only holds the
+    network, so no forward runs) and casting all its float32 weights to
+    bf16, per call of 16 members (medians of ``n_calls``)."""
+    import torch
+    from torch import nn
+
+    class Bind(nn.Module):
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+
+        def forward(self):
+            return None
+
+    bind = Bind(built.module)
+    states = [{f"net.{k}": v[m] for k, v in members.items()} for m in range(MEMBERS)]
+
+    def bind_all():
+        for st in states:
+            torch.func.functional_call(bind, st, ())
+
+    def cast_all():
+        for m in range(MEMBERS):
+            for v in members.values():
+                v[m].to(torch.bfloat16)
+
+    out = {}
+    for name, fn in (("functional_call_ms", bind_all), ("weight_casts_ms", cast_all)):
+        times = []
+        for _ in range(n_calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = statistics.median(times) * 1e3
+    return out
+
+
+def phase_ensemble(attn_checked16: set, norm_checked16: set):
+    """The ensemble path: one counted call (16 member forwards at 16 rows),
+    the stack and its EU, bf16 against fp32 with the same members and draws,
+    the median time of 10 calls, and the member overheads."""
+    import torch
+
+    from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
+
+    t0 = time.perf_counter()
+    cfg, built, sampler = build_path("bf16", separable=True, model="ensemble")
+    members = ensemble_members()
+    log(f"ensemble path: {MEMBERS} members drawn from the SWAG-diag moments "
+        f"({sum(v[0].numel() for v in members.values())} weights each, "
+        f"{sum(v.numel() * v.element_size() for v in members.values()) / 1e6:.1f} MB of "
+        f"float32 on the card) in {time.perf_counter() - t0:.2f}s")
+    images = test_images(cfg)
+    stack, launches, n_attn, n_norm, attn_seen, norm_seen = counted_call(built, sampler,
+                                                                         images, 0)
+    check_launches("ensemble path", launches, {"qkv_attention": MEMBERS * n_attn,
+                                               "group_norm_act": MEMBERS * n_norm})
+    if (n_attn, n_norm) != (11, 56):
+        raise AssertionError(f"unet16 has {n_attn} AttentionBlocks and {n_norm} GroupNorms")
+    shapes = {(b, hh * ww, c) for b, hh, ww, c in attn_seen}
+    if not shapes <= attn_checked16:
+        raise AssertionError(f"ensemble attention shapes {shapes - attn_checked16} unchecked")
+    if not set(norm_seen) <= norm_checked16:
+        raise AssertionError(f"ensemble norm sites {set(norm_seen) - norm_checked16} unchecked")
+    attn_calls = {s: sum(1 for b, hh, ww, c in attn_seen if (b, hh * ww, c) == s) for s in shapes}
+    check_stack("ensemble path", stack)
+    if stack.groups.shape != (MEMBERS, 1, BATCH, HW, HW, 2):
+        raise AssertionError(f"ensemble stack shape {tuple(stack.groups.shape)}")
+    eu = uncertainty_heatmaps(stack.group_means.float(), sample_axis=0, class_axis=-1)["EU"]
+    eu_per_image = eu.flatten(1).mean(1)
+    spread = (stack.groups.float() - stack.groups[:1].float()).abs().amax(dim=(1, 2, 3, 4, 5))
+    log(f"ensemble path: mean EU over pixels {eu.mean().item():.4e} (per image "
+        + ", ".join(f"{v:.2e}" for v in eu_per_image.tolist())
+        + "); max |p_m - p_0| per member group " + ", ".join(f"{v:.3f}" for v in spread.tolist()))
+    if not eu.mean().item() > 0.0 or not (spread[1:] > 1e-3).all():
+        raise AssertionError("ensemble members do not differ: EU is 0")
+
+    # the fp32 path with the same members and generator seed takes the same draws
+    _, _, sampler32 = build_path("fp32", separable=True, model="ensemble")
+    stack32 = sampler32(images, torch.Generator("cuda").manual_seed(0))
+    check_tracks("ensemble path", stack, stack32)
+    del sampler32, stack32
+
+    per_call = median_call_s(sampler, images, 10)
+    overheads = member_overheads(built, members)
+    log(f"ensemble path bf16: {per_call * 1e3:.2f} ms per call (median of 10) of {BATCH} "
+        f"images x {MEMBERS} members -> {BATCH / per_call:.2f} img/s; per call, binding "
+        f"{MEMBERS} members' weights (functional_call) {overheads['functional_call_ms']:.2f} ms, "
+        f"casting them to bf16 {overheads['weight_casts_ms']:.2f} ms")
+    return launches, attn_calls, norm_seen, BATCH / per_call, overheads
+
+
 def phase_quality():
     from diffuncertainty_tpu_torch.tools.quality import toy128_quality_eval
 
@@ -604,7 +748,8 @@ def phase_quality():
             ("diffusion_bf16_32", "bf16", True, "diffusion", 32),
             ("diffusion_bf16", "bf16", True, "diffusion", None),
             ("ssn_bf16", "bf16", True, "ssn", None),
-            ("prob_unet_bf16", "bf16", True, "prob_unet", None)):
+            ("prob_unet_bf16", "bf16", True, "prob_unet", None),
+            ("ensemble_bf16", "bf16", True, "ensemble", None)):
         cfg, built, sampler = build_path(precision, separable, model)
         t0 = time.perf_counter()
         q = toy128_quality_eval(built, sampler, cfg.data, batch=BATCH, hw=HW, device="cuda",
@@ -675,6 +820,10 @@ def main() -> int:
     diff_launches, diff_img_s = phase_diffusion(norm_checked)
     generative = {model: phase_generative16(model, attn_checked16, norm_checked16)
                   for model in ("ssn", "prob_unet")}
+    # the ensemble's members run unet16 forwards at 16 rows, the sites checked above
+    norm_checked_ens = {((BATCH,) + shape, dt, act) for shape, dt, act in sites["softmax"]}
+    ens_launches, ens_attn_calls, ens_norm_seen, ens_img_s, ens_overheads = phase_ensemble(
+        attn_checked16, norm_checked_ens)
     quality = phase_quality()
 
     # one entry per kernel; times are for the work of one main-path forward
@@ -702,6 +851,9 @@ def main() -> int:
     norm16 = {f"{model}_forward16": dict(norm_sum(g[2], BATCH), per=(
         f"one {BATCH}-row {model} call: its {len(g[2])} GroupNorm sites"))
         for model, g in generative.items()}
+    ens_per = f"one ensemble call: {MEMBERS} member forwards of {BATCH} rows"
+    attn16["ensemble_call"] = dict(attn_sum(attn_cases16, ens_attn_calls), per=ens_per)
+    norm16["ensemble_call"] = dict(norm_sum(ens_norm_seen, BATCH), per=ens_per)
     log(f"GroupNorm per forward: {rows} rows device {fmt(norm_per['device_ms'])} (events "
         f"{fmt(norm_per['ms'])}), bound {fmt(norm_per['bound_ms'])}, F.group_norm "
         f"{fmt(norm_per['library_ms'])}; {BATCH} rows device {fmt(norm_per16['device_ms'])} "
@@ -720,7 +872,8 @@ def main() -> int:
         "launches_by_path": {"softmax_call": launches["qkv_attention"],
                              "diffusion_call": diff_launches["qkv_attention"],
                              "ssn_call": generative["ssn"][0]["qkv_attention"],
-                             "prob_unet_call": generative["prob_unet"][0]["qkv_attention"]},
+                             "prob_unet_call": generative["prob_unet"][0]["qkv_attention"],
+                             "ensemble_call": ens_launches["qkv_attention"]},
         "max_abs_err": max(c["max_abs_err"] for c in attn_cases + attn_cases16 + width_cases),
         "ms": attn_per["ms"],
         "plain_ms": attn_per["plain_ms"],
@@ -745,7 +898,8 @@ def main() -> int:
         "launches_by_path": {"softmax_call": launches["group_norm_act"],
                              "diffusion_call": diff_launches["group_norm_act"],
                              "ssn_call": generative["ssn"][0]["group_norm_act"],
-                             "prob_unet_call": generative["prob_unet"][0]["group_norm_act"]},
+                             "prob_unet_call": generative["prob_unet"][0]["group_norm_act"],
+                             "ensemble_call": ens_launches["group_norm_act"]},
         "max_abs_err": max(c["max_abs_err"] for c in list(norm_cases.values()) + wide_cases),
         "ms": norm_per["ms"],
         "device_ms": norm_per["device_ms"],
@@ -766,7 +920,7 @@ def main() -> int:
     }]
     log(f"softmax path {img_s:.2f} img/s, diffusion path {diff_img_s:.3f} img/s, "
         + ", ".join(f"{model} path {g[3]:.2f} img/s" for model, g in generative.items())
-        + f"; quality {quality}")
+        + f", ensemble path {ens_img_s:.2f} img/s ({ens_overheads}); quality {quality}")
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,12 +3,13 @@
 Holds the fields of ``diffuncertainty_tpu/core/config.py`` that the ported
 paths read, with the values that the JAX ``load_config`` composes from
 ``configs/{data/lidc128, network/unet16, model/softmax, model/diffusion,
-model/ssn, model/prob_unet, eu_method/dropout, eu_method/none}.yaml``: the
-unet16 + MC-dropout softmax path (``model="softmax", eu_method="dropout"``)
-and the unet16 diffusion, SSN and prob-U-Net paths (``model="diffusion"``,
-``"ssn"`` or ``"prob_unet"`` with ``eu_method="none"``). Field names are kept
-so the two can be compared field by field. Other groups are not ported yet
-and raise.
+model/ssn, model/prob_unet}.yaml`` and ``configs/eu_method/{dropout, none,
+ensemble, swag, swag_diag}.yaml``: the unet16 + MC-dropout softmax path
+(``model="softmax", eu_method="dropout"``), the unet16 diffusion, SSN and
+prob-U-Net paths (``model="diffusion"``, ``"ssn"`` or ``"prob_unet"`` with
+``eu_method="none"``), and the stacked-member EU methods (a deep ensemble,
+SWAG and SWAG-diag) over any of them. Field names are kept so the two can be
+compared field by field. Other groups are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -68,9 +69,22 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SwagConfig:
+    """``eu_method.swag``: SWA-Gaussian moment collection (the JAX defaults;
+    ``configs/eu_method/swag*.yaml`` enable it)."""
+
+    enabled: bool = False
+    snapshot_frequency: int = 1
+    max_snapshots: int = 20
+    min_variance: float = 1e-30
+    diag_only: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class EUConfig:
     name: str = "dropout"
     dropout: DropoutSpec = DropoutSpec()
+    swag: SwagConfig = SwagConfig()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +129,12 @@ _GROUPS = {
         # configs/eu_method/dropout.yaml
         "dropout": EUConfig(dropout=DropoutSpec(enabled=True, probability_values=(0.2,))),
         "none": EUConfig(name="none"),  # configs/eu_method/none.yaml
+        "ensemble": EUConfig(name="ensemble"),  # configs/eu_method/ensemble.yaml
+        # configs/eu_method/swag.yaml and swag_diag.yaml
+        "swag": EUConfig(name="swag", swag=SwagConfig(enabled=True, max_snapshots=30,
+                                                      diag_only=False)),
+        "swag_diag": EUConfig(name="swag_diag", swag=SwagConfig(enabled=True, max_snapshots=30,
+                                                                diag_only=True)),
     },
 }
 # network fields a model group sets (configs/model/diffusion.yaml: network.final_act)

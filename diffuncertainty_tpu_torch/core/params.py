@@ -9,11 +9,20 @@ the port's ``state_dict`` names: module path ``a/b/kernel`` becomes
 Nested trees map the same way: the prob-U-Net's ``prior/encoder/enc0_res/...``
 becomes ``prior.encoder.enc0_res...`` and ``fcomb/body_0/kernel``
 ``fcomb.body_0.weight``.
+
+Member stacks (the sampler's ``params_stack``) are state dicts of (M, ...)
+tensors: ``flax_to_torch_stacked`` maps a flax tree with a leading member
+axis (kernels transposed past it), ``stack_states`` stacks the state dicts
+of several checkpoints (a deep ensemble, ``load_member_stack``), and
+``load_swag_npz`` reads the SWAG-diag moments asset
+(``tools/train_bench_assets.py`` of the JAX package).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
+
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -45,20 +54,24 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return flat
 
 
-def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
-    """Flax param tree (with or without the top 'params' level) -> state_dict."""
+def _convert(params: dict, lead: int) -> dict[str, torch.Tensor]:
+    """Flax tree -> state_dict; the first ``lead`` axes of every leaf are
+    batch axes (a member axis) that stay in front."""
     if set(params) == {"params"}:
         params = params["params"]
+    front = tuple(range(lead))
     state = {}
     for path, arr in _flatten(params).items():
         *mod, leaf = path
+        if arr.ndim < lead:
+            raise ValueError(f"'{'/'.join(path)}' has no leading member axis")
         if leaf == "kernel":
-            if arr.ndim == 4:  # conv HWIO -> OIHW
-                arr = arr.transpose(3, 2, 0, 1)
-            elif arr.ndim == 2:  # dense (I, O) -> (O, I)
-                arr = arr.T
+            if arr.ndim - lead == 4:  # conv HWIO -> OIHW
+                arr = arr.transpose(front + tuple(lead + a for a in (3, 2, 0, 1)))
+            elif arr.ndim - lead == 2:  # dense (I, O) -> (O, I)
+                arr = arr.transpose(front + (lead + 1, lead))
             else:
-                raise ValueError(f"unexpected kernel rank {arr.ndim} at {'/'.join(path)}")
+                raise ValueError(f"unexpected kernel rank {arr.ndim - lead} at {'/'.join(path)}")
             name = "weight"
         elif leaf == "scale":
             name = "weight"
@@ -70,7 +83,67 @@ def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
         if key in state:
             raise KeyError(f"two flax params map to '{key}'")
         state[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+    if lead and len({v.shape[:lead] for v in state.values()}) > 1:
+        raise ValueError("the leaves of a member stack disagree on the member count")
     return state
+
+
+def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
+    """Flax param tree (with or without the top 'params' level) -> state_dict."""
+    return _convert(params, 0)
+
+
+def flax_to_torch_stacked(params: dict) -> dict[str, torch.Tensor]:
+    """Flax tree whose leaves have a leading member axis M -> state_dict of
+    (M, ...) tensors: conv (M,H,W,I,O) -> (M,O,I,H,W), dense (M,I,O) -> (M,O,I)."""
+    return _convert(params, 1)
+
+
+def stack_states(states: Sequence[dict[str, torch.Tensor]],
+                 module: torch.nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """Stack per-member state dicts into (M, ...) tensors. Every member must
+    have the same keys and shapes, and, given ``module``, exactly the
+    module's keys and shapes."""
+    if not states:
+        raise ValueError("no member states to stack")
+    ref = {k: tuple(v.shape) for k, v in
+           (module.state_dict() if module is not None else states[0]).items()}
+    for m, st in enumerate(states):
+        got = {k: tuple(v.shape) for k, v in st.items()}
+        if got != ref:
+            diff = sorted(set(got.items()) ^ set(ref.items()))[:5]
+            raise KeyError(f"member {m} does not map onto the reference keys/shapes: {diff}")
+    return {k: torch.stack([st[k] for st in states]) for k in ref}
+
+
+def load_member_stack(paths: Sequence[str | Path],
+                      module: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The (M, ...) member stack of several npz checkpoints of ``module``'s
+    architecture (a deep ensemble); every key of each must map."""
+    return stack_states([flax_to_torch(load_params_npz(p)) for p in paths], module)
+
+
+class SwagMoments(NamedTuple):
+    """The SWAG-diag asset: per-parameter mean and standard deviation (state
+    dicts, float32) and how many snapshots made them."""
+
+    mean: dict[str, torch.Tensor]
+    std: dict[str, torch.Tensor]
+    n_snapshots: int
+    max_snapshots: int
+
+
+def load_swag_npz(path: str | Path) -> SwagMoments:
+    """Read ``mean/params/...`` (float32), ``std/params/...`` (float16, read
+    as float32 exactly) and ``meta/{n_snapshots,max_snapshots}``."""
+    tree = load_params_npz(path)
+    if set(tree) != {"mean", "std", "meta"}:
+        raise KeyError(f"a SWAG asset holds mean, std and meta, got {sorted(tree)}")
+    meta = tree["meta"]
+    mean, std = flax_to_torch(tree["mean"]), flax_to_torch(tree["std"])
+    if {k: v.shape for k, v in mean.items()} != {k: v.shape for k, v in std.items()}:
+        raise KeyError("the SWAG mean and std trees differ")
+    return SwagMoments(mean, std, int(meta["n_snapshots"]), int(meta["max_snapshots"]))
 
 
 def load_into(module: torch.nn.Module, path: str | Path) -> torch.nn.Module:

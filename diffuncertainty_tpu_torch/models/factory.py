@@ -1,9 +1,10 @@
 """Model factory for the ported slices (port of
 ``diffuncertainty_tpu/models/factory.py:104-173``): the softmax, diffusion,
-SSN and prob-U-Net families on the DiffUnet backbone. Diffusion models get
+SSN and prob-U-Net families on the DiffUnet backbone, under every EU method
+(none, MC-dropout, SWAG, SWAG-diag, a deep or a masked sub-ensemble; the
+last four reach the sampler as a stacked member state). Diffusion models get
 ``in_channels += out_channels`` for the x_t concat; the prob-U-Net is
-assembled by ``build_prob_unet``. HRNet, SWAG and ensembles are not ported
-and raise.
+assembled by ``build_prob_unet``. HRNet is not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .prob_unet import build_prob_unet
 from .unet import DiffUnet
 
 AU_TYPES = ("softmax", "diffusion", "ssn", "prob_unet")
+EU_TYPES = ("none", "dropout", "swag", "swag_diag", "ensemble", "subensemble")
 
 
 @dataclasses.dataclass
@@ -35,15 +37,34 @@ class BuiltModel:
     dropout_spec: DropoutSpec = dataclasses.field(default_factory=DropoutSpec)
 
 
+def _infer_eu_type(cfg: ExperimentConfig, dropout_spec: DropoutSpec) -> str:
+    """The EU type from the config (``models/factory.py:45-61`` of the JAX
+    package): the named method, SWAG's switch and a live dropout rate must
+    not disagree."""
+    explicit = cfg.eu_method.name
+    if explicit not in EU_TYPES:
+        raise ValueError(f"Unsupported EU method '{explicit}'")
+    candidates = set()
+    if explicit not in ("none", "ensemble", "subensemble"):
+        candidates.add(explicit)
+    if cfg.eu_method.swag.enabled:
+        candidates.add("swag_diag" if cfg.eu_method.swag.diag_only else "swag")
+    if dropout_spec.max_rate > 0.0:
+        candidates.add("dropout")
+    if len(candidates) > 1:
+        raise ValueError(f"Conflicting EU indicators: {sorted(candidates)}")
+    if candidates:
+        return candidates.pop()
+    return explicit if explicit in ("ensemble", "subensemble") else "none"
+
+
 def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda") -> BuiltModel:
     """``DiffUnet`` (or ``ProbUnet``) on ``device``, compute dtype from
     ``trainer.precision``."""
     net = cfg.network
     au_type = cfg.model.au_type
-    if au_type not in AU_TYPES or cfg.eu_method.name not in ("dropout", "none"):
-        raise NotImplementedError(
-            f"only {', '.join(AU_TYPES)} with MC-dropout or no EU method are ported "
-            f"(got {au_type}/{cfg.eu_method.name})")
+    if au_type not in AU_TYPES:
+        raise NotImplementedError(f"only {', '.join(AU_TYPES)} are ported (got {au_type})")
     if cfg.eu_method.name == "dropout":
         dropout_spec = cfg.eu_method.dropout
         if dropout_spec.max_rate <= 0.0:
@@ -82,7 +103,7 @@ def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda") -> B
     return BuiltModel(
         module=module.to(device).eval(),
         au_type=au_type,
-        eu_type="dropout" if dropout_spec.max_rate > 0.0 else "none",
+        eu_type=_infer_eu_type(cfg, dropout_spec),
         is_generative=au_type != "softmax",
         num_classes=net.out_channels,
         diffusion=(ContinuousGaussianDiffusion(**dataclasses.asdict(cfg.model.diffusion))

@@ -1,7 +1,7 @@
 """Device-time breakdown of the main paths on the card.
 
     python3 -m diffuncertainty_tpu_torch.tools.profile_main_path
-        [--workload softmax|diffusion|ssn|prob_unet] [--norm-twin]
+        [--workload softmax|diffusion|ssn|prob_unet|ensemble] [--norm-twin]
 
 ``softmax`` (default): the bf16 unet16 MC-dropout + TTA sampler with the
 trained toy-128 weights (16 images at 128x128, 16 members: one 256-row
@@ -10,8 +10,11 @@ sampler with the trained toy-128 diffusion weights (16 images, 16 DDIM-10
 trajectories: ten 256-row forwards per call), 1 traced call. ``ssn`` and
 ``prob_unet``: the bf16 unet16 SSN and prob-U-Net samplers with their
 trained toy-128 weights (16 images, 16 samples: one 16-row forward, then 16
-low-rank normal draws or 16 latent decodes, per call), 5 traced calls. Each is warmed
-up first, then traced with ``torch.profiler``. Prints the wall time per call
+low-rank normal draws or 16 latent decodes, per call), 5 traced calls.
+``ensemble``: the bf16 unet16 sampler over 16 stacked members drawn from the
+trained SWAG-diag moments (generator seed 42), MC-dropout live and TTA on
+(16 images: one 16-row forward per member, 16 per call), 3 traced calls; it
+also prints the device time per member forward. Each is warmed up first, then traced with ``torch.profiler``. Prints the wall time per call
 (CUDA events), the device busy share (the sum of kernel times over the wall
 time; kernels on one stream do not overlap), the kernel time by category and
 the top kernels by name. ``--norm-twin`` routes every GroupNorm through the
@@ -28,12 +31,13 @@ from pathlib import Path
 import torch
 
 from ..core.config import load_config
-from ..core.params import load_into
+from ..core.params import load_into, load_swag_npz
 from ..models import unet
 from ..models.factory import build_model
 from ..ops import cuda_groupnorm
 from ..sampling.sampler import SamplerSpec, make_sampler
 from ..sampling.tta import TTAConfig
+from ..tools.bench_assets import swag_draw_members
 
 ASSETS = Path(__file__).resolve().parents[2] / "assets"
 TOP = 20
@@ -59,7 +63,8 @@ def category(name: str) -> str:
     return "other"
 
 
-WORKLOADS = ("softmax", "diffusion", "ssn", "prob_unet")
+WORKLOADS = ("softmax", "diffusion", "ssn", "prob_unet", "ensemble")
+MEMBERS = 16  # member forwards per ensemble call
 
 
 def build_sampler(workload: str):
@@ -77,6 +82,13 @@ def build_sampler(workload: str):
                            diffusion_sampler="ddim", diffusion_num_steps=10)
         return make_sampler(built, spec), 1
     built = build_model(load_config(precision="bf16"), device="cuda")
+    if workload == "ensemble":
+        moments = load_swag_npz(ASSETS / "bench_unet16_toy128_swag.npz")
+        members = swag_draw_members(moments.mean, moments.std,
+                                    torch.Generator("cuda").manual_seed(42), MEMBERS)
+        spec = SamplerSpec(n_pred=1, n_members=MEMBERS, member_mode="params_stack", tta=True,
+                           tta_config=TTAConfig())
+        return make_sampler(built, spec, members=members), 3
     load_into(built.module, ASSETS / "bench_unet16_toy128.npz")
     spec = SamplerSpec(n_pred=1, n_members=16, member_mode="dropout", tta=True,
                        tta_config=TTAConfig())
@@ -126,6 +138,12 @@ def main() -> None:
           f"device: {torch.cuda.get_device_name(0)}; {calls} traced calls")
     print(f"wall {wall_ms:.2f} ms per call ({16 / wall_ms * 1e3:.2f} img/s); kernel time "
           f"{busy_ms:.2f} ms per call; busy share {busy_ms / wall_ms:.3f}")
+    per_member = {}
+    if args.workload == "ensemble":
+        per_member = {"member_forward_device_ms": busy_ms / MEMBERS,
+                      "member_forward_wall_ms": wall_ms / MEMBERS}
+        print(f"per member forward: device {busy_ms / MEMBERS:.3f} ms, wall "
+              f"{wall_ms / MEMBERS:.3f} ms ({MEMBERS} member forwards per call)")
     if not kernels:
         print("the profiler recorded no device time; only the CUDA-event wall time above holds")
     for label, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
@@ -135,7 +153,8 @@ def main() -> None:
         print(f"  {ms:9.3f} ms {n:5d}x  [{category(name)}] {name[:110]}")
     print(json.dumps({"workload": args.workload, "norm_twin": args.norm_twin,
                       "wall_ms": wall_ms, "busy_ms": busy_ms,
-                      "by_category_ms": by_cat, "device": torch.cuda.get_device_name(0)}))
+                      "by_category_ms": by_cat, **per_member,
+                      "device": torch.cuda.get_device_name(0)}))
 
 
 if __name__ == "__main__":
