@@ -1,6 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,hrnet,multiclass]
+
+With no argument every path runs; ``--paths`` picks a comma-separated group
+of them (each needs its asset under ``assets/``: a missing one is an error).
+The kernel build, the kernels' checks at the softmax path's shapes and at
+every other head width, and the checks at every shape of the chosen paths
+always run.
 
 Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
 
@@ -47,9 +53,23 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    around one call, the mean EU over pixels, bf16 held against fp32 with the
    same members and draws, the median time of 10 calls, and what binding a
    member's weights (``functional_call``) and casting them to bf16 cost;
-9. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
-   bf16 path and of the SSN, prob-U-Net and ensemble bf16 paths, held to
-   bands around the JAX package's recorded numbers (PARITY.md section 3,
+9. the HRNet path (``bench.py``'s "hrnet x16"): hrnet-s with the trained
+   toy-128 weights, 16 MC-dropout members (final dropout) x TTA folded into
+   one 256-row bf16 forward on 16 images, BatchNorm on its running
+   statistics; no attention or GroupNorm launch; the mean EU over pixels,
+   bf16 held against fp32 with the same draws and the median time of 10
+   calls;
+10. the multiclass path (``bench.py``'s ``full_frame_multiclass``): unet16
+   with the trained gta-toy label-switch weights (24 classes), 8 MC-dropout
+   members one after another, each one 168-row bf16 forward of the 21
+   windows (128, stride 64) of each of 8 frames of 256x512, tent-stitched;
+   the kernels checked at its 168-row shapes first; the launch counts read
+   around one call, frames/s from CUDA-event-timed calls after the first;
+11. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
+   bf16 path and of the SSN, prob-U-Net, ensemble and HRNet bf16 paths, and
+   the multiclass quality (macro Dice, GED, NCC of TU and AU against the
+   analytic switch map), held to bands around the JAX package's recorded
+   numbers (PARITY.md section 3 and its multiclass block, BENCH_r03.json,
    BENCH_r05.json).
 
 Every counted call also counts the kernels' plain twins and fails if one ran.
@@ -61,6 +81,7 @@ is not printed. The last line is the device JSON.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import functools
 import json
@@ -79,6 +100,12 @@ ASSET_DIFFUSION = REPO / "assets" / "bench_unet16_toy128_diffusion.npz"
 ASSET_SSN = REPO / "assets" / "bench_unet16_toy128_ssn.npz"
 ASSET_PROB_UNET = REPO / "assets" / "bench_unet16_toy128_prob_unet.npz"
 ASSET_SWAG = REPO / "assets" / "bench_unet16_toy128_swag.npz"
+ASSET_HRNET = REPO / "assets" / "bench_hrnet_s_toy128.npz"
+ASSET_MULTICLASS = REPO / "assets" / "bench_unet16_gtatoy_multiclass.npz"
+PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
+               "prob_unet": ASSET_PROB_UNET, "ensemble": ASSET_SWAG, "hrnet": ASSET_HRNET,
+               "multiclass": ASSET_MULTICLASS}
+PATHS = tuple(PATH_ASSETS)
 
 # kernel vs its twin: |kernel - twin| <= ATOL + RTOL*|twin| elementwise.
 # bf16: one rounding step of the output is 2^-8 relative; the two differ only
@@ -94,7 +121,9 @@ TOL = {"bfloat16": (4e-3, 2.0 ** -7), "float32": (1e-5, 1e-5)}
 # those 32 images and only reported on all 256. The SSN and prob-U-Net
 # numbers (16 samples each) are on the 256-image split (since round 4), and
 # so is the ensemble (16 SWAG-diag members x MC-dropout x TTA, BENCH_r05.json
-# family_quality.ensemble_stack).
+# family_quality.ensemble_stack). HRNet was last measured in round 3
+# (BENCH_r03.json ``hrnet.quality``) on the 32-image split: held there,
+# reported on 256.
 PARITY = {
     "bf16": {"dice": 0.9496, "ged_bma": 0.0383, "aurc": 0.04505, "ece": 0.01436},
     "fp32": {"dice": 0.9493, "ged_bma": 0.0377, "aurc": 0.04552, "ece": 0.0138},
@@ -102,8 +131,16 @@ PARITY = {
     "ssn_bf16": {"dice": 0.9462, "ged_bma": 0.0276, "aurc": 0.04918, "ece": 0.00958},
     "prob_unet_bf16": {"dice": 0.9486, "ged_bma": 0.0258, "aurc": 0.04531, "ece": 0.00341},
     "ensemble_bf16": {"dice": 0.9484, "ged_bma": 0.0397, "aurc": 0.04406, "ece": 0.00344},
+    "hrnet_bf16_32": {"dice": 0.9498, "ged_bma": 0.0372, "aurc": 0.0483, "ece": 0.00778},
 }
 BANDS = {"dice": 0.005, "ged_bma": 0.005, "aurc": 0.01, "ece": 0.005}
+# Multiclass quality (PARITY.md, multi-class block: fp32, the TPU's draws)
+# and its bands: Dice and GED +-0.01, the NCCs +-0.02; the JAX package's own
+# range over four dropout keys is narrower on every metric (PERF.md §6).
+MULTICLASS_PARITY = {"dice_macro": 0.5084, "ged_multiclass": 0.313,
+                     "ncc_tu_vs_analytic": 0.3406, "ncc_au_vs_analytic": 0.3389}
+MULTICLASS_BANDS = {"dice_macro": 0.01, "ged_multiclass": 0.01,
+                    "ncc_tu_vs_analytic": 0.02, "ncc_au_vs_analytic": 0.02}
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
 # the tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -129,11 +166,14 @@ RAGGED_TOKENS = (1, 80, 1000)
 # ragged token counts past the Pallas kernel's 2048, checked at the narrowest
 # and widest head width, 2 rows
 LONG_TOKENS = (2049, 4100)
-# the GroupNorm kernel's row counts: the main paths' and the batch-1 path's
-NORM_ROWS = (BATCH * MEMBERS, BATCH)
 # unet256's norms wider than 1024 channels at 128x128 (shape without batch),
 # checked (not timed) at 2 rows
 WIDE_NORM_SITES = ((8, 8, 1280), (8, 8, 1536), (16, 16, 1280))
+# attention calls per unet16 forward by token count: 5 at HW/4, 6 at HW/8
+UNET16_ATTENTION = {(HW // 4) ** 2: (5, 128), (HW // 8) ** 2: (6, 256)}
+# the multiclass path (bench.py:698-701): frames, frame size, window, stride,
+# members, switched references per frame, seed
+MC_FRAMES, MC_SIZE, MC_WINDOW, MC_STRIDE, MC_MEMBERS, MC_SEED = 8, (256, 512), 128, 64, 8, 1234
 
 
 def log(msg: str) -> None:
@@ -388,14 +428,14 @@ def build_path(precision: str, separable: bool, model: str = "softmax"):
         load_into(built.module, ASSET_DIFFUSION)
         spec = SamplerSpec(n_pred=TRAJECTORIES, n_members=1, member_mode="single",
                            diffusion_sampler="ddim", diffusion_num_steps=DDIM_STEPS)
-    else:  # softmax, or the ensemble: bench.py's build() with dropout live
-        cfg = load_config(data="lidc128", network="unet16", model="softmax",
-                          eu_method="dropout", precision=precision)
+    else:  # softmax, the ensemble or HRNet: bench.py's build() with dropout live
+        cfg = load_config(data="lidc128", network="hrnet-s" if model == "hrnet" else "unet16",
+                          model="softmax", eu_method="dropout", precision=precision)
         built = build_model(cfg, device="cuda")
         if model == "ensemble":
             members = ensemble_members()
         else:
-            load_into(built.module, ASSET)
+            load_into(built.module, ASSET_HRNET if model == "hrnet" else ASSET)
         tta = TTAConfig(hflip_p=0.5, rotation_limit=22.5, scale_limit=(-0.2, 0.2),
                         separable_warp=separable)
         spec = SamplerSpec(n_pred=1, n_members=MEMBERS, tta=True, tta_config=tta,
@@ -688,8 +728,6 @@ def phase_ensemble(attn_checked16: set, norm_checked16: set):
     the median time of 10 calls, and the member overheads."""
     import torch
 
-    from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
-
     t0 = time.perf_counter()
     cfg, built, sampler = build_path("bf16", separable=True, model="ensemble")
     members = ensemble_members()
@@ -713,14 +751,12 @@ def phase_ensemble(attn_checked16: set, norm_checked16: set):
     check_stack("ensemble path", stack)
     if stack.groups.shape != (MEMBERS, 1, BATCH, HW, HW, 2):
         raise AssertionError(f"ensemble stack shape {tuple(stack.groups.shape)}")
-    eu = uncertainty_heatmaps(stack.group_means.float(), sample_axis=0, class_axis=-1)["EU"]
-    eu_per_image = eu.flatten(1).mean(1)
+    mean_eu("ensemble path", stack)
     spread = (stack.groups.float() - stack.groups[:1].float()).abs().amax(dim=(1, 2, 3, 4, 5))
-    log(f"ensemble path: mean EU over pixels {eu.mean().item():.4e} (per image "
-        + ", ".join(f"{v:.2e}" for v in eu_per_image.tolist())
-        + "); max |p_m - p_0| per member group " + ", ".join(f"{v:.3f}" for v in spread.tolist()))
-    if not eu.mean().item() > 0.0 or not (spread[1:] > 1e-3).all():
-        raise AssertionError("ensemble members do not differ: EU is 0")
+    log("ensemble path: max |p_m - p_0| per member group "
+        + ", ".join(f"{v:.3f}" for v in spread.tolist()))
+    if not (spread[1:] > 1e-3).all():
+        raise AssertionError("ensemble members do not differ")
 
     # the fp32 path with the same members and generator seed takes the same draws
     _, _, sampler32 = build_path("fp32", separable=True, model="ensemble")
@@ -737,7 +773,169 @@ def phase_ensemble(attn_checked16: set, norm_checked16: set):
     return launches, attn_calls, norm_seen, BATCH / per_call, overheads
 
 
-def phase_quality():
+def mean_eu(name: str, stack) -> float:
+    """The mean EU over pixels of a stack's group means; fails if it is 0."""
+    from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
+
+    eu = uncertainty_heatmaps(stack.group_means.float(), sample_axis=0, class_axis=-1)["EU"]
+    eu_per_image = eu.flatten(1).mean(1)
+    log(f"{name}: mean EU over pixels {eu.mean().item():.4e} (per image "
+        + ", ".join(f"{v:.2e}" for v in eu_per_image.tolist()) + ")")
+    if not eu.mean().item() > 0.0:
+        raise AssertionError(f"{name}: members do not differ: EU is 0")
+    return eu.mean().item()
+
+
+def phase_hrnet():
+    """The HRNet path: one counted call (one 256-row hrnet-s forward, no
+    attention or GroupNorm launch), the stack and its EU, bf16 against fp32
+    with the same draws, the median time of 10 calls."""
+    import torch
+
+    from diffuncertainty_tpu_torch.models.hrnet import BatchNorm, Conv
+
+    cfg, built, sampler = build_path("bf16", separable=True, model="hrnet")
+    images = test_images(cfg)
+    # what the forward must do, from its shapes: conv multiply-adds, and the
+    # bytes of every conv's and BatchNorm's input and output
+    work = {"macs": 0, "bytes": 0}
+
+    def count(mod, args, out):
+        if isinstance(mod, Conv):
+            work["macs"] += out.numel() * mod.weight[0].numel()
+        work["bytes"] += args[0].numel() * args[0].element_size() + out.numel() * out.element_size()
+
+    hooks = [m.register_forward_hook(count) for m in built.module.modules()
+             if isinstance(m, (Conv, BatchNorm))]
+    stack, launches, n_attn, n_norm, _, _ = counted_call(built, sampler, images, 0)
+    for h in hooks:
+        h.remove()
+    log(f"hrnet path: {2 * work['macs'] / 1e9:.1f} GFLOP in its convs "
+        f"({2 * work['macs'] / PEAK_BF16_FLOPS * 1e3:.3f} ms at the bf16 peak), "
+        f"{work['bytes'] / 1e9:.2f} GB of conv and BatchNorm inputs and outputs "
+        f"({work['bytes'] / PEAK_BYTES * 1e3:.3f} ms at the HBM peak) per call")
+    check_launches("hrnet path", launches, {"qkv_attention": 0, "group_norm_act": 0})
+    if (n_attn, n_norm) != (0, 0):
+        raise AssertionError(f"hrnet-s has {n_attn} AttentionBlocks and {n_norm} GroupNorms")
+    check_stack("hrnet path", stack)
+    if stack.groups.shape != (MEMBERS, 1, BATCH, HW, HW, 2):
+        raise AssertionError(f"hrnet stack shape {tuple(stack.groups.shape)}")
+    eu = mean_eu("hrnet path", stack)
+
+    # the fp32 path with the same generator draws the same TTA params and
+    # final-dropout masks
+    _, _, sampler32 = build_path("fp32", separable=True, model="hrnet")
+    stack32 = sampler32(images, torch.Generator("cuda").manual_seed(0))
+    check_tracks("hrnet path", stack, stack32)
+    del sampler32, stack32
+
+    per_call = median_call_s(sampler, images, 10)
+    log(f"hrnet path bf16: {per_call * 1e3:.2f} ms per call (median of 10) of {BATCH} images x "
+        f"{MEMBERS} members -> {BATCH / per_call:.2f} img/s")
+    return launches, BATCH / per_call, eu
+
+
+def build_multiclass():
+    """bench.py's multiclass model (gta_toy, unet16, MC-dropout) with the
+    trained label-switch weights, and its member sliding-window function."""
+    import torch
+
+    from diffuncertainty_tpu_torch.core.config import load_config
+    from diffuncertainty_tpu_torch.core.params import load_into
+    from diffuncertainty_tpu_torch.models.factory import build_model
+    from diffuncertainty_tpu_torch.tools.multiclass_quality import member_sliding_window_fn
+
+    cfg = load_config(data="gta_toy", network="unet16", model="softmax", eu_method="dropout",
+                      precision="bf16")
+    built = build_model(cfg, device="cuda")
+    load_into(built.module, ASSET_MULTICLASS)
+    fn = member_sliding_window_fn(built.module, window=MC_WINDOW, stride=MC_STRIDE,
+                                  members=MC_MEMBERS)
+    torch.cuda.synchronize()
+    return cfg, built, fn
+
+
+def multiclass_rows() -> int:
+    """Tile rows of one multiclass member forward: windows per frame x frames."""
+    from diffuncertainty_tpu_torch.infer.sliding_window import _window_offsets
+
+    return MC_FRAMES * (len(_window_offsets(MC_SIZE[0], MC_WINDOW, MC_STRIDE))
+                        * len(_window_offsets(MC_SIZE[1], MC_WINDOW, MC_STRIDE)))
+
+
+def phase_multiclass(attn_checked: set, norm_checked: set):
+    """The multiclass path: one counted call (8 members, each one 168-row
+    unet16 forward), the stitched stack, frames/s from CUDA-event times of 5
+    calls after the first."""
+    import torch
+
+    from diffuncertainty_tpu_torch.data.augment import normalize_batch
+    from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
+    from diffuncertainty_tpu_torch.tools.groupnorm_sites import event_ms
+    from diffuncertainty_tpu_torch.tools.multiclass_quality import gta_toy_frames
+
+    t0 = time.perf_counter()
+    frames, _ = gta_toy_frames(MC_FRAMES, MC_SIZE, MC_WINDOW, MC_SEED)
+    log(f"multiclass path: gta-toy {frames.shape} generated or found in "
+        f"{time.perf_counter() - t0:.2f}s")
+    cfg, built, fn = build_multiclass()
+    aug = cfg.data.augmentations
+    x = normalize_batch(torch.from_numpy(frames).cuda(), aug.mean, aug.std)
+    stack, launches, n_attn, n_norm, attn_seen, norm_seen = counted_call(built, fn, x, MC_SEED)
+    check_launches("multiclass path", launches, {"qkv_attention": MC_MEMBERS * n_attn,
+                                                 "group_norm_act": MC_MEMBERS * n_norm})
+    if (n_attn, n_norm) != (11, 56):
+        raise AssertionError(f"unet16 has {n_attn} AttentionBlocks and {n_norm} GroupNorms")
+    shapes = {(b, hh * ww, c) for b, hh, ww, c in attn_seen}
+    if shapes != attn_checked:
+        raise AssertionError(f"multiclass attention shapes {shapes} != checked {attn_checked}")
+    if set(norm_seen) != norm_checked:
+        raise AssertionError(f"multiclass norm sites {set(norm_seen) ^ norm_checked} unchecked")
+    attn_calls = {s: sum(1 for b, hh, ww, c in attn_seen if (b, hh * ww, c) == s) for s in shapes}
+    want = (MC_MEMBERS, MC_FRAMES) + tuple(MC_SIZE) + (built.num_classes,)
+    if tuple(stack.shape) != want or not torch.isfinite(stack).all():
+        raise AssertionError(f"multiclass stack {tuple(stack.shape)} (expected {want}) or "
+                             f"non-finite values")
+    sum_err = (stack.float().sum(-1) - 1).abs().max().item()
+    maps = uncertainty_heatmaps(stack.float(), sample_axis=0, class_axis=-1)
+    decomp_err = (maps["TU"] - maps["AU"] - maps["EU"]).abs().max().item()
+    log(f"multiclass path: stack {tuple(stack.shape)}, max |sum_c p - 1| {sum_err:.2e}, "
+        f"max |TU-AU-EU| {decomp_err:.2e}, mean TU {maps['TU'].mean().item():.4e}, "
+        f"mean EU {maps['EU'].mean().item():.4e}")
+    if sum_err > 1e-4 or decomp_err > 1e-4 or not maps["EU"].mean().item() > 0.0:
+        raise AssertionError("multiclass stack is not a simplex, its heatmaps do not "
+                             "decompose, or its members do not differ")
+    del stack, maps
+    gens = iter(range(100, 200))
+    ms = event_ms(lambda: fn(x, torch.Generator("cuda").manual_seed(next(gens))), runs=5,
+                  warmup=1)
+    log(f"multiclass path bf16: {ms:.2f} ms per call (CUDA events, median of 5 after one) of "
+        f"{MC_FRAMES} frames {MC_SIZE[0]}x{MC_SIZE[1]} x {MC_MEMBERS} members, "
+        f"{multiclass_rows()} rows per member forward -> {MC_FRAMES / ms * 1e3:.3f} frames/s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del x
+    torch.cuda.empty_cache()
+    return launches, attn_calls, norm_seen, MC_FRAMES / ms * 1e3
+
+
+def phase_multiclass_quality() -> dict:
+    from diffuncertainty_tpu_torch.tools.multiclass_quality import gta_toy_quality_eval
+
+    cfg, built, _ = build_multiclass()
+    t0 = time.perf_counter()
+    q = gta_toy_quality_eval(built, cfg.data, frames=MC_FRAMES, frame_size=MC_SIZE,
+                             window=MC_WINDOW, stride=MC_STRIDE, members=MC_MEMBERS,
+                             seed=MC_SEED, timing_reps=3, device="cuda")
+    log(f"quality multiclass_bf16 ({MC_FRAMES} frames, {MC_MEMBERS} members, "
+        f"{time.perf_counter() - t0:.1f}s): {q}")
+    for metric, ref in MULTICLASS_PARITY.items():
+        if abs(q[metric] - ref) > MULTICLASS_BANDS[metric]:
+            raise AssertionError(f"multiclass_bf16 {metric} {q[metric]:.5f} outside "
+                                 f"{ref} +- {MULTICLASS_BANDS[metric]}")
+    return q
+
+
+def phase_quality(paths):
     from diffuncertainty_tpu_torch.tools.quality import toy128_quality_eval
 
     results = {}
@@ -749,7 +947,11 @@ def phase_quality():
             ("diffusion_bf16", "bf16", True, "diffusion", None),
             ("ssn_bf16", "bf16", True, "ssn", None),
             ("prob_unet_bf16", "bf16", True, "prob_unet", None),
-            ("ensemble_bf16", "bf16", True, "ensemble", None)):
+            ("ensemble_bf16", "bf16", True, "ensemble", None),
+            ("hrnet_bf16_32", "bf16", True, "hrnet", 32),
+            ("hrnet_bf16", "bf16", True, "hrnet", None)):
+        if model not in paths:
+            continue
         cfg, built, sampler = build_path(precision, separable, model)
         t0 = time.perf_counter()
         q = toy128_quality_eval(built, sampler, cfg.data, batch=BATCH, hw=HW, device="cuda",
@@ -773,25 +975,49 @@ def phase_quality():
     return results
 
 
-def main() -> int:
+def parse_paths(argv) -> tuple[str, ...]:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--paths", default=",".join(PATHS),
+                        help=f"comma-separated subset of {', '.join(PATHS)} (default: all)")
+    names = [p for p in parser.parse_args(argv).paths.split(",") if p]
+    unknown = sorted(set(names) - set(PATHS))
+    if unknown or not names:
+        parser.error(f"unknown or no paths {unknown}; choose from {', '.join(PATHS)}")
+    missing = [str(PATH_ASSETS[p]) for p in names if not PATH_ASSETS[p].is_file()]
+    if missing:
+        raise FileNotFoundError(f"assets of the chosen paths are missing: {missing}")
+    return tuple(p for p in PATHS if p in names)
+
+
+def main(argv=None) -> int:
+    paths = parse_paths(argv)
     sys.path.insert(0, str(REPO))
     smi = phase_device()
     import torch
 
+    log(f"paths: {', '.join(paths)}")
     ptxas = phase_build()
     from diffuncertainty_tpu_torch.tools.groupnorm_sites import fmt, norm_sites, per_forward
-    # unet16 attends at its two deepest levels: HW/4 (C=128) and HW/8 (C=256)
-    attn_cases = [attention_case(BATCH * MEMBERS, (HW // 4) ** 2, 128, 4, seed=1),
-                  attention_case(BATCH * MEMBERS, (HW // 8) ** 2, 256, 4, seed=2)]
+    rows = BATCH * MEMBERS
+    rows16 = ("ssn", "prob_unet", "ensemble")
+    # unet16 attends at its two deepest levels: HW/4 (C=128) and HW/8 (C=256);
+    # the main path's 256-row sites always, the 16-row and 168-row sites with
+    # the paths that run them
+    attn_cases = [attention_case(rows, t, c, 4, seed=1 + i)
+                  for i, (t, (_, c)) in enumerate(UNET16_ATTENTION.items())]
     attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
-    # the SSN's and the prob-U-Net's sites at their 16 rows
     attn_cases16 = [attention_case(BATCH, (HW // div) ** 2, c, 4, seed=600 + i)
-                    for i, (div, c) in enumerate(ATTENTION_SITES16)]
+                    for i, (div, c) in enumerate(ATTENTION_SITES16)
+                    if any(p in paths for p in rows16)]
     attn_checked16 = {(c["B"], c["T"], c["C"]) for c in attn_cases16}
+    mc_rows = multiclass_rows()
+    attn_cases168 = [attention_case(mc_rows, t, c, 4, seed=700 + i)
+                     for i, (t, (_, c)) in enumerate(UNET16_ATTENTION.items())
+                     if "multiclass" in paths]
+    attn_checked168 = {(c["B"], c["T"], c["C"]) for c in attn_cases168}
     width_cases = attention_width_cases()
 
     sites = {model: norm_sites(model, HW) for model in ("softmax", "ssn", "prob_unet")}
-    rows = BATCH * MEMBERS
 
     def distinct(site_list):
         return sorted(set(site_list), key=lambda s: (-s[0][0], s))
@@ -799,44 +1025,74 @@ def main() -> int:
     log("GroupNorm sites of one forward: " + ", ".join(
         f"{model} {len(sl)} ({len(distinct(sl))} distinct (shape, dtype, act))"
         for model, sl in sites.items()))
-    # every site's shape in both dtypes: bf16 as the bf16 paths give it (and
-    # fp32 at the heads), fp32 as the fp32 paths give it; unet16's at the main
-    # paths' 256 rows and the batch-1 path's 16, the SSN's and prob-U-Net's
-    # at the 16 rows their calls run
+    # every site's shape in both dtypes (bf16 as the bf16 paths give it, and
+    # fp32 at the heads; fp32 as the fp32 paths give it) at the main paths'
+    # 256 rows and the batch-1 path's 16; the SSN's and prob-U-Net's at the
+    # 16 rows their calls run; at 168 rows the multiclass path's own sites
+    groups = [(rows, ("softmax",), ("bfloat16", "float32"))]
+    if any(p in paths for p in rows16):
+        groups.append((BATCH, ("softmax", "ssn", "prob_unet"), ("bfloat16", "float32")))
     norm_cases = {}
-    for n_rows, models in ((rows, ("softmax",)), (BATCH, ("softmax", "ssn", "prob_unet"))):
+    for n_rows, models, dtypes in groups:
         shape_acts = {(shape, act) for m in models for shape, _, act in sites[m]}
         for shape, act in sorted(shape_acts, key=lambda sa: (-sa[0][0], sa)):
-            for dt in ("bfloat16", "float32"):
+            for dt in dtypes:
                 key = ((n_rows,) + shape, dt, act)
                 norm_cases[key] = group_norm_case(key[0], dt, act, seed=10 + len(norm_cases))
+    if "multiclass" in paths:
+        for shape, dt, act in distinct(sites["softmax"]):
+            key = ((mc_rows,) + shape, dt, act)
+            norm_cases[key] = group_norm_case(key[0], dt, act, seed=10 + len(norm_cases))
     wide_cases = [group_norm_case((2,) + shape, dt, "silu", seed=500 + i, timed=False)
                   for i, shape in enumerate(WIDE_NORM_SITES) for dt in ("bfloat16", "float32")]
     norm_checked = {((rows,) + shape, dt, act) for shape, dt, act in distinct(sites["softmax"])}
     norm_checked16 = {((BATCH,) + shape, dt, act) for m in ("ssn", "prob_unet")
                       for shape, dt, act in sites[m]}
+    norm_checked168 = {((mc_rows,) + shape, dt, act) for shape, dt, act in sites["softmax"]}
 
-    launches, attn_calls, norm_seen, img_s = phase_main_path(attn_checked, norm_checked)
-    diff_launches, diff_img_s = phase_diffusion(norm_checked)
+    # the main-path launch counts: unet16's 11 attention and 56 GroupNorm
+    # sites per forward (the softmax phase checks them)
+    attn_calls = {(rows, t, c): n for t, (n, c) in UNET16_ATTENTION.items()}
+    norm_seen = [((rows,) + shape, dt, act) for shape, dt, act in sites["softmax"]]
+    launches_by_path, img_s = {}, {}
+    if "softmax" in paths:
+        launches_by_path["softmax"], seen_calls, norm_seen, img_s["softmax"] = phase_main_path(
+            attn_checked, norm_checked)
+        if seen_calls != attn_calls:
+            raise AssertionError(f"softmax attention calls {seen_calls} != {attn_calls}")
+    if "diffusion" in paths:
+        launches_by_path["diffusion"], img_s["diffusion"] = phase_diffusion(norm_checked)
     generative = {model: phase_generative16(model, attn_checked16, norm_checked16)
-                  for model in ("ssn", "prob_unet")}
-    # the ensemble's members run unet16 forwards at 16 rows, the sites checked above
-    norm_checked_ens = {((BATCH,) + shape, dt, act) for shape, dt, act in sites["softmax"]}
-    ens_launches, ens_attn_calls, ens_norm_seen, ens_img_s, ens_overheads = phase_ensemble(
-        attn_checked16, norm_checked_ens)
-    quality = phase_quality()
+                  for model in ("ssn", "prob_unet") if model in paths}
+    for model, g in generative.items():
+        launches_by_path[model], img_s[model] = g[0], g[3]
+    if "ensemble" in paths:
+        # the ensemble's members run unet16 forwards at 16 rows, the sites checked above
+        norm_checked_ens = {((BATCH,) + shape, dt, act) for shape, dt, act in sites["softmax"]}
+        (launches_by_path["ensemble"], ens_attn_calls, ens_norm_seen, img_s["ensemble"],
+         ens_overheads) = phase_ensemble(attn_checked16, norm_checked_ens)
+    if "hrnet" in paths:
+        launches_by_path["hrnet"], img_s["hrnet"], hrnet_eu = phase_hrnet()
+    if "multiclass" in paths:
+        (launches_by_path["multiclass"], mc_attn_calls, mc_norm_seen,
+         frames_s) = phase_multiclass(attn_checked168, norm_checked168)
+    quality = phase_quality(paths)
+    if "multiclass" in paths:
+        quality["multiclass_bf16"] = phase_multiclass_quality()
 
     # one entry per kernel; times are for the work of one main-path forward
     def attn_sum(cases, calls):
         return {k: sum(calls.get((c["B"], c["T"], c["C"]), 0) * c[k] for c in cases)
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
+    def calls_text(calls):
+        return ", ".join(f"{n} calls at B={b} T={t} C={c}" for (b, t, c), n in sorted(calls.items()))
+
     attn_per = attn_sum(attn_cases, attn_calls)
     bound_by = max(attn_cases,
                    key=lambda c: attn_calls[(c["B"], c["T"], c["C"])] * c["bound_ms"])
-    attn16 = {f"{model}_forward16": dict(attn_sum(attn_cases16, g[1]), per=(
-        f"one {BATCH}-row {model} call: " + ", ".join(
-            f"{n} calls at B={b} T={t} C={c}" for (b, t, c), n in sorted(g[1].items()))))
+    attn_extra = {f"{model}_forward16": dict(attn_sum(attn_cases16, g[1]), per=(
+        f"one {BATCH}-row {model} call: " + calls_text(g[1])))
         for model, g in generative.items()}
     # GroupNorm per forward at 256 rows (the main paths) and at 16 (batch-1,
     # and the SSN's and prob-U-Net's calls)
@@ -847,46 +1103,67 @@ def main() -> int:
         return {k: per_forward([dict(norm_cases[((n_rows,) + shape[1:], dt, act)], calls=1)
                                 for shape, dt, act in seen], k) for k in norm_keys}
 
-    norm_per, norm_per16 = norm_sum(norm_seen, rows), norm_sum(norm_seen, BATCH)
-    norm16 = {f"{model}_forward16": dict(norm_sum(g[2], BATCH), per=(
+    norm_per = norm_sum(norm_seen, rows)
+    norm_extra = {f"{model}_forward16": dict(norm_sum(g[2], BATCH), per=(
         f"one {BATCH}-row {model} call: its {len(g[2])} GroupNorm sites"))
         for model, g in generative.items()}
-    ens_per = f"one ensemble call: {MEMBERS} member forwards of {BATCH} rows"
-    attn16["ensemble_call"] = dict(attn_sum(attn_cases16, ens_attn_calls), per=ens_per)
-    norm16["ensemble_call"] = dict(norm_sum(ens_norm_seen, BATCH), per=ens_per)
-    log(f"GroupNorm per forward: {rows} rows device {fmt(norm_per['device_ms'])} (events "
+    if any(p in paths for p in rows16):
+        norm_extra["rows16"] = dict(norm_sum(norm_seen, BATCH),
+                                    per=f"one {BATCH}-row unet16 forward (the batch-1 path)")
+    if "ensemble" in paths:
+        ens_per = f"one ensemble call: {MEMBERS} member forwards of {BATCH} rows"
+        attn_extra["ensemble_call"] = dict(attn_sum(attn_cases16, ens_attn_calls), per=ens_per)
+        norm_extra["ensemble_call"] = dict(norm_sum(ens_norm_seen, BATCH), per=ens_per)
+    if "multiclass" in paths:
+        # one member forward of the multiclass call (a call is MC_MEMBERS of them)
+        mc_attn_forward = {k: n // MC_MEMBERS for k, n in mc_attn_calls.items()}
+        mc_per = (f"one {mc_rows}-row member forward of the multiclass call (a call is "
+                  f"{MC_MEMBERS}): ")
+        attn_extra["multiclass_forward168"] = dict(attn_sum(attn_cases168, mc_attn_forward),
+                                                   per=mc_per + calls_text(mc_attn_forward))
+        norm_extra["multiclass_forward168"] = dict(
+            norm_sum(mc_norm_seen[:len(mc_norm_seen) // MC_MEMBERS], mc_rows),
+            per=mc_per + f"its {len(mc_norm_seen) // MC_MEMBERS} GroupNorm sites")
+    log(f"GroupNorm per {rows}-row forward: device {fmt(norm_per['device_ms'])} (events "
         f"{fmt(norm_per['ms'])}), bound {fmt(norm_per['bound_ms'])}, F.group_norm "
-        f"{fmt(norm_per['library_ms'])}; {BATCH} rows device {fmt(norm_per16['device_ms'])} "
-        f"(events {fmt(norm_per16['ms'])}), bound {fmt(norm_per16['bound_ms'])}")
-    for key in norm16:
-        a, n = attn16[key], norm16[key]
-        log(f"{key}: attention kernel {a['ms']:.4f} ms, sdpa {a['library_ms']:.4f} ms, bound "
-            f"{a['bound_ms']:.4f} ms; GroupNorm device {fmt(n['device_ms'])} (events "
+        f"{fmt(norm_per['library_ms'])}")
+    for key in norm_extra:
+        n = norm_extra[key]
+        a = attn_extra.get(key)
+        attn_text = "" if a is None else (
+            f"attention kernel {a['ms']:.4f} ms, sdpa {a['library_ms']:.4f} ms, bound "
+            f"{a['bound_ms']:.4f} ms; ")
+        log(f"{key}: {attn_text}GroupNorm device {fmt(n['device_ms'])} (events "
             f"{fmt(n['ms'])}), F.group_norm {fmt(n['library_ms'])}, bound {fmt(n['bound_ms'])}")
+    # the main path: softmax, else the chosen path that launches the kernels most
+    main_path = "softmax" if "softmax" in paths else max(
+        launches_by_path, key=lambda p: sum(launches_by_path[p].values()))
+
+    def launches(kernel):
+        return {"launches": launches_by_path.get(main_path, {}).get(kernel, 0),
+                "launches_path": main_path,
+                "launches_by_path": {f"{p}_call": counts[kernel]
+                                     for p, counts in launches_by_path.items()}}
+
     kernels = [{
         "name": "qkv_attention",
         "route": "cuda",
         "source": "diffuncertainty_tpu_torch/csrc/qkv_attention.cu",
         "replaces": "diffuncertainty_tpu/ops/pallas_attention.py:38",
-        "launches": launches["qkv_attention"],
-        "launches_by_path": {"softmax_call": launches["qkv_attention"],
-                             "diffusion_call": diff_launches["qkv_attention"],
-                             "ssn_call": generative["ssn"][0]["qkv_attention"],
-                             "prob_unet_call": generative["prob_unet"][0]["qkv_attention"],
-                             "ensemble_call": ens_launches["qkv_attention"]},
-        "max_abs_err": max(c["max_abs_err"] for c in attn_cases + attn_cases16 + width_cases),
+        **launches("qkv_attention"),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in attn_cases + attn_cases16 + attn_cases168 + width_cases),
         "ms": attn_per["ms"],
         "plain_ms": attn_per["plain_ms"],
         "bound_ms": attn_per["bound_ms"],
         "bound_by": bound_by["bound_by"],
         "library_ms": attn_per["library_ms"],
-        "per": f"one {BATCH * MEMBERS}-row unet16 forward (one softmax-path call; a diffusion call is "
-               f"{DDIM_STEPS}): " + ", ".join(
-            f"{attn_calls[(c['B'], c['T'], c['C'])]} calls at B={c['B']} T={c['T']} C={c['C']}"
-            for c in attn_cases),
-        **attn16,
+        "per": f"one {rows}-row unet16 forward (one softmax-path call; a diffusion call is "
+               f"{DDIM_STEPS}): " + calls_text(attn_calls),
+        **attn_extra,
         "shapes": attn_cases,
         "shapes16": attn_cases16,
+        "shapes168": attn_cases168,
         "other_widths": width_cases,
         "ptxas": ptxas.get("qkv_attention", {}),
     }, {
@@ -894,12 +1171,7 @@ def main() -> int:
         "route": "cuda",
         "source": "diffuncertainty_tpu_torch/csrc/group_norm_act.cu",
         "replaces": "diffuncertainty_tpu/ops/pallas_groupnorm.py:32",
-        "launches": launches["group_norm_act"],
-        "launches_by_path": {"softmax_call": launches["group_norm_act"],
-                             "diffusion_call": diff_launches["group_norm_act"],
-                             "ssn_call": generative["ssn"][0]["group_norm_act"],
-                             "prob_unet_call": generative["prob_unet"][0]["group_norm_act"],
-                             "ensemble_call": ens_launches["group_norm_act"]},
+        **launches("group_norm_act"),
         "max_abs_err": max(c["max_abs_err"] for c in list(norm_cases.values()) + wide_cases),
         "ms": norm_per["ms"],
         "device_ms": norm_per["device_ms"],
@@ -912,15 +1184,20 @@ def main() -> int:
                f"bf16 path's shapes and dtypes; a diffusion call is {DDIM_STEPS} forwards",
         "per_diffusion_call": {k: None if v is None else DDIM_STEPS * v
                                for k, v in norm_per.items()},
-        "rows16": dict(norm_per16, per=f"one {BATCH}-row unet16 forward (the batch-1 path)"),
-        **norm16,
+        **norm_extra,
         "shapes": list(norm_cases.values()),
         "wide_shapes": wide_cases,
         "ptxas": ptxas.get("group_norm_act", {}),
     }]
-    log(f"softmax path {img_s:.2f} img/s, diffusion path {diff_img_s:.3f} img/s, "
-        + ", ".join(f"{model} path {g[3]:.2f} img/s" for model, g in generative.items())
-        + f", ensemble path {ens_img_s:.2f} img/s ({ens_overheads}); quality {quality}")
+    extra = ""
+    if "ensemble" in paths:
+        extra += f" (ensemble member overheads {ens_overheads})"
+    if "hrnet" in paths:
+        extra += f"; hrnet mean EU {hrnet_eu:.4e}"
+    if "multiclass" in paths:
+        extra += f"; multiclass path {frames_s:.3f} frames/s"
+    log(", ".join(f"{p} path {v:.3f} img/s" for p, v in img_s.items()) + extra
+        + f"; quality {quality}")
     log(f"total {time.perf_counter() - T0:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

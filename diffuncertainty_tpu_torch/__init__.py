@@ -7,9 +7,9 @@ imports ``torch``, numpy and scipy only, and runs its entry points on
 
 Slices ported so far: the unet16 MC-dropout + TTA softmax uncertainty path
 (config, weights, DiffUnet forward, TTA warps, sampler, heatmaps, per-image
-metrics and the toy-128 quality eval) and the unet16 diffusion path (time
-embedding, time-conditioned DiffUnet, schedules and DDIM/DDPM reverse
-samplers, the flat trajectory sampler). Both TPU kernels of the JAX package
-run as hand-written CUDA kernels: the fused-qkv attention and the
-GroupNorm+activation.
+metrics and the toy-128 quality eval), the unet16 diffusion, SSN and
+prob-U-Net paths, stacked members (SWAG, ensembles, sub-ensembles), the
+HRNet backbone and the multiclass full-frame sliding-window family. Both
+TPU kernels of the JAX package run as hand-written CUDA kernels: the
+fused-qkv attention and the GroupNorm+activation.
 """

@@ -2,14 +2,18 @@
 
 Holds the fields of ``diffuncertainty_tpu/core/config.py`` that the ported
 paths read, with the values that the JAX ``load_config`` composes from
-``configs/{data/lidc128, network/unet16, model/softmax, model/diffusion,
-model/ssn, model/prob_unet}.yaml`` and ``configs/eu_method/{dropout, none,
-ensemble, swag, swag_diag}.yaml``: the unet16 + MC-dropout softmax path
+``configs/{data/lidc128, data/gta_toy, network/unet16, network/hrnet-s,
+network/hrnet-m, model/softmax, model/diffusion, model/ssn,
+model/prob_unet}.yaml`` and ``configs/eu_method/{dropout, none, ensemble,
+swag, swag_diag}.yaml``: the unet16 + MC-dropout softmax path
 (``model="softmax", eu_method="dropout"``), the unet16 diffusion, SSN and
 prob-U-Net paths (``model="diffusion"``, ``"ssn"`` or ``"prob_unet"`` with
-``eu_method="none"``), and the stacked-member EU methods (a deep ensemble,
-SWAG and SWAG-diag) over any of them. Field names are kept so the two can be
-compared field by field. Other groups are not ported yet and raise.
+``eu_method="none"``), the stacked-member EU methods (a deep ensemble, SWAG
+and SWAG-diag) over any of them, the HRNet backbones (``network="hrnet-s"``
+or ``"hrnet-m"``) and the 24-class street-scene toy (``data="gta_toy"``).
+As in the JAX ``load_config``, ``network.out_channels`` follows
+``data.num_classes``. Field names are kept so the two can be compared field
+by field. Other groups are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from .specs import DropoutSpec, ProbUnetSpec
 
 @dataclasses.dataclass(frozen=True)
 class NetworkConfig:
+    backbone: str = "diff_unet"  # diff_unet | hrnet
     in_channels: int = 3
     out_channels: int = 2  # == data.num_classes
     model_channels: int = 32
@@ -33,6 +38,9 @@ class NetworkConfig:
     conv_resample: bool = True
     final_act: str = "none"  # none | softmax (model/diffusion.yaml sets softmax)
     dropout: float = 0.0  # rate when eu_method does not patch the dropout spec
+    # HRNet-specific (backbone == "hrnet")
+    hrnet_width: int = 18
+    hrnet_pretrained: str | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +104,8 @@ class AugmentationsConfig:
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     num_classes: int = 2
+    ignore_index: int = -1
+    num_raters: int = 4
     augmentations: AugmentationsConfig = AugmentationsConfig()
 
 
@@ -114,8 +124,16 @@ class ExperimentConfig:
 
 
 _GROUPS = {
-    "data": {"lidc128": DataConfig()},  # configs/data/lidc128.yaml
-    "network": {"unet16": NetworkConfig()},  # configs/network/unet16.yaml
+    "data": {
+        "lidc128": DataConfig(),  # configs/data/lidc128.yaml
+        "gta_toy": DataConfig(num_classes=24, num_raters=1),  # configs/data/gta_toy.yaml
+    },
+    "network": {
+        "unet16": NetworkConfig(),  # configs/network/unet16.yaml
+        # configs/network/hrnet-{s,m}.yaml: width 24 (stage-1 32), 48 (64)
+        "hrnet-s": NetworkConfig(backbone="hrnet", hrnet_width=24),
+        "hrnet-m": NetworkConfig(backbone="hrnet", hrnet_width=48),
+    },
     "model": {
         "softmax": ModelConfig(),  # configs/model/softmax.yaml
         "diffusion": ModelConfig(au_type="diffusion"),  # configs/model/diffusion.yaml
@@ -158,7 +176,8 @@ def load_config(
                 f"config '{name}' in group '{group}' is not ported; "
                 f"available: {sorted(options)}")
         picked[group] = options[name]
-    picked["network"] = dataclasses.replace(picked["network"], **_MODEL_NETWORK.get(model, {}))
+    picked["network"] = dataclasses.replace(picked["network"], **_MODEL_NETWORK.get(model, {}),
+                                            out_channels=picked["data"].num_classes)
     if precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be fp32 or bf16, got {precision!r}")
     return ExperimentConfig(**picked, trainer=TrainerConfig(precision=precision))

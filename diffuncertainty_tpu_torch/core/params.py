@@ -8,7 +8,10 @@ the port's ``state_dict`` names: module path ``a/b/kernel`` becomes
 (O, I); GroupNorm ``scale`` becomes ``weight``; biases keep their layout.
 Nested trees map the same way: the prob-U-Net's ``prior/encoder/enc0_res/...``
 becomes ``prior.encoder.enc0_res...`` and ``fcomb/body_0/kernel``
-``fcomb.body_0.weight``.
+``fcomb.body_0.weight``. A tree of the collections ``params`` and
+``batch_stats`` (the HRNet's) maps both: BatchNorm ``scale`` becomes
+``weight``, and ``batch_stats/.../mean`` and ``var`` the BatchNorm buffers
+``running_mean`` and ``running_var``.
 
 Member stacks (the sampler's ``params_stack``) are state dicts of (M, ...)
 tensors: ``flax_to_torch_stacked`` maps a flax tree with a leading member
@@ -54,15 +57,25 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return flat
 
 
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
 def _convert(params: dict, lead: int) -> dict[str, torch.Tensor]:
     """Flax tree -> state_dict; the first ``lead`` axes of every leaf are
     batch axes (a member axis) that stay in front."""
-    if set(params) == {"params"}:
-        params = params["params"]
+    if set(params) in ({"params"}, {"params", "batch_stats"}):
+        leaves = [(path, arr, _PARAM_LEAVES) for path, arr in _flatten(params["params"]).items()]
+        leaves += [(path, arr, _STAT_LEAVES)
+                   for path, arr in _flatten(params.get("batch_stats", {})).items()]
+    else:
+        leaves = [(path, arr, _PARAM_LEAVES) for path, arr in _flatten(params).items()]
     front = tuple(range(lead))
     state = {}
-    for path, arr in _flatten(params).items():
+    for path, arr, names in leaves:
         *mod, leaf = path
+        if leaf not in names:
+            raise KeyError(f"unmapped leaf '{'/'.join(path)}'")
         if arr.ndim < lead:
             raise ValueError(f"'{'/'.join(path)}' has no leading member axis")
         if leaf == "kernel":
@@ -72,14 +85,7 @@ def _convert(params: dict, lead: int) -> dict[str, torch.Tensor]:
                 arr = arr.transpose(front + (lead + 1, lead))
             else:
                 raise ValueError(f"unexpected kernel rank {arr.ndim - lead} at {'/'.join(path)}")
-            name = "weight"
-        elif leaf == "scale":
-            name = "weight"
-        elif leaf == "bias":
-            name = "bias"
-        else:
-            raise KeyError(f"unmapped param leaf '{'/'.join(path)}'")
-        key = ".".join(mod + [name])
+        key = ".".join(mod + [names[leaf]])
         if key in state:
             raise KeyError(f"two flax params map to '{key}'")
         state[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
@@ -89,7 +95,8 @@ def _convert(params: dict, lead: int) -> dict[str, torch.Tensor]:
 
 
 def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
-    """Flax param tree (with or without the top 'params' level) -> state_dict."""
+    """Flax param tree (with or without the top 'params' level, or with
+    'params' and 'batch_stats') -> state_dict."""
     return _convert(params, 0)
 
 

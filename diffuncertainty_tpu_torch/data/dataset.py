@@ -4,8 +4,11 @@ path of ``diffuncertainty_tpu/data/dataset.py``).
 ``{base_dir}/preprocessed/images/*.npy`` float32 or uint8 images (grayscale
 replicated to 3 channels, uint8 scaled by 1/255);
 ``{base_dir}/preprocessed/labels/{base_id}_{rater:02d}_mask.npy`` per-rater
-masks; ``splits.pkl`` a list of fold dicts mapping split names to image paths
-relative to ``preprocessed/``.
+masks (or the fold's ``_meta.rater_pattern``, e.g. the single-rater
+``{base_id}_mask.npy`` of ``data/gta_toy.py``); ``splits.pkl`` a list of fold
+dicts mapping split names to image paths relative to ``preprocessed/``. The
+rater count comes from the caller, the fold's ``_meta.num_raters`` or the
+dataset name (``infer_num_raters``).
 """
 
 from __future__ import annotations
@@ -15,6 +18,17 @@ from pathlib import Path
 from typing import Any
 
 import numpy as np
+
+_RATER_COUNTS = {"lidc": 4, "npc": 4, "chaksu": 5, "riga": 6, "refuge": 7, "toy": 4}
+
+
+def infer_num_raters(dataset_name: str) -> int | None:
+    """``lidc2d_dataset.py:11-28`` name-prefix lookup."""
+    name = dataset_name.lower()
+    for key, count in _RATER_COUNTS.items():
+        if key in name:
+            return count
+    return None
 
 
 def load_splits(splits_path: str | Path) -> list[dict]:
@@ -47,9 +61,10 @@ class MultiRaterDataset:
         if split not in fold:
             available = sorted(k for k in fold if not k.startswith("_"))
             raise ValueError(f"Unknown split '{split}'. Available: {available}")
-        self.num_raters = num_raters or meta.get("num_raters")
+        label = str(meta.get("dataset_name") or self.base_dir.name)
+        self.num_raters = num_raters or meta.get("num_raters") or infer_num_raters(label)
         if self.num_raters is None:
-            raise ValueError("rater count unknown: pass num_raters")
+            raise ValueError(f"Cannot infer rater count for dataset '{label}'")
         proc_dir = self.base_dir / "preprocessed"
         self.image_paths: list[Path] = []
         self.label_paths: list[list[Path]] = []

@@ -1,5 +1,6 @@
-"""Expected calibration error (``calc_ece`` of
-``diffuncertainty_tpu/evaln/tasks.py``): 20 equal-width bins over [0, 1]."""
+"""Evaluation tasks of ``diffuncertainty_tpu/evaln/tasks.py``: the expected
+calibration error (``calc_ece``, 20 equal-width bins over [0, 1]) and the
+NCC of two uncertainty maps (``compute_ncc``)."""
 
 from __future__ import annotations
 
@@ -24,3 +25,15 @@ def _calib_stats(correct: np.ndarray, confids: np.ndarray, n_bins: int = 20):
 def calc_ece(correct, confids) -> float:
     d, pt, _ = _calib_stats(np.asarray(correct), np.asarray(confids))
     return float(np.sum(d * pt))
+
+
+def compute_ncc(gt_unc_map: np.ndarray, pred_unc_map: np.ndarray) -> float:
+    """Normalized cross-correlation of two uncertainty maps (``compute_ncc``
+    of ``diffuncertainty_tpu/evaln/tasks.py``); 0 if either is constant."""
+    mu_gt, mu_pred = np.mean(gt_unc_map), np.mean(pred_unc_map)
+    s_gt = np.std(gt_unc_map, ddof=1)
+    s_pred = np.std(pred_unc_map, ddof=1)
+    if s_gt == 0 or s_pred == 0:
+        return 0.0
+    prod = np.sum((gt_unc_map - mu_gt) * (pred_unc_map - mu_pred))
+    return float(prod / (gt_unc_map.size * s_gt * s_pred))

@@ -4,7 +4,8 @@ diffusion, SSN and prob-U-Net, and stacked-parameter members).
 
 MC-dropout members, TTA rounds and diffusion trajectories share the
 parameters and differ only in random draws, so all ``n_members * n_pred``
-rounds fold into the batch axis: rows are member-major (row ``r*B + i`` is
+rounds fold into the batch axis (the softmax path takes either backbone,
+the DiffUnet or the HRNet, whose final dropout draws per row and branch): rows are member-major (row ``r*B + i`` is
 round r of image i), every row gets its own TTA draw, dropout masks and
 diffusion start noise, and one forward (softmax) or one reverse trajectory of
 forwards (diffusion) serves the whole stack. The SSN runs one forward per

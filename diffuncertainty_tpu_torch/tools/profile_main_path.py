@@ -1,7 +1,7 @@
 """Device-time breakdown of the main paths on the card.
 
     python3 -m diffuncertainty_tpu_torch.tools.profile_main_path
-        [--workload softmax|diffusion|ssn|prob_unet|ensemble] [--norm-twin]
+        [--workload softmax|diffusion|ssn|prob_unet|ensemble|hrnet|multiclass] [--norm-twin]
 
 ``softmax`` (default): the bf16 unet16 MC-dropout + TTA sampler with the
 trained toy-128 weights (16 images at 128x128, 16 members: one 256-row
@@ -14,7 +14,14 @@ low-rank normal draws or 16 latent decodes, per call), 5 traced calls.
 ``ensemble``: the bf16 unet16 sampler over 16 stacked members drawn from the
 trained SWAG-diag moments (generator seed 42), MC-dropout live and TTA on
 (16 images: one 16-row forward per member, 16 per call), 3 traced calls; it
-also prints the device time per member forward. Each is warmed up first, then traced with ``torch.profiler``. Prints the wall time per call
+also prints the device time per member forward. ``hrnet``: the bf16 hrnet-s
+MC-dropout (final dropout) + TTA sampler with the trained toy-128 weights (16
+images, 16 members: one 256-row forward per call), 3 traced calls.
+``multiclass``: the bf16 unet16 multiclass model with the trained gta-toy
+weights, 8 MC-dropout members one after another, each one forward of the 168
+tiles (window 128, stride 64) of 8 frames of 256x512 and the stitch, 1
+traced call; it also prints the device time per member forward. Each is
+warmed up first, then traced with ``torch.profiler``. Prints the wall time per call
 (CUDA events), the device busy share (the sum of kernel times over the wall
 time; kernels on one stream do not overlap), the kernel time by category and
 the top kernels by name. ``--norm-twin`` routes every GroupNorm through the
@@ -38,6 +45,7 @@ from ..ops import cuda_groupnorm
 from ..sampling.sampler import SamplerSpec, make_sampler
 from ..sampling.tta import TTAConfig
 from ..tools.bench_assets import swag_draw_members
+from ..tools.multiclass_quality import member_sliding_window_fn
 
 ASSETS = Path(__file__).resolve().parents[2] / "assets"
 TOP = 20
@@ -63,12 +71,25 @@ def category(name: str) -> str:
     return "other"
 
 
-WORKLOADS = ("softmax", "diffusion", "ssn", "prob_unet", "ensemble")
+WORKLOADS = ("softmax", "diffusion", "ssn", "prob_unet", "ensemble", "hrnet", "multiclass")
 MEMBERS = 16  # member forwards per ensemble call
+# member forwards per multiclass call, and its frames
+MC_MEMBERS, MC_FRAMES, MC_SIZE = 8, 8, (256, 512)
 
 
 def build_sampler(workload: str):
     """(sampler, traced calls) of one workload, bf16, trained weights."""
+    if workload == "multiclass":
+        built = build_model(load_config(data="gta_toy", precision="bf16"), device="cuda")
+        load_into(built.module, ASSETS / "bench_unet16_gtatoy_multiclass.npz")
+        return member_sliding_window_fn(built.module, window=128, stride=64,
+                                        members=MC_MEMBERS), 1
+    if workload == "hrnet":
+        built = build_model(load_config(network="hrnet-s", precision="bf16"), device="cuda")
+        load_into(built.module, ASSETS / "bench_hrnet_s_toy128.npz")
+        spec = SamplerSpec(n_pred=1, n_members=16, member_mode="dropout", tta=True,
+                           tta_config=TTAConfig())
+        return make_sampler(built, spec), 3
     if workload in ("ssn", "prob_unet"):
         built = build_model(load_config(model=workload, eu_method="none", precision="bf16"),
                             device="cuda")
@@ -107,8 +128,8 @@ def main() -> None:
         unet.group_norm_act = cuda_groupnorm.group_norm_act_reference
 
     sampler, calls = build_sampler(args.workload)
-    images = torch.randn((16, 128, 128, 3), generator=torch.Generator("cuda").manual_seed(0),
-                         device="cuda")
+    shape = (MC_FRAMES,) + MC_SIZE + (3,) if args.workload == "multiclass" else (16, 128, 128, 3)
+    images = torch.randn(shape, generator=torch.Generator("cuda").manual_seed(0), device="cuda")
     for i in range(2):
         sampler(images, torch.Generator("cuda").manual_seed(100 + i))
     torch.cuda.synchronize()
@@ -136,14 +157,16 @@ def main() -> None:
 
     print(f"workload {args.workload}{' (GroupNorm through the twin)' if args.norm_twin else ''}; "
           f"device: {torch.cuda.get_device_name(0)}; {calls} traced calls")
-    print(f"wall {wall_ms:.2f} ms per call ({16 / wall_ms * 1e3:.2f} img/s); kernel time "
-          f"{busy_ms:.2f} ms per call; busy share {busy_ms / wall_ms:.3f}")
+    unit = "frames" if args.workload == "multiclass" else "img"
+    print(f"wall {wall_ms:.2f} ms per call ({shape[0] / wall_ms * 1e3:.2f} {unit}/s); kernel "
+          f"time {busy_ms:.2f} ms per call; busy share {busy_ms / wall_ms:.3f}")
     per_member = {}
-    if args.workload == "ensemble":
-        per_member = {"member_forward_device_ms": busy_ms / MEMBERS,
-                      "member_forward_wall_ms": wall_ms / MEMBERS}
-        print(f"per member forward: device {busy_ms / MEMBERS:.3f} ms, wall "
-              f"{wall_ms / MEMBERS:.3f} ms ({MEMBERS} member forwards per call)")
+    members = {"ensemble": MEMBERS, "multiclass": MC_MEMBERS}.get(args.workload)
+    if members:
+        per_member = {"member_forward_device_ms": busy_ms / members,
+                      "member_forward_wall_ms": wall_ms / members}
+        print(f"per member forward: device {busy_ms / members:.3f} ms, wall "
+              f"{wall_ms / members:.3f} ms ({members} member forwards per call)")
     if not kernels:
         print("the profiler recorded no device time; only the CUDA-event wall time above holds")
     for label, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):

@@ -182,7 +182,7 @@ def test_diffusion_config_matches_jax_load_config():
             assert _as_plain(ours) == _as_plain(theirs), f"{path}.{f.name}"
             n_fields += 1
     assert got.network.final_act == "softmax" and got.model.au_type == "diffusion"
-    assert n_fields == 38  # every field the port keeps was compared
+    assert n_fields == 43  # every field the port keeps was compared
 
 
 def test_factory_builds_the_diffusion_model():

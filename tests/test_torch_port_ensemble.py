@@ -334,7 +334,7 @@ def test_eu_config_groups_match_jax_load_config(eu_method):
             assert _as_plain(ours) == _as_plain(theirs), f"{path}.{f.name}"
             n_fields += 1
     assert got.eu_method.swag.enabled == (eu_method != "ensemble")
-    assert n_fields == 12 + 7 + 3 + 5 + 8  # every field the port keeps was compared
+    assert n_fields == 15 + 7 + 3 + 5 + 8  # every field the port keeps was compared
 
 
 @pytest.mark.parametrize("model,eu_method", [

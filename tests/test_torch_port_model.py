@@ -83,7 +83,7 @@ def test_config_constants_match_jax_load_config(precision):
             ours, theirs = getattr(ours_group, f.name), getattr(theirs_group, f.name)
             assert _as_plain(ours) == _as_plain(theirs), f"{path}.{f.name}"
             n_fields += 1
-    assert n_fields == 26  # every field the port keeps was compared
+    assert n_fields == 31  # every field the port keeps was compared
     with pytest.raises(NotImplementedError):
         tconfig.load_config(network="unet64")
 

@@ -10,6 +10,7 @@ per-image Dice/GED (ratios of integer counts on argmax maps) to 1e-6.
 """
 
 import dataclasses
+import os
 import re
 import subprocess
 import sys
@@ -19,6 +20,7 @@ import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import diffuncertainty_tpu.sampling.sampler as j_sampler_mod
@@ -182,3 +184,28 @@ def test_no_forbidden_imports_or_library_kernels_in_the_port():
         text = path.read_text()
         for word in ("cpp_extension", "scaled_dot_product_attention", "torch.compile"):
             assert word not in text, f"{path} uses {word}"
+
+
+def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
+    import chip_smoke
+
+    assert chip_smoke.parse_paths([]) == chip_smoke.PATHS == (
+        "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "hrnet", "multiclass")
+    assert chip_smoke.parse_paths(["--paths", "multiclass,hrnet"]) == ("hrnet", "multiclass")
+    for bad in ("hrnet,resnet", ","):
+        with pytest.raises(SystemExit):
+            chip_smoke.parse_paths(["--paths", bad])
+    monkeypatch.setitem(chip_smoke.PATH_ASSETS, "hrnet", tmp_path / "missing.npz")
+    with pytest.raises(FileNotFoundError, match="missing.npz"):
+        chip_smoke.parse_paths(["--paths", "softmax,hrnet"])
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")  # no card, even on a machine with one
+    for cwd, script in ((REPO, "chip_smoke.py"), (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd is tmp_path:  # a directory that holds the script and nothing else
+            script.write_text((REPO / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script), "--paths", "hrnet"], cwd=cwd,
+                             capture_output=True, text=True, timeout=300, env=env)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout

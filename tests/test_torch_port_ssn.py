@@ -235,7 +235,7 @@ def test_ssn_config_matches_jax_load_config():
     got, n_fields = compare_config_with_jax("ssn")
     assert (got.model.au_type, got.model.ssn_rank, got.model.ssn_eps,
             got.model.ssn_pretrain_epochs) == ("ssn", 10, 1e-5, 10)
-    assert n_fields == 46  # every field the port keeps was compared
+    assert n_fields == 51  # every field the port keeps was compared
 
 
 def test_factory_builds_the_ssn_model_and_loads_the_asset_strictly():
