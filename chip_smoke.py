@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,hrnet,multiclass]
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,hrnet,multiclass,infer]
 
 With no argument every path runs; ``--paths`` picks a comma-separated group
 of them (each needs its asset under ``assets/``: a missing one is an error).
@@ -65,7 +65,21 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    windows (128, stride 64) of each of 8 frames of 256x512, tent-stitched;
    the kernels checked at its 168-row shapes first; the launch counts read
    around one call, frames/s from CUDA-event-timed calls after the first;
-11. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
+11. the inference job (``python -m diffuncertainty_tpu_torch.infer``, the
+   user's entry point): a checkpoint of the port's format written to a temp
+   directory (unet16 bf16 softmax with MC-dropout, the trained toy-128
+   weights, the toy-128 data directory), the job run on it as a subprocess
+   over the 256-image ``id`` split, 16 members x TTA, batch 16, seed 777
+   (``bench.py``'s headline spec); the results tree checked (256 records in
+   metrics.json and likelihood.json, 17 PNGs per image, TU = AU + EU and
+   TU >= 0 in the TIFFs read back) and its mean Dice, mean BMA-GED and the
+   AURC of 1 - Dice against -mean TU held to the softmax bf16 bands; then
+   the same job built in process and one batch through its sampler and
+   batch metrics with the launch counts read around it (11 attention, 56
+   GroupNorm, no twin); the job's img/s, writes included, in the new process
+   and in process once warm, with and without the writes, and the device
+   time of one batch;
+12. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
    bf16 path and of the SSN, prob-U-Net, ensemble and HRNet bf16 paths, and
    the multiclass quality (macro Dice, GED, NCC of TU and AU against the
    analytic switch map), held to bands around the JAX package's recorded
@@ -104,7 +118,7 @@ ASSET_HRNET = REPO / "assets" / "bench_hrnet_s_toy128.npz"
 ASSET_MULTICLASS = REPO / "assets" / "bench_unet16_gtatoy_multiclass.npz"
 PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
                "prob_unet": ASSET_PROB_UNET, "ensemble": ASSET_SWAG, "hrnet": ASSET_HRNET,
-               "multiclass": ASSET_MULTICLASS}
+               "multiclass": ASSET_MULTICLASS, "infer": ASSET}
 PATHS = tuple(PATH_ASSETS)
 
 # kernel vs its twin: |kernel - twin| <= ATOL + RTOL*|twin| elementwise.
@@ -918,6 +932,131 @@ def phase_multiclass(attn_checked: set, norm_checked: set):
     return launches, attn_calls, norm_seen, MC_FRAMES / ms * 1e3
 
 
+def phase_infer(smi: str, attn_checked: set, norm_checked: set):
+    """The inference job on a port checkpoint of the softmax path: the
+    user's entry point as a subprocess over the toy-128 ``id`` split, its
+    results tree and quality, then one batch of the same job in process
+    with the launch counts read around it."""
+    import ast
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffuncertainty_tpu_torch.core.checkpoint import save_checkpoint
+    from diffuncertainty_tpu_torch.core.config import load_config
+    from diffuncertainty_tpu_torch.core.params import load_params_npz
+    from diffuncertainty_tpu_torch.data.loader import BatchLoader
+    from diffuncertainty_tpu_torch.infer.image_io import read_tiff
+    from diffuncertainty_tpu_torch.infer.runner import InferenceConfig, UncertaintyInference
+    from diffuncertainty_tpu_torch.metrics.aurc import aurc
+    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset
+
+    ds = toy128_dataset(HW)
+    n_images = len(ds)
+    cfg = load_config(data="lidc128", network="unet16", model="softmax", eu_method="dropout",
+                      precision="bf16", overrides={"data": {
+                          "data_input_dir": str(ds.base_dir), "split_name": "default"}})
+    seed = 777
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint(Path(tmp) / "v0" / "checkpoints" / "last",
+                               {"params": load_params_npz(ASSET)}, cfg, epoch=0)
+        argv = ["--checkpoint_paths", str(ckpt), "--test_split", "id", "--n_pred", "1",
+                "--n_models", str(MEMBERS), "--tta", "--test_batch_size", str(BATCH),
+                "--seed", str(seed), "--save_dir", str(Path(tmp) / "results")]
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.infer", *argv],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"the inference job exited {out.returncode}:\n"
+                                 f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        (summary,) = [ast.literal_eval(line) for line in out.stdout.splitlines()
+                      if line.startswith("{'split'")]
+        log(f"infer job: exit 0 in {wall:.1f}s (process included): {summary}")
+        out_dir = Path(summary["out_dir"])
+        metrics = json.loads((out_dir / "metrics.json").read_text())
+        likelihood = json.loads((out_dir / "likelihood.json").read_text())
+        if not (summary["n_images"] == len(metrics) == len(likelihood) == n_images):
+            raise AssertionError(f"infer job: {summary['n_images']} images, {len(metrics)} "
+                                 f"metrics and {len(likelihood)} likelihood records, expected "
+                                 f"{n_images}")
+        pngs = sorted(p.name for p in (out_dir / "pred_seg").glob("*.png"))
+        want = sorted(f"{i}_{tag}.png" for i in metrics
+                      for tag in ["mean"] + [f"{g + 1:02d}" for g in range(MEMBERS)])
+        if pngs != want:
+            raise AssertionError(f"infer job: {len(pngs)} PNGs, expected {len(want)} "
+                                 f"({MEMBERS + 1} per image)")
+        tu_means, decomp_err = [], 0.0
+        for image_id in metrics:
+            tu, au, eu = (read_tiff(out_dir / k / f"{image_id}.tif") for k in ("TU", "AU", "EU"))
+            if tu.shape != (HW, HW) or tu.min() < 0 or not np.isfinite(tu).all():
+                raise AssertionError(f"infer job: TU of {image_id} is not a finite non-negative "
+                                     f"{HW}x{HW} map")
+            decomp_err = max(decomp_err, float(np.abs(tu - au - eu).max()))
+            tu_means.append(float(tu.mean()))
+        if decomp_err > 1e-5:
+            raise AssertionError(f"infer job: max |TU - AU - EU| {decomp_err:.2e} > 1e-5")
+        dices = np.array([r["metrics"]["dice"] for r in metrics.values()])
+        quality = {"dice": float(dices.mean()),
+                   "ged_bma": float(np.mean([r["metrics"]["ged_bma"] for r in metrics.values()])),
+                   "aurc": float(aurc(1.0 - dices, -np.asarray(tu_means))),
+                   "mean_NLL": float(np.mean([r["mean_NLL"] for r in likelihood.values()]))}
+        log(f"infer job quality ({n_images} images): {quality}, max |TU-AU-EU| "
+            f"{decomp_err:.2e}")
+        for metric in ("dice", "ged_bma", "aurc"):
+            ref = PARITY["bf16"][metric]
+            if abs(quality[metric] - ref) > BANDS[metric]:
+                raise AssertionError(f"infer job {metric} {quality[metric]:.5f} outside "
+                                     f"{ref} +- {BANDS[metric]}")
+
+        # the same job in process: one batch through its sampler and metrics
+        icfg = InferenceConfig(n_pred=1, n_models=MEMBERS, tta=True, batch_size=BATCH,
+                               seed=seed, save_dir=str(Path(tmp) / "results"))
+        job = UncertaintyInference([ckpt], icfg)
+    batch = next(iter(BatchLoader(job._dataset("id"), BATCH, drop_last=False)))
+    images = job.normalize(batch["image"])
+    gt = torch.from_numpy(batch["seg"]).cuda()
+    num_raters = torch.from_numpy(batch["num_raters"]).cuda()
+
+    def job_batch(x, generator):
+        stack = job._sample_stack(x, generator)
+        return stack, job.metrics_fn(stack, gt, num_raters)
+
+    (stack, _), launches, _, _, attn_seen, norm_seen = counted_call(
+        job.built, job_batch, images, seed)
+    check_launches("infer path", launches, {"qkv_attention": 11, "group_norm_act": 56})
+    shapes = {(b, hh * ww, c) for b, hh, ww, c in attn_seen}
+    if not shapes <= attn_checked or not set(norm_seen) <= norm_checked:
+        raise AssertionError(f"infer path: unchecked attention shapes {shapes - attn_checked} "
+                             f"or norm sites {set(norm_seen) - norm_checked}")
+    check_stack("infer path", stack)
+    times = []
+    for i in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        job_batch(images, torch.Generator("cuda").manual_seed(i))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    batch_ms = statistics.median(times)
+    # the warm job in process over the whole split, with its writes and
+    # without them (metrics only): what the first run's img/s is made of
+    warm = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, outputs in (("warm", True), ("warm_metrics_only", False)):
+            job.icfg.save_outputs, job.icfg.save_dir = outputs, str(Path(tmp) / label)
+            warm[label] = job.run_split("id")["images_per_sec"]
+    log(f"infer job on {smi}: {summary['images_per_sec']:.2f} img/s over the split in a new "
+        f"process, writes included; in process after the counted batch {warm['warm']:.2f} "
+        f"img/s with the writes, {warm['warm_metrics_only']:.2f} without them; one batch of "
+        f"{BATCH} images ({MEMBERS} members x TTA, sampler and batch metrics) {batch_ms:.2f} ms "
+        f"(CUDA events, median of 5) -> {BATCH / batch_ms * 1e3:.2f} img/s without the host's "
+        f"loading, copies and writes")
+    return launches, {"images_per_sec": summary["images_per_sec"], **warm,
+                      "batch_ms": batch_ms, **quality}
+
+
 def phase_multiclass_quality() -> dict:
     from diffuncertainty_tpu_torch.tools.multiclass_quality import gta_toy_quality_eval
 
@@ -1076,6 +1215,8 @@ def main(argv=None) -> int:
     if "multiclass" in paths:
         (launches_by_path["multiclass"], mc_attn_calls, mc_norm_seen,
          frames_s) = phase_multiclass(attn_checked168, norm_checked168)
+    if "infer" in paths:
+        launches_by_path["infer"], infer_stats = phase_infer(smi, attn_checked, norm_checked)
     quality = phase_quality(paths)
     if "multiclass" in paths:
         quality["multiclass_bf16"] = phase_multiclass_quality()
@@ -1196,6 +1337,8 @@ def main(argv=None) -> int:
         extra += f"; hrnet mean EU {hrnet_eu:.4e}"
     if "multiclass" in paths:
         extra += f"; multiclass path {frames_s:.3f} frames/s"
+    if "infer" in paths:
+        extra += f"; infer job {infer_stats}"
     log(", ".join(f"{p} path {v:.3f} img/s" for p, v in img_s.items()) + extra
         + f"; quality {quality}")
     log(f"total {time.perf_counter() - T0:.1f}s")

@@ -1,30 +1,35 @@
-"""The slice's configuration as Python constants (no YAML).
+"""The experiment configuration (port of ``diffuncertainty_tpu/core/config.py``,
+without YAML).
 
-Holds the fields of ``diffuncertainty_tpu/core/config.py`` that the ported
-paths read, with the values that the JAX ``load_config`` composes from
-``configs/{data/lidc128, data/gta_toy, network/unet16, network/hrnet-s,
-network/hrnet-m, model/softmax, model/diffusion, model/ssn,
-model/prob_unet}.yaml`` and ``configs/eu_method/{dropout, none, ensemble,
-swag, swag_diag}.yaml``: the unet16 + MC-dropout softmax path
-(``model="softmax", eu_method="dropout"``), the unet16 diffusion, SSN and
-prob-U-Net paths (``model="diffusion"``, ``"ssn"`` or ``"prob_unet"`` with
-``eu_method="none"``), the stacked-member EU methods (a deep ensemble, SWAG
-and SWAG-diag) over any of them, the HRNet backbones (``network="hrnet-s"``
-or ``"hrnet-m"``) and the 24-class street-scene toy (``data="gta_toy"``).
-As in the JAX ``load_config``, ``network.out_channels`` follows
-``data.num_classes``. Field names are kept so the two can be compared field
-by field. Other groups are not ported yet and raise.
+The dataclasses carry every field of the JAX package's, with its defaults,
+so that ``from_dict`` reads the ``config.json`` a JAX checkpoint holds and
+``to_dict`` writes one the JAX ``from_dict`` reads back. Fields that only
+training reads (trainer, EMA and snapshot schedules, batch sizes) are carried
+through unread. A field whose value selects a network option the port lacks
+raises ``NotImplementedError`` naming it when the config is made: dropping it
+would build another network under the same weights.
+
+``load_config`` composes the groups the port has, as the JAX ``load_config``
+composes ``configs/<group>/<name>.yaml`` over the defaults: ``data/{lidc128,
+gta_toy}``, ``network/{unet16, hrnet-s, hrnet-m}``, ``model/{softmax,
+diffusion, ssn, prob_unet}`` and ``eu_method/{dropout, none, ensemble, swag,
+swag_diag}``, their patches held here as Python constants. As there,
+``network.out_channels`` follows ``data.num_classes``. Other group names
+raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 from .specs import DropoutSpec, ProbUnetSpec
 
 
 @dataclasses.dataclass(frozen=True)
 class NetworkConfig:
+    name: str = "unet"
+    nickname: str = "unet_s"
     backbone: str = "diff_unet"  # diff_unet | hrnet
     in_channels: int = 3
     out_channels: int = 2  # == data.num_classes
@@ -34,13 +39,32 @@ class NetworkConfig:
     channel_mult: tuple[int, ...] = (1, 2, 4, 8)
     attention_resolutions: tuple[int, ...] = (-2, -1)
     num_heads: int = 4
+    num_heads_upsample: int = -1
     use_scale_shift_norm: bool = False
     conv_resample: bool = True
+    new_upsample_method: bool = False
+    one_skip_per_reso: bool = False
+    mlp_attn: bool = False
+    act: str = "silu"
     final_act: str = "none"  # none | softmax (model/diffusion.yaml sets softmax)
     dropout: float = 0.0  # rate when eu_method does not patch the dropout spec
     # HRNet-specific (backbone == "hrnet")
     hrnet_width: int = 18
     hrnet_pretrained: str | None = None
+
+    def __post_init__(self):
+        unported = {
+            "network.new_upsample_method": self.new_upsample_method,
+            "network.one_skip_per_reso": self.one_skip_per_reso,
+            "network.mlp_attn": self.mlp_attn,
+            f"network.act={self.act!r}": self.act != "silu",
+            f"network.final_act={self.final_act!r}": self.final_act not in ("none", "softmax"),
+            f"network.num_heads_upsample={self.num_heads_upsample}":
+                self.num_heads_upsample not in (-1, self.num_heads),
+        }
+        for option, selected in unported.items():
+            if selected:
+                raise NotImplementedError(f"{option} is not ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,9 +92,11 @@ class DiffusionSampling:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     au_type: str = "softmax"  # softmax | diffusion | ssn | prob_unet
+    nickname: str = "au=softmax"
     ssn_rank: int = 10
     ssn_eps: float = 1e-5
     ssn_pretrain_epochs: int = 0
+    n_aleatoric_samples: int = 10
     diffusion: DiffusionConfig = DiffusionConfig()
     diffusion_sampling: DiffusionSampling = DiffusionSampling()
     prob_unet: ProbUnetSpec = ProbUnetSpec()
@@ -78,8 +104,7 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SwagConfig:
-    """``eu_method.swag``: SWA-Gaussian moment collection (the JAX defaults;
-    ``configs/eu_method/swag*.yaml`` enable it)."""
+    """``eu_method.swag``: SWA-Gaussian moment collection."""
 
     enabled: bool = False
     snapshot_frequency: int = 1
@@ -90,73 +115,191 @@ class SwagConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EUConfig:
-    name: str = "dropout"
+    name: str = "none"  # none | dropout | swag | swag_diag | ensemble | subensemble
+    nickname: str = "eu=none"
     dropout: DropoutSpec = DropoutSpec()
     swag: SwagConfig = SwagConfig()
 
 
 @dataclasses.dataclass(frozen=True)
 class AugmentationsConfig:
+    """Augmentation knobs: TTA reads the flip, rotation, scale and
+    ``augment_mult`` keys, inference the normalization."""
+
+    hflip_p: float = 0.5
+    rotation_limit: float = 22.5
+    scale_limit: tuple[float, float] = (-0.2, 0.2)
+    gauss_noise_var_limit: tuple[float, float] = (0.2, 0.44)
+    gauss_noise_p: float = 0.5
+    height: int = 64
+    width: int = 64
     mean: tuple[float, ...] = (0.485, 0.456, 0.406)
     std: tuple[float, ...] = (0.229, 0.224, 0.225)
+    augment_mult: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    name: str = "lidc64"
+    nickname: str = "lidc64"
+    data_input_dir: str = ""
     num_classes: int = 2
     ignore_index: int = -1
+    batch_size: int = 64
+    val_batch_size: int = 64
+    data_fold_id: int = 0
+    split_name: str = "ood_aug"
+    splits_path: str = ""  # default: {dir}/splits/{split_name}/firstCycle/splits.pkl
     num_raters: int = 4
+    single_rater: bool = False
+    evaluate_all_raters: bool = True
+    evaluate_training_data: bool = True
+    validation_ratio: float = 0.1
     augmentations: AugmentationsConfig = AugmentationsConfig()
 
 
 @dataclasses.dataclass(frozen=True)
+class EMAConfig:
+    track_ema_weights: bool = True
+    only_save_ema: bool = True
+    ema_decay: float = 0.999
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointScheduleConfig:
+    use_linear_saving: bool = False
+    use_exponential_saving: bool = False
+    linear_freq: int = 10
+    exponent_base: float = 2.0
+    exponential_start: int = 10
+    full_last_ckpt: bool = True
+    last_every_n_epochs: int = 1
+    shutdown_timer: float = 82800.0
+    do_shutdown: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainerConfig:
+    max_epochs: int = 320
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0
+    gradient_clip_val: float = 0.5
     precision: str = "fp32"  # fp32 | bf16 compute dtype; params stay fp32
+    remat: bool = False
+    lr_schedule: str = "none"
+    lr_schedule_total_steps: int = 0
+    val_every_n_epochs: int = 1
+    mesh_shape: tuple[int, ...] = (1, 1)
+    mesh_axis_names: tuple[str, ...] = ("data", "member")
+    loggers: tuple[str, ...] = ("jsonl", "tensorboard")
+
+    def __post_init__(self):
+        if self.precision not in ("fp32", "bf16"):
+            raise ValueError(f"precision must be fp32 or bf16, got {self.precision!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
-    data: DataConfig
-    network: NetworkConfig
-    model: ModelConfig
-    eu_method: EUConfig
+    exp_name: str | None = None
+    version: str | None = None
+    seed: int = 123
+    save_dir: str = "./saves"
+    data: DataConfig = DataConfig()
+    network: NetworkConfig = NetworkConfig()
+    model: ModelConfig = ModelConfig()
+    eu_method: EUConfig = EUConfig()
     trainer: TrainerConfig = TrainerConfig()
+    ema: EMAConfig = EMAConfig()
+    ckpt_save_freq: CheckpointScheduleConfig = CheckpointScheduleConfig()
+
+    @property
+    def auto_exp_name(self) -> str:
+        """``<data>_<network>_<model>_<eu>`` nicknames unless ``exp_name`` is set."""
+        if self.exp_name:
+            return self.exp_name
+        return "_".join([self.data.nickname, self.network.nickname, self.model.nickname,
+                         self.eu_method.nickname])
+
+    def to_dict(self) -> dict:
+        return _to_dict(self)
+
+    @staticmethod
+    def from_dict(d: dict) -> "ExperimentConfig":
+        """The config of a ``config.json`` dict: the dict merged over the
+        defaults; an unknown key raises ``KeyError``."""
+        return _merge(ExperimentConfig(), d)
 
 
+def _to_dict(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _to_dict(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [_to_dict(v) for v in obj]
+    return obj
+
+
+def _merge(obj: Any, updates: dict) -> Any:
+    """A copy of dataclass ``obj`` with the (nested) dict ``updates`` applied;
+    lists become tuples."""
+    fields = {f.name for f in dataclasses.fields(obj)}
+    kwargs = {}
+    for key, value in updates.items():
+        if key not in fields:
+            raise KeyError(f"Unknown config key '{key}' for {type(obj).__name__}; "
+                           f"valid keys: {sorted(fields)}")
+        current = getattr(obj, key)
+        if dataclasses.is_dataclass(current) and isinstance(value, dict):
+            value = _merge(current, value)
+        elif isinstance(value, list):
+            value = tuple(value)
+        kwargs[key] = value
+    return dataclasses.replace(obj, **kwargs)
+
+
+_AUG_128 = {"height": 128, "width": 128}
+# each group's patch, as configs/<group>/<name>.yaml of the JAX package holds it
 _GROUPS = {
     "data": {
-        "lidc128": DataConfig(),  # configs/data/lidc128.yaml
-        "gta_toy": DataConfig(num_classes=24, num_raters=1),  # configs/data/gta_toy.yaml
+        "lidc128": {"data": {
+            "name": "lidc128", "nickname": "lidc128", "num_classes": 2, "ignore_index": -1,
+            "batch_size": 32, "val_batch_size": 32, "split_name": "ood_aug", "num_raters": 4,
+            "validation_ratio": 0.1, "augmentations": dict(_AUG_128)}},
+        "gta_toy": {"data": {
+            "name": "gta_toy", "nickname": "gtatoy", "num_classes": 24, "ignore_index": -1,
+            "batch_size": 16, "val_batch_size": 16, "split_name": "default", "num_raters": 1,
+            "validation_ratio": 0.0, "augmentations": dict(
+                _AUG_128, rotation_limit=10.0, scale_limit=(-0.1, 0.1),
+                gauss_noise_var_limit=(0.01, 0.05))}},
     },
     "network": {
-        "unet16": NetworkConfig(),  # configs/network/unet16.yaml
-        # configs/network/hrnet-{s,m}.yaml: width 24 (stage-1 32), 48 (64)
-        "hrnet-s": NetworkConfig(backbone="hrnet", hrnet_width=24),
-        "hrnet-m": NetworkConfig(backbone="hrnet", hrnet_width=48),
+        "unet16": {"network": {"name": "unet", "nickname": "unet_s", "backbone": "diff_unet"}},
+        "hrnet-s": {"network": {"name": "hrnet", "nickname": "hrnet_s", "backbone": "hrnet",
+                                "hrnet_width": 24}},
+        "hrnet-m": {"network": {"name": "hrnet", "nickname": "hrnet_m", "backbone": "hrnet",
+                                "hrnet_width": 48}},
     },
     "model": {
-        "softmax": ModelConfig(),  # configs/model/softmax.yaml
-        "diffusion": ModelConfig(au_type="diffusion"),  # configs/model/diffusion.yaml
-        "ssn": ModelConfig(au_type="ssn", ssn_pretrain_epochs=10),  # configs/model/ssn.yaml
-        # configs/model/prob_unet.yaml (not the ProbUnetSpec defaults)
-        "prob_unet": ModelConfig(au_type="prob_unet", prob_unet=ProbUnetSpec(
-            beta=2.5e-3, beta_warmup_epochs=32, regularizer_coeff=0.0,
-            prior_channel_mult=0.75, posterior_channel_mult=0.75)),
+        "softmax": {"model": {"au_type": "softmax", "nickname": "au=softmax"}},
+        "diffusion": {"model": {"au_type": "diffusion", "nickname": "au=diff"},
+                      "network": {"final_act": "softmax"}},
+        "ssn": {"model": {"au_type": "ssn", "nickname": "au=ssn", "ssn_pretrain_epochs": 10}},
+        "prob_unet": {"model": {"au_type": "prob_unet", "nickname": "au=prob_unet",
+                                "prob_unet": {"beta": 2.5e-3, "beta_warmup_epochs": 32,
+                                              "regularizer_coeff": 0.0,
+                                              "prior_channel_mult": 0.75,
+                                              "posterior_channel_mult": 0.75}}},
     },
     "eu_method": {
-        # configs/eu_method/dropout.yaml
-        "dropout": EUConfig(dropout=DropoutSpec(enabled=True, probability_values=(0.2,))),
-        "none": EUConfig(name="none"),  # configs/eu_method/none.yaml
-        "ensemble": EUConfig(name="ensemble"),  # configs/eu_method/ensemble.yaml
-        # configs/eu_method/swag.yaml and swag_diag.yaml
-        "swag": EUConfig(name="swag", swag=SwagConfig(enabled=True, max_snapshots=30,
-                                                      diag_only=False)),
-        "swag_diag": EUConfig(name="swag_diag", swag=SwagConfig(enabled=True, max_snapshots=30,
-                                                                diag_only=True)),
+        "dropout": {"eu_method": {"name": "dropout", "nickname": "eu=dropout",
+                                  "dropout": {"enabled": True, "probability_values": (0.2,)}}},
+        "none": {"eu_method": {"name": "none", "nickname": "eu=none"}},
+        "ensemble": {"eu_method": {"name": "ensemble", "nickname": "eu=ensemble"}},
+        "swag": {"eu_method": {"name": "swag", "nickname": "eu=swag", "swag": {
+            "enabled": True, "max_snapshots": 30, "diag_only": False}}},
+        "swag_diag": {"eu_method": {"name": "swag_diag", "nickname": "eu=swag_diag", "swag": {
+            "enabled": True, "max_snapshots": 30, "diag_only": True}}},
     },
 }
-# network fields a model group sets (configs/model/diffusion.yaml: network.final_act)
-_MODEL_NETWORK = {"diffusion": {"final_act": "softmax"}}
 
 
 def load_config(
@@ -165,9 +308,11 @@ def load_config(
     model: str = "softmax",
     eu_method: str = "dropout",
     precision: str = "fp32",
+    overrides: dict | None = None,
 ) -> ExperimentConfig:
-    """The composed config of the ported slice; other group names raise."""
-    picked = {}
+    """The four groups over the defaults, then ``trainer.precision`` and the
+    nested-dict ``overrides``; a group name the port lacks raises."""
+    cfg = ExperimentConfig()
     for group, name in (("data", data), ("network", network), ("model", model),
                         ("eu_method", eu_method)):
         options = _GROUPS[group]
@@ -175,9 +320,6 @@ def load_config(
             raise NotImplementedError(
                 f"config '{name}' in group '{group}' is not ported; "
                 f"available: {sorted(options)}")
-        picked[group] = options[name]
-    picked["network"] = dataclasses.replace(picked["network"], **_MODEL_NETWORK.get(model, {}),
-                                            out_channels=picked["data"].num_classes)
-    if precision not in ("fp32", "bf16"):
-        raise ValueError(f"precision must be fp32 or bf16, got {precision!r}")
-    return ExperimentConfig(**picked, trainer=TrainerConfig(precision=precision))
+        cfg = _merge(cfg, options[name])
+    cfg = _merge(_merge(cfg, {"trainer": {"precision": precision}}), overrides or {})
+    return _merge(cfg, {"network": {"out_channels": cfg.data.num_classes}})

@@ -1,5 +1,5 @@
 """Multi-rater 2D dataset over the on-disk contract (port of the single-schema
-path of ``diffuncertainty_tpu/data/dataset.py``).
+path of ``diffuncertainty_tpu/data/dataset.py``; the combined schema raises).
 
 ``{base_dir}/preprocessed/images/*.npy`` float32 or uint8 images (grayscale
 replicated to 3 channels, uint8 scaled by 1/255);
@@ -8,7 +8,8 @@ masks (or the fold's ``_meta.rater_pattern``, e.g. the single-rater
 ``{base_id}_mask.npy`` of ``data/gta_toy.py``); ``splits.pkl`` a list of fold
 dicts mapping split names to image paths relative to ``preprocessed/``. The
 rater count comes from the caller, the fold's ``_meta.num_raters`` or the
-dataset name (``infer_num_raters``).
+dataset name (``infer_num_raters``). ``load`` returns every rater's mask,
+or one drawn at random.
 """
 
 from __future__ import annotations
@@ -47,13 +48,19 @@ def save_splits(splits: list[dict], splits_path: str | Path) -> None:
 
 
 class MultiRaterDataset:
-    """Index over one split; ``load`` returns the image and all rater masks."""
+    """Index over one split of fold ``data_fold_id``; ``load`` returns the
+    image, the rater masks and the image's dataset label."""
 
     def __init__(self, splits_path: str | Path, base_dir: str | Path, split: str = "id",
-                 num_raters: int | None = None):
+                 num_raters: int | None = None, *, data_fold_id: int = 0,
+                 return_all_raters: bool = True):
         self.split = split
         self.base_dir = Path(base_dir)
-        fold = load_splits(splits_path)[0]
+        self.return_all_raters = return_all_raters
+        folds = load_splits(splits_path)
+        if data_fold_id >= len(folds):
+            raise ValueError(f"fold {data_fold_id} not in splits ({len(folds)} folds)")
+        fold = folds[data_fold_id]
         meta = fold.get("_meta", {})
         if "combined" in str(meta.get("schema") or "").lower():
             raise NotImplementedError("the combined split schema is not ported")
@@ -61,10 +68,11 @@ class MultiRaterDataset:
         if split not in fold:
             available = sorted(k for k in fold if not k.startswith("_"))
             raise ValueError(f"Unknown split '{split}'. Available: {available}")
-        label = str(meta.get("dataset_name") or self.base_dir.name)
-        self.num_raters = num_raters or meta.get("num_raters") or infer_num_raters(label)
+        self.dataset_label = str(meta.get("dataset_name") or self.base_dir.name)
+        self.num_raters = (num_raters or meta.get("num_raters")
+                           or infer_num_raters(self.dataset_label))
         if self.num_raters is None:
-            raise ValueError(f"Cannot infer rater count for dataset '{label}'")
+            raise ValueError(f"Cannot infer rater count for dataset '{self.dataset_label}'")
         proc_dir = self.base_dir / "preprocessed"
         self.image_paths: list[Path] = []
         self.label_paths: list[list[Path]] = []
@@ -81,11 +89,18 @@ class MultiRaterDataset:
     def __len__(self) -> int:
         return len(self.image_paths)
 
-    def load(self, idx: int) -> dict[str, Any]:
-        """image (H, W, 3) float32 and seg (R, H, W) int32."""
+    def load(self, idx: int, rng: np.random.Generator | None = None) -> dict[str, Any]:
+        """image (H, W, 3) float32, seg (R, H, W) int32 (or one rater's
+        (H, W) unless ``return_all_raters``), image_id and dataset."""
         img = np.load(self.image_paths[idx])
         img = img.astype(np.float32) / 255.0 if img.dtype == np.uint8 else img.astype(np.float32)
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=2)
-        masks = np.stack([np.load(p) for p in self.label_paths[idx]]).astype(np.int32)
-        return {"image": img, "seg": masks, "image_id": self.image_ids[idx]}
+        paths = self.label_paths[idx]
+        if self.return_all_raters:
+            masks = np.stack([np.load(p) for p in paths]).astype(np.int32)
+        else:
+            pick = int((rng or np.random.default_rng()).integers(len(paths)))
+            masks = np.load(paths[pick]).astype(np.int32)
+        return {"image": img, "seg": masks, "image_id": self.image_ids[idx],
+                "dataset": self.dataset_label}

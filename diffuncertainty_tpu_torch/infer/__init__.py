@@ -1,1 +1,2 @@
-"""Per-batch inference metrics."""
+"""Uncertainty inference: the job (``runner``, ``cli``), its per-batch
+metrics and the results tree it writes."""

@@ -1,0 +1,331 @@
+"""The uncertainty-inference job (port of ``diffuncertainty_tpu/infer/runner.py``).
+
+From one or more checkpoints (``core/checkpoint.py``) and a split on disk to
+the results tree (``infer/results.py``), on one device:
+
+- each checkpoint's weights (``params``, or ``ema_params`` with ``use_ema``
+  or in an EMA-only snapshot) become the port's state dict;
+- EU members: MC-dropout members fold into the rows of one forward; SWAG and
+  SWAG-diag members are drawn by ``models/swag.py::sample_members`` from a
+  generator seeded ``seed``; several checkpoints of one architecture and a
+  trivial EU method stack into one member stack (a deep ensemble); a mix of
+  others runs one sampler per checkpoint, their groups concatenated;
+- per batch: normalize, sample, batch metrics, then the writes, on a pool of
+  threads that overlaps the next batch. Batch ``i`` draws from a device
+  generator seeded from the ``i``-th draw of a host generator seeded
+  ``seed``; several samplers draw from it one after another.
+
+Runs on ``InferenceConfig.device`` (``cuda`` by default; without a card that
+raises, it never falls back to the CPU). One device only: the JAX job's
+(data, member) mesh and its member chunking are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from pathlib import Path
+from typing import Iterator, Sequence
+
+import numpy as np
+import torch
+
+from ..core.checkpoint import load_checkpoint
+from ..core.config import ExperimentConfig
+from ..core.params import flax_to_torch, flax_to_torch_stacked, stack_states
+from ..data.augment import normalize_batch
+from ..data.dataset import MultiRaterDataset
+from ..data.loader import BatchLoader
+from ..models import swag as swag_lib
+from ..models.factory import build_model
+from ..sampling.sampler import PredictionStack, SamplerMeta, SamplerSpec, make_sampler
+from ..sampling.tta import TTAConfig
+from .batch_metrics import make_batch_metrics
+from .results import ResultsWriter, result_split_dir
+
+METRIC_KEYS = ("dice", "ged", "ged_bma", "max_dice_pred", "max_dice_gt", "major_dice")
+
+
+@dataclasses.dataclass
+class InferenceConfig:
+    n_pred: int = 10
+    n_models: int = 10
+    tta: bool = False
+    same_dropout: bool = False  # not ported: the sampler raises
+    discretize: bool = False
+    direct_au: bool = False
+    use_ema: bool = False
+    batch_size: int = 16
+    seed: int = 123
+    metrics_compute: tuple[str, ...] = ("dice", "ged", "ged_bma")
+    save_likelihood: bool = True
+    save_outputs: bool = True
+    skip_existing: bool = False
+    diffusion_num_steps: int | None = None
+    diffusion_sampler: str | None = None
+    swag_scale: float = 1.0
+    swag_blockwise: bool = False
+    data_input_dir: str | None = None
+    save_dir: str | None = None
+    version: str = "version_0"
+    member_chunk: int | str | None = "auto"  # only "auto" is ported
+    mesh_shape: tuple[int, int] | None = None  # only None or (1, 1) is ported
+    device: str = "cuda"
+
+
+def _check_ported(icfg: InferenceConfig) -> None:
+    if icfg.mesh_shape is not None and tuple(icfg.mesh_shape) != (1, 1):
+        raise NotImplementedError(
+            f"mesh_shape {tuple(icfg.mesh_shape)}: the port runs on one device; the (data, "
+            f"member) mesh is ROADMAP Queue 1 item 6")
+    if icfg.member_chunk != "auto":
+        raise NotImplementedError(
+            f"member_chunk {icfg.member_chunk!r}: only 'auto' is ported (members one after "
+            f"another); chunked and vmapped members are ROADMAP Queue 1 item 2")
+
+
+def _tta_config(aug) -> TTAConfig:
+    """The TTA draw of the data config's augmentations, magnitudes scaled by
+    ``augment_mult`` (when positive), as the JAX ``TTAConfig.effective``."""
+    m = aug.augment_mult if aug.augment_mult > 0 else 1.0
+    return TTAConfig(hflip_p=min(1.0, aug.hflip_p * m), rotation_limit=aug.rotation_limit * m,
+                     scale_limit=(aug.scale_limit[0] * m, aug.scale_limit[1] * m))
+
+
+def _to(state: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
+    return {k: v.to(device) for k, v in state.items()}
+
+
+class UncertaintyInference:
+    """Load checkpoint(s), expand EU members, run prediction + metrics + writes."""
+
+    def __init__(self, checkpoint_paths: Sequence[str | Path], icfg: InferenceConfig):
+        _check_ported(icfg)
+        if not checkpoint_paths:
+            raise ValueError("at least one checkpoint path required")
+        self.icfg = icfg
+        self.device = torch.device(icfg.device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("the inference job runs on cuda but torch.cuda.is_available() "
+                               "is False; pass device='cpu' (--device cpu) to run on the CPU")
+        states, configs, metas = zip(*(load_checkpoint(p) for p in checkpoint_paths))
+        self.cfg: ExperimentConfig = configs[0]
+        self.epoch = int(metas[0]["epoch"])
+        builts = [build_model(c, device=self.device) for c in configs]
+        self.built = builts[0]
+        weights = [flax_to_torch(self.pick_params(s)) for s in states]
+
+        if len(weights) > 1:
+            classes = {c.network.out_channels for c in configs}
+            if len(classes) != 1:
+                raise ValueError(f"ensemble checkpoints disagree on num_classes: "
+                                 f"{sorted(classes)}")
+        # the stacked fast path needs one architecture (AU type, EU method and
+        # every leaf's shape) and a trivial EU method on every checkpoint
+        shape_keys = {(c.model.au_type, c.eu_method.name,
+                       tuple((k, tuple(v.shape)) for k, v in w.items()))
+                      for c, w in zip(configs, weights)}
+        homogeneous = (len(weights) > 1 and len(shape_keys) == 1
+                       and all(b.eu_type in ("none", "ensemble") for b in builts))
+
+        self.sources: list[dict] = []
+        if homogeneous:
+            stack = _to(stack_states(weights, self.built.module), self.device)
+            self._add_source(self.built, "params_stack", len(weights), False, stack)
+        elif len(weights) == 1:
+            mode, n, members = self._expand_eu(self.built, self.cfg, states[0], weights[0])
+            self._add_source(self.built, mode, n, False, members)
+        else:
+            # a heterogeneous ensemble: one sampler per checkpoint, groups
+            # concatenated. Group sizes must agree across samplers: when every
+            # member draws n_pred samples (generative, or softmax with TTA) and
+            # there is more than one such member, each member keeps its group;
+            # any single-sample member forces singleton groups on all.
+            expanded = [self._expand_eu(b, c, s, w)
+                        for b, c, s, w in zip(builts, configs, states, weights)]
+            sizes = [icfg.n_pred if (b.is_generative or (b.au_type == "softmax" and icfg.tta))
+                     else 1 for b in builts]
+            gen_members = sum(n for (_, n, _), sz in zip(expanded, sizes) if sz > 1)
+            keep_groups = (len(set(sizes)) == 1 and sizes[0] > 1 and gen_members > 1
+                           and not icfg.direct_au)
+            for built, (mode, n, members), sz in zip(builts, expanded, sizes):
+                external = gen_members - (n if sz > 1 else 0) if keep_groups else 0
+                self._add_source(built, mode, n, not keep_groups, members, external)
+
+        metas_ = [src["sampler"].meta for src in self.sources]
+        assert len({m.samples_per_group for m in metas_}) == 1
+        self.meta = SamplerMeta(
+            n_groups=sum(m.n_groups for m in metas_),
+            samples_per_group=metas_[0].samples_per_group,
+            group_is_generative=tuple(g for m in metas_ for g in m.group_is_generative))
+        self.spec = self.sources[0]["spec"]
+        self.sampler = self.sources[0]["sampler"]
+        self.metrics_fn = make_batch_metrics(
+            num_classes=self.built.num_classes, ignore_index=self.cfg.data.ignore_index,
+            meta=self.meta, compute_dice="dice" in icfg.metrics_compute,
+            compute_ged="ged" in icfg.metrics_compute,
+            compute_ged_bma="ged_bma" in icfg.metrics_compute,
+            compute_likelihood=icfg.save_likelihood)
+
+    # ---- members ----------------------------------------------------------
+
+    def pick_params(self, state: dict) -> dict:
+        """The flax variables to run: EMA ones with ``use_ema``, else
+        ``params``, else (an EMA-only snapshot) ``ema_params``."""
+        if self.icfg.use_ema:
+            if "ema_params" not in state:
+                raise ValueError("use_ema requested but checkpoint has no ema_params")
+            return state["ema_params"]
+        return state["params"] if "params" in state else state["ema_params"]
+
+    def _expand_eu(self, built, cfg: ExperimentConfig, state: dict, weights: dict):
+        """One checkpoint -> (member_mode, n_members, member stack or its own
+        weights); the module gets its weights here."""
+        icfg = self.icfg
+        if built.eu_type in ("swag", "swag_diag"):
+            raw = state.get("swag_state")
+            if raw is None:
+                raise ValueError("SWAG checkpoint lacks swag_state")
+            posterior = swag_lib.SwagState(
+                n_models=int(raw["n_models"]),
+                mean=_to(flax_to_torch(raw["mean"]), self.device),
+                sq_mean=_to(flax_to_torch(raw["sq_mean"]), self.device),
+                dev=_to(flax_to_torch_stacked(raw["dev"]), self.device) if "dev" in raw else None)
+            members = swag_lib.sample_members(
+                posterior, torch.Generator(self.device).manual_seed(icfg.seed), icfg.n_models,
+                max_num_models=cfg.eu_method.swag.max_snapshots, scale=icfg.swag_scale,
+                use_low_rank=built.eu_type == "swag", blockwise=icfg.swag_blockwise,
+                var_clamp=cfg.eu_method.swag.min_variance)
+            return "params_stack", icfg.n_models, members
+        built.module.load_state_dict(weights, strict=True)
+        if built.eu_type == "dropout":
+            return "dropout", icfg.n_models, None
+        return "single", 1, None
+
+    def _add_source(self, built, member_mode: str, n_members: int, force_singletons: bool,
+                    members: dict | None, external_generative_members: int = 0) -> None:
+        icfg = self.icfg
+        spec = SamplerSpec(
+            n_pred=icfg.n_pred, n_members=n_members, member_mode=member_mode, tta=icfg.tta,
+            tta_config=_tta_config(self.cfg.data.augmentations),
+            same_dropout=icfg.same_dropout, discretize=icfg.discretize,
+            direct_au=icfg.direct_au or force_singletons,
+            external_generative_members=external_generative_members,
+            diffusion_num_steps=icfg.diffusion_num_steps,
+            diffusion_sampler=icfg.diffusion_sampler)
+        self.sources.append({"built": built, "spec": spec,
+                             "sampler": make_sampler(built, spec, members=members)})
+
+    # ---- prediction -------------------------------------------------------
+
+    def batch_generators(self) -> Iterator[torch.Generator]:
+        """One device generator per batch, each seeded from the next draw of
+        a host generator seeded ``seed``."""
+        host = torch.Generator().manual_seed(self.icfg.seed)
+        while True:
+            seed = int(torch.randint(2 ** 62, (1,), generator=host))
+            yield torch.Generator(self.device).manual_seed(seed)
+
+    def _sample_stack(self, images: torch.Tensor, generator: torch.Generator) -> PredictionStack:
+        """Run every sampler and concatenate their group stacks (float32)."""
+        stacks = [src["sampler"](images, generator) for src in self.sources]
+        if len(stacks) == 1:
+            return PredictionStack(*(t.float() for t in stacks[0]))
+        group_means = torch.cat([s.group_means.float() for s in stacks])
+        return PredictionStack(torch.cat([s.groups.float() for s in stacks]), group_means,
+                               group_means.mean(dim=0))
+
+    def normalize(self, images: np.ndarray) -> torch.Tensor:
+        aug = self.cfg.data.augmentations
+        return normalize_batch(torch.from_numpy(images).to(self.device), aug.mean, aug.std)
+
+    # ---- data and results -------------------------------------------------
+
+    def _dataset(self, split: str) -> MultiRaterDataset:
+        data_dir = self.icfg.data_input_dir or self.cfg.data.data_input_dir
+        splits_path = self.cfg.data.splits_path or (
+            Path(data_dir) / "splits" / self.cfg.data.split_name / "firstCycle" / "splits.pkl")
+        return MultiRaterDataset(splits_path, data_dir, split=split,
+                                 data_fold_id=self.cfg.data.data_fold_id,
+                                 return_all_raters=True)
+
+    def split_dir(self, split: str) -> Path:
+        return result_split_dir(self.icfg.save_dir or self.cfg.save_dir, self.cfg.auto_exp_name,
+                                self.icfg.n_pred, self.icfg.version, self.epoch,
+                                self.icfg.use_ema, split)
+
+    def run_split(self, split: str) -> dict:
+        out_dir = self.split_dir(split)
+        if self.icfg.skip_existing and (out_dir / "metrics.json").exists():
+            return {"skipped": True, "split": split}
+        loader = BatchLoader(self._dataset(split), self.icfg.batch_size, drop_last=False)
+        t0 = time.time()
+        # aborts the write pool if the loop raises; joins it and writes
+        # metrics.json on success
+        with ResultsWriter(out_dir, binary=self.built.num_classes == 2) as writer:
+            n_images = self._run_split_loop(loader, writer)
+        elapsed = time.time() - t0
+        return {"split": split, "n_images": n_images, "seconds": elapsed,
+                "images_per_sec": n_images / elapsed if elapsed > 0 else float("nan"),
+                "out_dir": str(out_dir)}
+
+    def _run_split_loop(self, loader, writer) -> int:
+        icfg = self.icfg
+        ign = self.cfg.data.ignore_index
+        n_images = 0
+        for batch, generator in zip(loader, self.batch_generators()):
+            stack = self._sample_stack(self.normalize(batch["image"]), generator)
+            gt = torch.from_numpy(batch["seg"]).to(self.device)
+            results = self.metrics_fn(stack, gt, torch.from_numpy(batch["num_raters"])
+                                      .to(self.device))
+            results = {k: ({m: t.cpu().numpy() for m, t in v.items()} if isinstance(v, dict)
+                           else v.cpu().numpy()) for k, v in results.items()}
+            for i in np.nonzero(batch["valid"])[0]:
+                image_id, dataset = batch["image_id"][i], batch["dataset"][i]
+                writer.add_metrics(image_id, dataset, {k: float(results[k][i])
+                                                       for k in METRIC_KEYS if k in results})
+                if icfg.save_likelihood and "mean_NLL" in results:
+                    n_r = int(batch["num_raters"][i])
+                    rec = {"gt_model_NLL": results["gt_model_NLL"][i][:n_r].tolist(),
+                           "gt_NLL": results["gt_NLL"][i][:n_r].tolist(),
+                           "mean_NLL": float(results["mean_NLL"][i])}
+                    if "gen_NLL" in results:
+                        rec["gen_NLL"] = float(results["gen_NLL"][i])
+                    writer.add_likelihood(image_id, dataset, rec)
+                if icfg.save_outputs:
+                    ignore_mask = None if ign is None or ign == 0 else batch["seg"][i][0] == ign
+                    writer.save_prediction(image_id, results["group_idx"][i],
+                                           results["mean_idx"][i], ignore_mask)
+                    writer.save_uncertainty(image_id, {k: v[i] for k, v in
+                                                       results["heatmaps"].items()})
+                n_images += 1
+        return n_images
+
+    def run(self, splits: Sequence[str]) -> list[dict]:
+        return [self.run_split(s) for s in splits]
+
+    def collect_raw_predictions(self, split: str, *, num_images: int | None = None,
+                                prefer_nonempty: bool = True, seed: int | None = None) -> dict:
+        """Unreduced prediction stacks of a sampled subset of a split: images
+        drawn with ``np.random.default_rng(seed)`` (default the job's seed),
+        preferring the images whose raters mark the most pixels; host arrays
+        {image_id, image, gt, groups (G, S, H, W, C), mean}."""
+        ds = self._dataset(split)
+        rng = np.random.default_rng(self.icfg.seed if seed is None else seed)
+        idxs = np.arange(len(ds))
+        if num_images is not None and num_images < len(ds):
+            if prefer_nonempty:
+                areas = np.array([float(np.sum(ds.load(int(i))["seg"])) for i in idxs])
+                pool = np.argsort(areas)[::-1][:num_images * 3]
+                idxs = rng.choice(pool, size=num_images, replace=False)
+            else:
+                idxs = rng.choice(idxs, size=num_images, replace=False)
+        records = []
+        for i, generator in zip(idxs, self.batch_generators()):
+            sample = ds.load(int(i))
+            stack = self._sample_stack(self.normalize(sample["image"][None]), generator)
+            records.append({"image_id": sample["image_id"], "image": sample["image"],
+                            "gt": sample["seg"], "groups": stack.groups[:, :, 0].cpu().numpy(),
+                            "mean": stack.mean[0].cpu().numpy()})
+        return {"split": split, "records": records,
+                "group_is_generative": self.meta.group_is_generative}

@@ -1,7 +1,8 @@
 """Dice (port of ``diffuncertainty_tpu/metrics/dice.py``): binary Dice with
 the reference's edge cases (both masks empty -> 1, exactly one empty -> 0,
 else 2TP / (2TP + FP + FN)) and the multiclass macro Dice. Leading axes are
-batched."""
+batched. ``rater_weights`` and ``rater_mean`` leave out the raters a
+variable-rater batch pads (``metrics/ged.py`` of the JAX package)."""
 
 from __future__ import annotations
 
@@ -50,3 +51,20 @@ def dice_multiclass_macro(pred_idx: torch.Tensor, target_idx: torch.Tensor, num_
     mean = (torch.where(present, per_class, torch.zeros_like(per_class)).sum(dim=-1)
             / n_present.clamp(min=1))
     return torch.where(n_present > 0, mean, torch.ones_like(mean))
+
+
+def rater_weights(n_gt: int, n_raters: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w, n): w (..., G) is 1.0 for the true raters (index < ``n_raters``,
+    shape (...)) and 0.0 for padding; n (...) their count, at least 1."""
+    n_raters = torch.as_tensor(n_raters)
+    w = (torch.arange(n_gt, device=n_raters.device) < n_raters.unsqueeze(-1)).float()
+    return w, w.sum(dim=-1).clamp(min=1.0)
+
+
+def rater_mean(scores: torch.Tensor, n_raters: torch.Tensor | None) -> torch.Tensor:
+    """Mean of (..., G) per-rater ``scores`` over the true raters (all of
+    them when ``n_raters`` is None)."""
+    if n_raters is None:
+        return scores.mean(dim=-1)
+    w, n = rater_weights(scores.shape[-1], n_raters.to(scores.device))
+    return (scores * w).sum(dim=-1) / n

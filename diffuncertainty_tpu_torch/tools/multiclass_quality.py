@@ -1,6 +1,5 @@
 """Multi-class full-frame quality (port of
-``diffuncertainty_tpu/tools/multiclass_quality.py``, without the palette-PNG
-roundtrip).
+``diffuncertainty_tpu/tools/multiclass_quality.py``).
 
 The loop of the reference's GTA/Cityscapes evaluation
 (``evaluation/utils/gta.py:15-45``, multiclass GED ``test_2D.py:901-918``) on
@@ -12,7 +11,10 @@ the synthetic street-scene toy (``data/gta_toy.py``):
 - macro Dice of the member-mean argmax against switched reference raters;
 - multiclass GED of the members' argmax maps against those references;
 - NCC of the TU and AU heatmaps against the analytic label-switch variance
-  map (``cityscapes_labels.gt_switch_uncertainty_map``).
+  map (``cityscapes_labels.gt_switch_uncertainty_map``);
+- the palette-PNG path of the results tree: the first frame's mean
+  prediction written with the label palette by ``infer/results.py`` and read
+  back losslessly (``palette_png_roundtrip``).
 
 ``bench.py``'s ``full_frame_multiclass`` family runs it with the trained
 asset ``assets/bench_unet16_gtatoy_multiclass.npz``.
@@ -34,6 +36,8 @@ from ..data.augment_extra import stochastic_label_switches
 from ..data.dataset import MultiRaterDataset
 from ..data.gta_toy import generate_gta_toy
 from ..evaln.tasks import compute_ncc
+from ..infer.image_io import read_png
+from ..infer.results import ResultsWriter
 from ..infer.sliding_window import sliding_window_predict
 from ..metrics.dice import dice_multiclass_macro
 from ..metrics.ged import ged_multiclass
@@ -60,11 +64,15 @@ def member_sliding_window_fn(module, *, window: int, stride: int, members: int):
     return fn
 
 
+def default_data_dir() -> Path:
+    return Path(tempfile.gettempdir()) / "diffuncertainty_torch_gtatoy"
+
+
 def gta_toy_frames(frames: int, frame_size: tuple[int, int], window: int, seed: int,
                    data_dir: str | Path | None = None):
     """(images (F,H,W,3) float32, masks (F,H,W) uint8) of the gta-toy test
     split, generated under ``data_dir`` (default: the temp directory)."""
-    data_dir = Path(data_dir or Path(tempfile.gettempdir()) / "diffuncertainty_torch_gtatoy")
+    data_dir = Path(data_dir or default_data_dir())
     toy = generate_gta_toy(data_dir, num_train=48, num_val=8, num_test=frames,
                            train_size=(window, window), test_size=frame_size, seed=seed)
     ds = MultiRaterDataset(toy / "splits" / "default" / "firstCycle" / "splits.pkl", toy,
@@ -132,11 +140,21 @@ def gta_toy_quality_eval(
         ncc_tu.append(compute_ncc(analytic, tu[b]))
         ncc_au.append(compute_ncc(analytic, au[b]))
 
+    # palette-PNG path: write the mean prediction, read it back losslessly
+    out_dir = Path(data_dir or default_data_dir()) / "palette_check"
+    frame0 = pred_idx[0].cpu().numpy()
+    with ResultsWriter(out_dir, binary=False, palette=cs.palette()) as writer:
+        writer.save_prediction("frame0", frame0[None], frame0)
+    readback, palette = read_png(out_dir / "pred_seg" / "frame0_01.png", with_palette=True)
+    palette_roundtrip = bool(np.array_equal(readback, frame0.astype(np.uint8))
+                             and palette == list(cs.palette()))
+
     result = {
         "dice_macro": float(np.mean(dices)),
         "ged_multiclass": float(np.mean(geds)),
         "ncc_tu_vs_analytic": float(np.mean(ncc_tu)),
         "ncc_au_vs_analytic": float(np.mean(ncc_au)),
+        "palette_png_roundtrip": palette_roundtrip,
         "frames_per_sec": frames_per_sec,
         "frame_size": list(frame_size),
         "window": window,

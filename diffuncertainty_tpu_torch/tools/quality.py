@@ -50,7 +50,8 @@ def toy128_quality_eval(built, sampler, data_cfg, *, batch: int = 16, hw: int = 
     """
     device = torch.device(device)
     loader = BatchLoader(toy128_dataset(hw), batch)
-    bm = make_batch_metrics(num_classes=built.num_classes, ignore_index=None, compute_ged=False)
+    bm = make_batch_metrics(num_classes=built.num_classes, ignore_index=None, compute_ged=False,
+                            compute_likelihood=False)
     aug = data_cfg.augmentations
     dices, geds, tu_means, eces = [], [], [], []
     for bi, b in enumerate(loader):

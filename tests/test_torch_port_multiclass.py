@@ -233,6 +233,7 @@ def test_gta_toy_quality_eval_matches_jax_with_injected_member_masks(tmp_path, m
     assert set(j_calls.values()) == {members - 1}  # every site traced once per member
     assert set(t_calls.values()) == {2 * members - 1}  # the stack's call, then the timed one
     assert ref["palette_png_roundtrip"] is True
+    assert got["palette_png_roundtrip"] is True  # the port's ResultsWriter and PNG reader
     for k in ("dice_macro", "ged_multiclass", "ncc_tu_vs_analytic", "ncc_au_vs_analytic"):
         assert abs(got[k] - ref[k]) <= 1e-5, (k, got[k], ref[k])
     for k in ("frame_size", "window", "stride", "members", "n_references"):

@@ -186,7 +186,7 @@ def test_prob_unet_config_matches_jax_load_config():
         num_fcomb_convs=4, unet_channel_mult=0.75, prior_channel_mult=0.75,
         posterior_channel_mult=0.75)
     assert got.model.prob_unet != ProbUnetSpec()  # the yaml, not the dataclass defaults
-    assert n_fields == 51  # every field the port keeps was compared
+    assert n_fields == 92  # every field the port keeps was compared
 
 
 def test_factory_builds_the_prob_unet_and_loads_the_asset_strictly():
