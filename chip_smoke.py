@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,hrnet,multiclass,infer]
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,hrnet,multiclass,infer,train]
 
 With no argument every path runs; ``--paths`` picks a comma-separated group
-of them (each needs its asset under ``assets/``: a missing one is an error).
+of them (each needs its file under ``assets/``: a missing one is an error;
+``train`` reads only ``ensemble16_quality.json``).
 The kernel build, the kernels' checks at the softmax path's shapes and at
 every other head width, and the checks at every shape of the chosen paths
 always run.
@@ -79,7 +80,26 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    GroupNorm, no twin); the job's img/s, writes included, in the new process
    and in process once warm, with and without the writes, and the device
    time of one batch;
-12. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
+12. the trainer (``python -m diffuncertainty_tpu_torch.train``, the user's
+   entry point): each kernel's backward (its autograd Function: the kernel
+   forward, the twin's VJP) against fp32 autograd of the twin on the same
+   bf16 values at the training shapes (attention at (16, 1024, 384) and
+   (16, 256, 768), GroupNorm at unet16's norm sites at 16 rows with silu and
+   with none), with the VJP's time, its bound and the library backward's
+   time; one full-model bf16 step at batch 16 with the launches and VJPs
+   counted (11 and 56 of each, no forward twin), every leaf's gradient
+   finite, nonzero and against the same step with both twins forced, and the
+   step's split (forward, backward with the twin VJPs apart, optimizer and
+   EMA), busy share and peak memory; then the first member of the JAX
+   16-member recipe (seed 2024, eu none, 150 epochs, bf16, batch 16 on the
+   toy-128 train split) trained from scratch as a subprocess, its loss
+   falling, the EMA weights of its ``last`` checkpoint scored (one member,
+   no TTA) inside the range of the 16 JAX members widened by half on the
+   first 32 test images, where the members were scored, and on all 256
+   reported, and the
+   inference job run on that checkpoint as a subprocess, its mean Dice
+   equal to the in-process one to 1e-4;
+13. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
    bf16 path and of the SSN, prob-U-Net, ensemble and HRNet bf16 paths, and
    the multiclass quality (macro Dice, GED, NCC of TU and AU against the
    analytic switch map), held to bands around the JAX package's recorded
@@ -116,9 +136,13 @@ ASSET_PROB_UNET = REPO / "assets" / "bench_unet16_toy128_prob_unet.npz"
 ASSET_SWAG = REPO / "assets" / "bench_unet16_toy128_swag.npz"
 ASSET_HRNET = REPO / "assets" / "bench_hrnet_s_toy128.npz"
 ASSET_MULTICLASS = REPO / "assets" / "bench_unet16_gtatoy_multiclass.npz"
+ENSEMBLE16_QUALITY = REPO / "assets" / "ensemble16_quality.json"
 PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
                "prob_unet": ASSET_PROB_UNET, "ensemble": ASSET_SWAG, "hrnet": ASSET_HRNET,
-               "multiclass": ASSET_MULTICLASS, "infer": ASSET}
+               "multiclass": ASSET_MULTICLASS, "infer": ASSET,
+               # trains from scratch on the generated toy-128 data: reads only
+               # the JAX members' quality record its bands come from
+               "train": ENSEMBLE16_QUALITY}
 PATHS = tuple(PATH_ASSETS)
 
 # kernel vs its twin: |kernel - twin| <= ATOL + RTOL*|twin| elementwise.
@@ -185,6 +209,35 @@ LONG_TOKENS = (2049, 4100)
 WIDE_NORM_SITES = ((8, 8, 1280), (8, 8, 1536), (16, 16, 1280))
 # attention calls per unet16 forward by token count: 5 at HW/4, 6 at HW/8
 UNET16_ATTENTION = {(HW // 4) ** 2: (5, 128), (HW // 8) ** 2: (6, 256)}
+# the train path: the first member of the JAX 16-member recipe
+# (tools/train_bench_assets.py::_load_cfg with seed 2024, eu none, 150 epochs,
+# assets/ensemble16_quality.json), trained from scratch
+TRAIN_SEED, TRAIN_EPOCHS = 2024, 150
+# Each metric's range over the 16 JAX-trained members (single member, no
+# TTA; ensemble16_quality.json member_quality), widened by half the range on
+# each side: the JAX package's own spread over seeds. The members were
+# scored on the 32-image test split of the record's time (the JAX
+# tools/quality.py then generated num_test=32; 256 since the next commit,
+# whose first 32 images are that split), so the bands hold there; the
+# 256-image numbers are reported.
+TRAIN_BANDS = {"dice": (0.9299, 0.9533), "ged_bma": (0.0511, 0.0983),
+               "aurc": (0.0380, 0.0518), "ece": (0.0284, 0.0494)}
+# A kernel's backward (its twin's VJP on the bf16 inputs) against autograd of
+# the twin in fp32 on the same values: |g - g32| <= A * max|g32| + R * |g32|.
+# The bf16 VJP rounds the gradient it returns (2^-9 relative) and, inside the
+# attention, the probabilities and their gradient (2^-9 each) before sums of
+# up to 1024 terms whose cancellations leave an error of the sum's scale,
+# not the element's: A = 2^-6 (eight such roundings), R = 2^-7.
+GRAD_TOL = (2.0 ** -6, 2.0 ** -7)
+# One full-model bf16 step through the kernels against the same step with
+# both twins forced: the forwards differ by one bf16 rounding (2^-8
+# relative) at some elements of each of the 67 sites, carried through the
+# network and the backward; each leaf's relative L2 error of its gradient
+# is held to 0.05 (about a dozen such roundings). A leaf whose exact
+# gradient is 0 is left out (both hold rounding noise only): a bias that
+# reaches the loss only through a GroupNorm of one channel per group, found
+# by the same step in float64 (chip_smoke.null_gradient_leaves).
+STEP_GRAD_TOL = 0.05
 # the multiclass path (bench.py:698-701): frames, frame size, window, stride,
 # members, switched references per frame, seed
 MC_FRAMES, MC_SIZE, MC_WINDOW, MC_STRIDE, MC_MEMBERS, MC_SEED = 8, (256, 512), 128, 64, 8, 1234
@@ -1057,6 +1110,406 @@ def phase_infer(smi: str, attn_checked: set, norm_checked: set):
                       "batch_ms": batch_ms, **quality}
 
 
+def train_tokens(data_dir, save_dir) -> list[str]:
+    """The command line of the JAX recipe's first member
+    (``tools/train_recipe.py::recipe_tokens``)."""
+    from diffuncertainty_tpu_torch.tools.train_recipe import recipe_tokens
+
+    return recipe_tokens(data_dir, save_dir, seed=TRAIN_SEED, epochs=TRAIN_EPOCHS, hw=HW)
+
+
+def grad_error(name: str, got, ref) -> dict:
+    """``got`` (the kernel's Function) against ``ref`` (fp32 autograd of the
+    twin) under GRAD_TOL; the max abs and the max abs over max |ref|."""
+    import torch
+
+    a, r = GRAD_TOL
+    err = (got.float() - ref).abs()
+    scale = ref.abs().max().item()
+    bad = (err > a * scale + r * ref.abs()).sum().item()
+    out = {"max_abs_err": err.max().item(), "max_rel_err": err.max().item() / max(scale, 1e-30)}
+    if not torch.isfinite(got.float()).all() or bad:
+        raise AssertionError(f"{name} backward disagrees with fp32 autograd of its twin: {bad} "
+                             f"elements beyond {a}*max|ref| + {r}*|ref| ({out})")
+    return out
+
+
+def vjp_cases(norm_site_list) -> tuple[list[dict], list[dict]]:
+    """Each kernel's backward at the training step's shapes: the gradients
+    through its autograd Function (kernel forward, the twin's VJP) against
+    fp32 autograd of the twin on the same bf16 values, the VJP's time
+    (CUDA events), its bound and the library backward's time."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+    from diffuncertainty_tpu_torch.ops.norm import num_groups_for
+    from diffuncertainty_tpu_torch.tools.groupnorm_sites import event_ms
+
+    attn = []
+    for i, (t, (calls, c)) in enumerate(UNET16_ATTENTION.items()):
+        gen = torch.Generator("cuda").manual_seed(900 + i)
+        qkv = torch.randn((BATCH, t, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+        g_out = torch.randn((BATCH, t, c), generator=gen, device="cuda").to(torch.bfloat16)
+        x = qkv.clone().requires_grad_(True)
+        (got,) = torch.autograd.grad(ca.qkv_attention_cuda(x, 4), x, g_out)
+        x32 = qkv.float().requires_grad_(True)
+        (ref,) = torch.autograd.grad(ca.qkv_attention_reference(x32, 4), x32, g_out.float())
+        case = {"B": BATCH, "T": t, "C": c, "d": c // 4, "calls": calls,
+                **grad_error(f"attention at T={t} C={c}", got, ref)}
+        case["vjp_ms"] = event_ms(lambda: ca.qkv_attention_vjp(qkv, 4, g_out), runs=10)
+        ch = c // 4
+        qh = qkv.view(BATCH, t, 4, 3 * ch).permute(0, 2, 1, 3)
+        q, k, v = (qh[..., j * ch:(j + 1) * ch].contiguous().requires_grad_(True)
+                   for j in range(3))
+        o = F.scaled_dot_product_attention(q, k, v, scale=ch ** -0.5)
+        g4 = g_out.view(BATCH, t, 4, ch).permute(0, 2, 1, 3)
+        case["library_ms"] = event_ms(lambda: torch.autograd.grad(o, (q, k, v), g4,
+                                                                  retain_graph=True), runs=10)
+        flops = 10.0 * BATCH * 4 * t * t * ch  # recompute QK^T, dV, dP, dQ, dK
+        nbytes = 2.0 * BATCH * t * (3 * c + c + 3 * c)  # qkv and dout read, dqkv written
+        case["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        case["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES \
+            else "bytes"
+        log(f"attention backward B={BATCH} T={t} C={c}: max|g-g32| {case['max_abs_err']:.3e} "
+            f"({case['max_rel_err']:.3e} of max|g32|); twin VJP {case['vjp_ms']:.4f} ms, sdpa "
+            f"backward {case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+            f"({case['bound_by']})")
+        attn.append(case)
+        del qkv, g_out, x, got, x32, ref, q, k, v, o
+    norms = []
+    calls = {}
+    for shape, dt, act in norm_site_list:
+        calls[(shape, dt)] = calls.get((shape, dt), 0) + 1
+    for i, ((shape, dt), n) in enumerate(sorted(calls.items(), key=lambda kv: (-kv[0][0][0],
+                                                                              kv[0]))):
+        dtype = getattr(torch, dt)
+        c = shape[-1]
+        for act in ("silu", "none"):
+            gen = torch.Generator("cuda").manual_seed(950 + 2 * i + (act == "none"))
+            x = (3.0 * torch.randn((BATCH,) + shape, generator=gen, device="cuda") + 1.0).to(dtype)
+            scale = torch.randn(c, generator=gen, device="cuda")
+            bias = torch.randn(c, generator=gen, device="cuda")
+            gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+            got = torch.autograd.grad(gn.group_norm_act(*leaves, act), leaves, gy)
+            leaves32 = [t.float().requires_grad_(True) for t in (x, scale, bias)]
+            ref = torch.autograd.grad(gn.group_norm_act_reference(*leaves32, act), leaves32,
+                                      gy.float())
+            site = f"GroupNorm {(BATCH,) + shape} {dt} {act}"
+            errs = [grad_error(f"{site} d{w}", g, r) for w, g, r in zip(("x", "scale", "bias"),
+                                                                         got, ref)]
+            case = {"shape": [BATCH, *shape], "dtype": dt, "act": act,
+                    "calls": sum(1 for s in norm_site_list if s == (shape, dt, act)),
+                    "max_abs_err": max(e["max_abs_err"] for e in errs),
+                    "max_rel_err": max(e["max_rel_err"] for e in errs)}
+            case["vjp_ms"] = event_ms(lambda: gn.group_norm_act_vjp(x, scale, bias, act, 1e-5,
+                                                                    gy), runs=10)
+            xv = x.movedim(-1, 1).detach().requires_grad_(True)
+            sc, bi = scale.to(dtype).requires_grad_(True), bias.to(dtype).requires_grad_(True)
+            y = F.group_norm(xv, num_groups_for(c), sc, bi, 1e-5)
+            y = F.silu(y) if act == "silu" else y
+            case["library_ms"] = event_ms(lambda: torch.autograd.grad(
+                y, (xv, sc, bi), gy.movedim(-1, 1), retain_graph=True), runs=10)
+            numel = x.numel()
+            nbytes = 3.0 * numel * x.element_size() + 4 * c * 4  # x, dy, dx; affine and grads
+            flops = numel * (12.0 + (4.0 if act == "silu" else 0.0))
+            case["bound_ms"] = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
+            log(f"{site} backward: max|g-g32| {case['max_abs_err']:.3e} "
+                f"({case['max_rel_err']:.3e} of max|g32|); twin VJP {case['vjp_ms']:.4f} ms, "
+                f"F.group_norm backward {case['library_ms']:.4f} ms, bound "
+                f"{case['bound_ms']:.4f} ms")
+            norms.append(case)
+            del x, gy, leaves, got, leaves32, ref, xv, y
+    torch.cuda.empty_cache()
+    return attn, norms
+
+
+@contextlib.contextmanager
+def twins_forced():
+    """Both kernels' call sites in the network take the plain twins (plain
+    autograd, no Function) while the block runs."""
+    from diffuncertainty_tpu_torch.models import unet
+    from diffuncertainty_tpu_torch.ops import attention
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+
+    saved = attention.qkv_attention_cuda, unet.group_norm_act
+    attention.qkv_attention_cuda = ca.qkv_attention_reference
+    unet.group_norm_act = gn.group_norm_act_reference
+    try:
+        yield
+    finally:
+        attention.qkv_attention_cuda, unet.group_norm_act = saved
+
+
+def null_gradient_leaves(trainer, state, batch) -> set[str]:
+    """The parameters whose exact gradient is 0 on this batch: the same step
+    in float64 (a copy of the network, both twins) gives them less than 1e-8
+    of the largest leaf's gradient norm. These are biases that reach the
+    loss only through a GroupNorm of one channel per group, which removes
+    them (a ResBlock's ``in_conv`` bias at 32 channels, the last block's
+    ``out_conv`` and ``skip_conv`` biases before the head's norm)."""
+    import copy
+
+    import torch
+
+    from diffuncertainty_tpu_torch.data.augment import augment_batch
+
+    module = copy.deepcopy(trainer.built.module).double()
+    module.dtype = torch.float64
+    gen = torch.Generator("cuda").manual_seed(7)
+    images = torch.as_tensor(batch["image"]).to("cuda", torch.float64)
+    seg = torch.as_tensor(batch["seg"]).to("cuda")
+    images, seg = augment_batch(trainer.aug_cfg, gen, images, seg)
+    with twins_forced():
+        loss, _ = trainer.loss_fn(module, {"image": images, "seg": seg}, gen)
+        grads = torch.autograd.grad(loss, list(module.parameters()))
+    norms = {n: g.norm().item() for (n, _), g in zip(module.named_parameters(), grads)}
+    assert list(norms) == list(state.params)
+    top = max(norms.values())
+    return {n for n, v in norms.items() if v < 1e-8 * top}
+
+
+def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked: set) -> dict:
+    """One full-model bf16 step at batch 16: launches and VJPs counted, every
+    leaf's gradient against the twins-forced step, and the step's split."""
+    import torch
+
+    from diffuncertainty_tpu_torch.models.unet import AttentionBlock, GroupNorm32
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+
+    # from the flax init, the zero head conv stops every gradient but its own
+    # at step 0, and the zero ResBlock out_convs stop the blocks' inner
+    # gradients at step 1: the counted step is step 2
+    state = trainer.init_state()
+    for i in range(2):
+        state, _ = trainer.train_step(state, batches[i], trainer.epoch_generator(0))
+    module = trainer.built.module
+
+    def grads(seed):
+        loss, _ = trainer.forward_loss(batches[1], torch.Generator("cuda").manual_seed(seed))
+        return loss, trainer.gradients(state, loss)
+
+    attn_seen, norm_seen = [], []
+    hooks = [m.register_forward_pre_hook(
+        (lambda mod, args: attn_seen.append(tuple(args[0].shape))) if isinstance(m, AttentionBlock)
+        else (lambda mod, args: norm_seen.append(
+            (tuple(args[0].shape), str(args[0].dtype).split(".")[-1], mod.act))))
+        for m in module.modules() if isinstance(m, (AttentionBlock, GroupNorm32))]
+    torch.cuda.synchronize()
+    with counting_twins() as twins:
+        ca.reset_launch_count()
+        gn.reset_launch_count()
+        loss, g = grads(7)
+        torch.cuda.synchronize()
+        counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
+                  "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
+    for h in hooks:
+        h.remove()
+    want = {"qkv_attention": 11, "group_norm_act": 56, "qkv_attention_vjp": 11,
+            "group_norm_act_vjp": 56}
+    log(f"train step: launches and VJPs {counts} (expected {want}), twin forwards {twins}")
+    if counts != want or any(twins.values()):
+        raise AssertionError(f"train step: {counts} != {want} or twin forwards ran: {twins}")
+    shapes = {(b, hh * ww, c) for b, hh, ww, c in attn_seen}
+    if not shapes <= attn_checked or not set(norm_seen) <= norm_checked:
+        raise AssertionError(f"train step: unchecked attention shapes {shapes - attn_checked} or "
+                             f"norm sites {set(norm_seen) - norm_checked}")
+    names = list(state.params)
+    null = null_gradient_leaves(trainer, state, batches[1])
+    for name, gi in zip(names, g):
+        if not torch.isfinite(gi).all() or not (name in null or gi.abs().max().item() > 0):
+            raise AssertionError(f"train step: the gradient of {name} is not finite or is 0")
+    with twins_forced():
+        loss_t, g_t = grads(7)
+    rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for n, a, b in zip(names, g, g_t) if n not in null}
+    worst = max(rel, key=rel.get)
+    log(f"train step: loss {loss.item():.6f} (twins forced {loss_t.item():.6f}); gradient rel "
+        f"L2 error per leaf through the kernels vs twins forced: max {rel[worst]:.3e} at "
+        f"{worst}, median {statistics.median(rel.values()):.3e} over {len(rel)} leaves "
+        f"({len(null)} zero-gradient biases left out: {sorted(null)})")
+    if rel[worst] > STEP_GRAD_TOL:
+        raise AssertionError(f"train step: {worst} gradient rel error {rel[worst]:.3e} > "
+                             f"{STEP_GRAD_TOL}")
+    del g_t, loss_t
+
+    # the step's split (CUDA events, median of 10): forward (augment, forward,
+    # loss), backward with the two twin VJPs apart, optimizer + EMA
+    vjp_events = {"qkv_attention": [], "group_norm_act": []}
+
+    def timed(mod, name, kernel):
+        fn = getattr(mod, name)
+
+        def wrapper(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            vjp_events[kernel].append((start, end))
+            return out
+        return fn, wrapper
+
+    split = {"forward": [], "backward": [], "optimizer_ema": [],
+             "attention_vjp": [], "group_norm_vjp": []}
+    saved = [(ca, "qkv_attention_vjp", "qkv_attention"), (gn, "group_norm_act_vjp",
+                                                          "group_norm_act")]
+    originals = []
+    for mod, name, kernel in saved:
+        fn, wrapper = timed(mod, name, kernel)
+        originals.append(fn)
+        setattr(mod, name, wrapper)
+    try:
+        for i in range(12):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            for v in vjp_events.values():
+                v.clear()
+            ev[0].record()
+            loss, _ = trainer.forward_loss(batches[i % 2], torch.Generator("cuda").manual_seed(i))
+            ev[1].record()
+            g = trainer.gradients(state, loss)
+            ev[2].record()
+            state, _ = trainer.apply_gradients(state, g)
+            ev[3].record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                split["forward"].append(ev[0].elapsed_time(ev[1]))
+                split["backward"].append(ev[1].elapsed_time(ev[2]))
+                split["optimizer_ema"].append(ev[2].elapsed_time(ev[3]))
+                split["attention_vjp"].append(sum(s.elapsed_time(e)
+                                                  for s, e in vjp_events["qkv_attention"]))
+                split["group_norm_vjp"].append(sum(s.elapsed_time(e)
+                                                   for s, e in vjp_events["group_norm_act"]))
+    finally:
+        for (mod, name, _), fn in zip(saved, originals):
+            setattr(mod, name, fn)
+    split = {k: statistics.median(v) for k, v in split.items()}
+    # device busy share and peak memory over 10 plain steps
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gen = torch.Generator("cuda").manual_seed(1)
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for i in range(10):
+            state, _ = trainer.train_step(state, batches[i % 2], gen)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / 10
+    busy = sum(a.self_device_time_total for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 10
+    split.update(step_wall_ms=wall, device_ms=busy,
+                 busy_share=busy / wall if busy > 0 else None,
+                 peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"train step split on {smi} (batch {BATCH}, CUDA events, median of 10): forward "
+        f"{split['forward']:.2f} ms, backward {split['backward']:.2f} ms (of which the "
+        f"attention twin VJPs {split['attention_vjp']:.2f} ms and the GroupNorm twin VJPs "
+        f"{split['group_norm_vjp']:.2f} ms), optimizer + EMA {split['optimizer_ema']:.2f} ms; "
+        f"10 steps: {wall:.2f} ms a step, device {busy:.2f} ms, busy share "
+        + ("not measured" if split["busy_share"] is None else f"{split['busy_share']:.3f}")
+        + f", peak memory {split['peak_memory_gib']:.2f} GiB")
+    return {"launches": counts, "max_leaf_rel_err": rel[worst], "split": split}
+
+
+def phase_train(smi: str, norm_site_list) -> dict:
+    """The trainer: each kernel's backward at the training shapes, one
+    counted full-model step, then the recipe through the user's entry point
+    as a subprocess, the quality of its EMA weights, and the inference job
+    on its checkpoint."""
+    import ast
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffuncertainty_tpu_torch.core.checkpoint import load_checkpoint
+    from diffuncertainty_tpu_torch.core.params import flax_to_torch
+    from diffuncertainty_tpu_torch.models.factory import build_model
+    from diffuncertainty_tpu_torch.sampling.sampler import SamplerSpec, make_sampler
+    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset, toy128_quality_eval
+    from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    attn_cases, norm_cases = vjp_cases(norm_site_list)
+    attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
+    norm_checked = {(tuple(c["shape"]), c["dtype"], c["act"]) for c in norm_cases}
+    data_dir = toy128_dataset(HW).base_dir
+    out = {"attention_vjp": attn_cases, "group_norm_vjp": norm_cases}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, _ = parse_args(train_tokens(data_dir, tmp))
+        trainer = Trainer(cfg, device="cuda", workdir=Path(tmp) / "probe")
+        train_loader, _, _ = build_loaders(cfg)
+        batches = list(train_loader)[:2]
+        out["step"] = phase_train_step(smi, trainer, batches, attn_checked, norm_checked)
+        del trainer, batches
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.train",
+                              *train_tokens(data_dir, tmp)], cwd=REPO, capture_output=True,
+                             text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"the trainer exited {run.returncode}:\n{run.stdout[-2000:]}\n"
+                                 f"{run.stderr[-4000:]}")
+        (steps_line,) = [ln for ln in run.stdout.splitlines() if ln.startswith("steps ")]
+        workdir = Path(tmp) / cfg.auto_exp_name / "version_0"
+        records = [json.loads(ln) for ln in (workdir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train_loss"] for r in records if "train_loss" in r]
+        tail = float(np.mean(losses[-10:]))
+        log(f"train recipe: exit 0 in {wall:.1f}s (process included) on {smi}: {steps_line}; "
+            f"{len(losses)} epochs, train_loss epoch 0 {losses[0]:.4f}, mean of the last 10 "
+            f"{tail:.4f}; validation {[r for r in records if 'val_dice' in r][-1:]}")
+        if len(losses) != TRAIN_EPOCHS or not tail < 0.5 * losses[0]:
+            raise AssertionError(f"train recipe: {len(losses)} epoch records, the last 10 "
+                                 f"epochs' loss {tail:.4f} vs epoch 0's {losses[0]:.4f}")
+        step_ms, img_s = map(float, re.search(r"median step ([0-9.]+) ms \(([0-9.]+) img/s",
+                                              steps_line).groups())
+        out["recipe"] = {"wall_s": wall, "median_step_ms": step_ms, "img_per_s": img_s,
+                         "first_loss": losses[0], "last10_loss": tail}
+
+        # the EMA weights of the last checkpoint, one member, no TTA
+        ckpt = workdir / "checkpoints" / "last"
+        saved, ckpt_cfg, meta = load_checkpoint(ckpt)
+        built = build_model(ckpt_cfg, device="cuda")
+        built.module.load_state_dict(flax_to_torch(saved["ema_params"]))
+        sampler = make_sampler(built, SamplerSpec(n_pred=1, n_members=1, member_mode="single"))
+        q32 = toy128_quality_eval(built, sampler, ckpt_cfg.data, batch=BATCH, hw=HW,
+                                  device="cuda", num_images=32)
+        q = toy128_quality_eval(built, sampler, ckpt_cfg.data, batch=BATCH, hw=HW, device="cuda")
+        log(f"train recipe quality (EMA weights of epoch {meta['epoch']}, one member, no TTA): "
+            f"first 32 test images {q32} (bands {TRAIN_BANDS}); all 256 {q}")
+        for metric, (lo, hi) in TRAIN_BANDS.items():
+            if not lo <= q32[metric] <= hi:
+                raise AssertionError(f"trained {metric} {q32[metric]:.5f} on the first 32 images "
+                                     f"outside [{lo}, {hi}]")
+        out["quality_32"], out["quality"] = q32, q
+
+        argv = ["--checkpoint_paths", str(ckpt), "--test_split", "id", "--n_pred", "1",
+                "--n_models", "1", "--ema_mode", "true", "--test_batch_size", str(BATCH),
+                "--metrics_only", "--save_dir", str(Path(tmp) / "results")]
+        job = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.infer", *argv],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        if job.returncode != 0:
+            raise AssertionError(f"the inference job on the trained checkpoint exited "
+                                 f"{job.returncode}:\n{job.stdout[-2000:]}\n{job.stderr[-4000:]}")
+        (summary,) = [ast.literal_eval(ln) for ln in job.stdout.splitlines()
+                      if ln.startswith("{'split'")]
+        metrics = json.loads((Path(summary["out_dir"]) / "metrics.json").read_text())
+        job_dice = float(np.mean([r["metrics"]["dice"] for r in metrics.values()]))
+        log(f"infer job on the trained checkpoint: {summary}; mean Dice {job_dice:.6f} vs "
+            f"{q['dice']:.6f} in process")
+        if len(metrics) != 256 or abs(job_dice - q["dice"]) > 1e-4:
+            raise AssertionError(f"infer job Dice {job_dice:.6f} over {len(metrics)} images != "
+                                 f"{q['dice']:.6f} to 1e-4")
+        out["infer_dice"] = job_dice
+    return out
+
+
+
 def phase_multiclass_quality() -> dict:
     from diffuncertainty_tpu_torch.tools.multiclass_quality import gta_toy_quality_eval
 
@@ -1217,6 +1670,10 @@ def main(argv=None) -> int:
          frames_s) = phase_multiclass(attn_checked168, norm_checked168)
     if "infer" in paths:
         launches_by_path["infer"], infer_stats = phase_infer(smi, attn_checked, norm_checked)
+    if "train" in paths:
+        train_stats = phase_train(smi, sites["softmax"])
+        launches_by_path["train"] = {k: v for k, v in train_stats["step"]["launches"].items()
+                                     if not k.endswith("_vjp")}
     quality = phase_quality(paths)
     if "multiclass" in paths:
         quality["multiclass_bf16"] = phase_multiclass_quality()
@@ -1276,6 +1733,18 @@ def main(argv=None) -> int:
             f"{a['bound_ms']:.4f} ms; ")
         log(f"{key}: {attn_text}GroupNorm device {fmt(n['device_ms'])} (events "
             f"{fmt(n['ms'])}), F.group_norm {fmt(n['library_ms'])}, bound {fmt(n['bound_ms'])}")
+    if "train" in paths:
+        # each kernel's backward (its twin's VJP) per training step at batch 16
+        for key, cases in (("attention", train_stats["attention_vjp"]),
+                           ("norm", train_stats["group_norm_vjp"])):
+            per_step = {k: sum(c["calls"] * c[k] for c in cases)
+                        for k in ("vjp_ms", "bound_ms", "library_ms")}
+            per_step["per"] = (f"one bf16 training step at batch {BATCH}: the twin's VJP at each "
+                               f"of its sites (CUDA events), bound and the library's backward")
+            (attn_extra if key == "attention" else norm_extra)["train_step_backward"] = per_step
+            log(f"{key} backward per training step on {smi}: twin VJPs "
+                f"{per_step['vjp_ms']:.3f} ms, library backward {per_step['library_ms']:.3f} ms, "
+                f"bound {per_step['bound_ms']:.4f} ms")
     # the main path: softmax, else the chosen path that launches the kernels most
     main_path = "softmax" if "softmax" in paths else max(
         launches_by_path, key=lambda p: sum(launches_by_path[p].values()))
@@ -1339,6 +1808,10 @@ def main(argv=None) -> int:
         extra += f"; multiclass path {frames_s:.3f} frames/s"
     if "infer" in paths:
         extra += f"; infer job {infer_stats}"
+    if "train" in paths:
+        extra += (f"; train step {train_stats['step']['split']}, recipe "
+                  f"{train_stats['recipe']}, trained quality on 32 images "
+                  f"{train_stats['quality_32']}, on 256 {train_stats['quality']}")
     log(", ".join(f"{p} path {v:.3f} img/s" for p, v in img_s.items()) + extra
         + f"; quality {quality}")
     log(f"total {time.perf_counter() - T0:.1f}s")

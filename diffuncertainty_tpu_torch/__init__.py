@@ -9,7 +9,10 @@ Slices ported so far: the unet16 MC-dropout + TTA softmax uncertainty path
 (config, weights, DiffUnet forward, TTA warps, sampler, heatmaps, per-image
 metrics and the toy-128 quality eval), the unet16 diffusion, SSN and
 prob-U-Net paths, stacked members (SWAG, ensembles, sub-ensembles), the
-HRNet backbone and the multiclass full-frame sliding-window family. Both
-TPU kernels of the JAX package run as hand-written CUDA kernels: the
-fused-qkv attention and the GroupNorm+activation.
+HRNet backbone and the multiclass full-frame sliding-window family, the
+inference job (``python -m diffuncertainty_tpu_torch.infer``) and the
+trainer of the softmax family (``python -m diffuncertainty_tpu_torch.train``).
+Both TPU kernels of the JAX package run as hand-written CUDA kernels: the
+fused-qkv attention and the GroupNorm+activation, each differentiable
+through an autograd Function whose backward is its plain twin's VJP.
 """

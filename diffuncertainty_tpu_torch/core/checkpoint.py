@@ -7,9 +7,13 @@ in place of the orbax tree: the state's leaves under their '/'-joined paths
 (the scheme of ``diffuncertainty_tpu/tools/bench_weights.py``), each at the
 dtype it had. The state keys are the JAX trainer's: ``params`` and
 ``ema_params`` (flax variable dicts, with ``batch_stats`` beside ``params``
-for the HRNet), ``swag_state/{n_models, mean, sq_mean[, dev]}`` and
-``step``. ``export_torch_checkpoint.py`` at the repo root writes one from a
-JAX checkpoint.
+for the HRNet), ``swag_state/{n_models, mean, sq_mean[, dev]}``,
+``opt_state/{count, mu, nu}`` (the AdamW moments, with the names of optax's
+``ScaleByAdamState``; ``mu`` and ``nu`` in the flax layout of ``params``)
+and ``step``. The trainer writes them (``train/loop.py``);
+``export_torch_checkpoint.py`` at the repo root writes one from a JAX
+checkpoint. ``scheduled_epochs`` gives the epochs of the trainer's
+weight snapshots.
 """
 
 from __future__ import annotations
@@ -91,3 +95,20 @@ def load_checkpoint(path: str | Path) -> tuple[dict[str, Any], ExperimentConfig,
 
 def is_checkpoint_dir(path: str | Path) -> bool:
     return all((Path(path) / name).is_file() for name in ("config.json", "meta.json", ARRAYS))
+
+
+def scheduled_epochs(*, max_epochs: int, use_linear: bool, linear_freq: int,
+                     use_exponential: bool, exponent_base: float,
+                     exponential_start: int) -> list[int]:
+    """The epochs of the scheduled weight snapshots (``callbacks.py:15-132``
+    of the reference): every ``linear_freq`` and/or ``exponential_start *
+    exponent_base**k``, below ``max_epochs``."""
+    epochs: set[int] = set()
+    if use_linear and linear_freq > 0:
+        epochs.update(range(linear_freq, max_epochs, linear_freq))
+    if use_exponential and exponential_start > 0 and exponent_base > 1:
+        e = float(exponential_start)
+        while e < max_epochs:
+            epochs.add(int(round(e)))
+            e *= exponent_base
+    return sorted(epochs)

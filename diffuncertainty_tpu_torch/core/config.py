@@ -10,10 +10,13 @@ raises ``NotImplementedError`` naming it when the config is made: dropping it
 would build another network under the same weights.
 
 ``load_config`` composes the groups the port has, as the JAX ``load_config``
-composes ``configs/<group>/<name>.yaml`` over the defaults: ``data/{lidc128,
-gta_toy}``, ``network/{unet16, hrnet-s, hrnet-m}``, ``model/{softmax,
-diffusion, ssn, prob_unet}`` and ``eu_method/{dropout, none, ensemble, swag,
-swag_diag}``, their patches held here as Python constants. As there,
+composes ``configs/<group>/<name>.yaml`` over the defaults: ``data/{lidc64,
+lidc128, toy64, gta_toy}``, ``network/{unet16, hrnet-s, hrnet-m}``,
+``model/{softmax, diffusion, ssn, prob_unet}`` and ``eu_method/{dropout,
+none, ensemble, swag, swag_diag}``, their patches held here as Python
+constants, then the overrides: a nested dict, or the command line's dotted
+``a.b=c`` tokens with each value read as a YAML 1.1 scalar or flow list
+(:func:`parse_scalar`, without a YAML library). As there,
 ``network.out_channels`` follows ``data.num_classes``. Other group names
 raise.
 """
@@ -21,6 +24,8 @@ raise.
 from __future__ import annotations
 
 import dataclasses
+import math
+import re
 from typing import Any
 
 from .specs import DropoutSpec, ProbUnetSpec
@@ -257,13 +262,21 @@ def _merge(obj: Any, updates: dict) -> Any:
 
 
 _AUG_128 = {"height": 128, "width": 128}
+_LIDC = {"num_classes": 2, "ignore_index": -1, "split_name": "ood_aug", "num_raters": 4,
+         "validation_ratio": 0.1}
 # each group's patch, as configs/<group>/<name>.yaml of the JAX package holds it
 _GROUPS = {
     "data": {
-        "lidc128": {"data": {
-            "name": "lidc128", "nickname": "lidc128", "num_classes": 2, "ignore_index": -1,
-            "batch_size": 32, "val_batch_size": 32, "split_name": "ood_aug", "num_raters": 4,
-            "validation_ratio": 0.1, "augmentations": dict(_AUG_128)}},
+        "lidc64": {"data": dict(_LIDC, name="lidc64", nickname="lidc64", batch_size=64,
+                                val_batch_size=64, augmentations={"height": 64, "width": 64})},
+        "lidc128": {"data": dict(_LIDC, name="lidc128", nickname="lidc128", batch_size=32,
+                                 val_batch_size=32, augmentations=dict(_AUG_128))},
+        "toy64": {"data": {
+            "name": "toy64", "nickname": "toy64", "num_classes": 2, "ignore_index": -1,
+            "batch_size": 16, "val_batch_size": 16, "split_name": "default", "num_raters": 4,
+            "validation_ratio": 0.2, "augmentations": {
+                "gauss_noise_var_limit": (0.05, 0.1), "height": 64, "width": 64,
+                "mean": (0.5,), "std": (0.25,)}}},
         "gta_toy": {"data": {
             "name": "gta_toy", "nickname": "gtatoy", "num_classes": 24, "ignore_index": -1,
             "batch_size": 16, "val_batch_size": 16, "split_name": "default", "num_raters": 1,
@@ -308,10 +321,11 @@ def load_config(
     model: str = "softmax",
     eu_method: str = "dropout",
     precision: str = "fp32",
-    overrides: dict | None = None,
+    overrides: dict | list[str] | None = None,
 ) -> ExperimentConfig:
     """The four groups over the defaults, then ``trainer.precision`` and the
-    nested-dict ``overrides``; a group name the port lacks raises."""
+    ``overrides`` (a nested dict, or dotted ``a.b=c`` tokens); a group name
+    the port lacks raises."""
     cfg = ExperimentConfig()
     for group, name in (("data", data), ("network", network), ("model", model),
                         ("eu_method", eu_method)):
@@ -321,5 +335,86 @@ def load_config(
                 f"config '{name}' in group '{group}' is not ported; "
                 f"available: {sorted(options)}")
         cfg = _merge(cfg, options[name])
-    cfg = _merge(_merge(cfg, {"trainer": {"precision": precision}}), overrides or {})
+    cfg = _merge(cfg, {"trainer": {"precision": precision}})
+    if isinstance(overrides, (list, tuple)):
+        cfg = apply_overrides(cfg, overrides)
+    else:
+        cfg = _merge(cfg, overrides or {})
     return _merge(cfg, {"network": {"out_channels": cfg.data.num_classes}})
+
+
+def apply_overrides(cfg: ExperimentConfig, overrides) -> ExperimentConfig:
+    """Apply ``a.b.c=value`` tokens in order, each value read by
+    :func:`parse_scalar`."""
+    for item in overrides:
+        if "=" not in item:
+            raise ValueError(f"Override '{item}' is not of the form key=value")
+        path, raw = item.split("=", 1)
+        nested: Any = parse_scalar(raw)
+        for key in reversed(path.split(".")):
+            nested = {key: nested}
+        cfg = _merge(cfg, nested)
+    return cfg
+
+
+# PyYAML's implicit resolvers for plain scalars (YAML 1.1, as yaml.safe_load)
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_TRUE = re.compile(r"^(?:yes|Yes|YES|true|True|TRUE|on|On|ON)$")
+_FALSE = re.compile(r"^(?:no|No|NO|false|False|FALSE|off|Off|OFF)$")
+_INT = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+                  r"|[-+]?0x[0-9a-fA-F_]+)$")
+_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?|[-+]?\.(?:inf|Inf|INF)"
+                    r"|\.(?:nan|NaN|NAN))$")
+
+
+def parse_scalar(text: str) -> Any:
+    """A command-line value as ``yaml.safe_load`` reads it: null, bool, int
+    (decimal, 0b, 0o-style octal, 0x), float (a dot is needed: ``1e-4`` stays
+    a string, as in YAML 1.1), a quoted string, or a flow list ``[a, b]`` of
+    these; anything else is the string itself."""
+    text = text.strip()
+    if text.startswith("[") and text.endswith("]"):
+        return [parse_scalar(item) for item in _split_flow(text[1:-1])]
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
+        return text[1:-1]
+    if _NULL.match(text):
+        return None
+    if _TRUE.match(text):
+        return True
+    if _FALSE.match(text):
+        return False
+    if _INT.match(text):
+        digits = text.replace("_", "")
+        sign = -1 if digits[0] == "-" else 1
+        digits = digits.lstrip("+-")
+        if digits.startswith("0b"):
+            return sign * int(digits[2:], 2)
+        if digits.startswith("0x"):
+            return sign * int(digits[2:], 16)
+        if len(digits) > 1 and digits[0] == "0":
+            return sign * int(digits, 8)
+        return sign * int(digits)
+    if _FLOAT.match(text):
+        value = text.replace("_", "").lower()
+        if value.endswith(".inf"):
+            return -math.inf if value[0] == "-" else math.inf
+        return math.nan if value.endswith(".nan") else float(value)
+    return text
+
+
+def _split_flow(body: str) -> list[str]:
+    """The top-level comma-separated items of a flow list's body."""
+    items, depth, start = [], 0, 0
+    for i, ch in enumerate(body):
+        if ch == "[":
+            depth += 1
+        elif ch == "]":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            items.append(body[start:i])
+            start = i + 1
+    items.append(body[start:])
+    if len(items) == 1 and not items[0].strip():
+        return []
+    return items

@@ -11,7 +11,8 @@ becomes ``prior.encoder.enc0_res...`` and ``fcomb/body_0/kernel``
 ``fcomb.body_0.weight``. A tree of the collections ``params`` and
 ``batch_stats`` (the HRNet's) maps both: BatchNorm ``scale`` becomes
 ``weight``, and ``batch_stats/.../mean`` and ``var`` the BatchNorm buffers
-``running_mean`` and ``running_var``.
+``running_mean`` and ``running_var``. ``torch_to_flax`` is its inverse: the
+trainer saves its checkpoints in the flax layout through it.
 
 Member stacks (the sampler's ``params_stack``) are state dicts of (M, ...)
 tensors: ``flax_to_torch_stacked`` maps a flax tree with a leading member
@@ -59,6 +60,7 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_STAT_LEAVES_INV = {v: k for k, v in _STAT_LEAVES.items()}
 
 
 def _convert(params: dict, lead: int) -> dict[str, torch.Tensor]:
@@ -98,6 +100,42 @@ def flax_to_torch(params: dict) -> dict[str, torch.Tensor]:
     """Flax param tree (with or without the top 'params' level, or with
     'params' and 'batch_stats') -> state_dict."""
     return _convert(params, 0)
+
+
+def torch_to_flax(state: dict[str, torch.Tensor], lead: int = 0) -> dict:
+    """The exact inverse of :func:`flax_to_torch` (with ``lead`` leading
+    member axes, of :func:`flax_to_torch_stacked`): a state_dict -> the flax
+    variable dict ``{"params": ...}`` (with ``batch_stats`` when the state has
+    BatchNorm buffers) of float32 numpy leaves. A 4-D ``weight`` is a conv
+    kernel (OIHW -> HWIO), a 2-D one a dense kernel ((O, I) -> (I, O)), a 1-D
+    one a norm ``scale``; the leading axes stay in front."""
+    out: dict = {"params": {}}
+    front = tuple(range(lead))
+    for key, value in state.items():
+        *mod, leaf = key.split(".")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        collection = "params"
+        if leaf == "weight":
+            rank = arr.ndim - lead
+            if rank == 4:
+                leaf, arr = "kernel", arr.transpose(front + tuple(lead + a for a in (2, 3, 1, 0)))
+            elif rank == 2:
+                leaf, arr = "kernel", arr.transpose(front + (lead + 1, lead))
+            elif rank == 1:
+                leaf = "scale"
+            else:
+                raise ValueError(f"unexpected weight rank {rank} at '{key}'")
+        elif leaf in ("running_mean", "running_var"):
+            collection, leaf = "batch_stats", _STAT_LEAVES_INV[leaf]
+        elif leaf != "bias":
+            raise KeyError(f"unmapped state_dict entry '{key}'")
+        node = out.setdefault(collection, {})
+        for p in mod:
+            node = node.setdefault(p, {})
+        if leaf in node:
+            raise KeyError(f"two state_dict entries map to '{'/'.join(mod + [leaf])}'")
+        node[leaf] = np.ascontiguousarray(arr)
+    return out
 
 
 def flax_to_torch_stacked(params: dict) -> dict[str, torch.Tensor]:

@@ -9,11 +9,13 @@ masks (or the fold's ``_meta.rater_pattern``, e.g. the single-rater
 dicts mapping split names to image paths relative to ``preprocessed/``. The
 rater count comes from the caller, the fold's ``_meta.num_raters`` or the
 dataset name (``infer_num_raters``). ``load`` returns every rater's mask,
-or one drawn at random.
+one drawn at random, or with ``single_rater`` the one a stable hash of the
+image picks (the reference's ``_stable_rater_index``).
 """
 
 from __future__ import annotations
 
+import hashlib
 import pickle
 from pathlib import Path
 from typing import Any
@@ -53,8 +55,9 @@ class MultiRaterDataset:
 
     def __init__(self, splits_path: str | Path, base_dir: str | Path, split: str = "id",
                  num_raters: int | None = None, *, data_fold_id: int = 0,
-                 return_all_raters: bool = True):
+                 return_all_raters: bool = True, single_rater: bool = False):
         self.split = split
+        self.single_rater = bool(single_rater)
         self.base_dir = Path(base_dir)
         self.return_all_raters = return_all_raters
         folds = load_splits(splits_path)
@@ -89,6 +92,16 @@ class MultiRaterDataset:
     def __len__(self) -> int:
         return len(self.image_paths)
 
+    def stable_rater_index(self, image_id: str, num_raters: int | None = None) -> int:
+        seed_key = f"13:{self.dataset_label}:{self.split}:{image_id}"
+        value = int.from_bytes(hashlib.sha256(seed_key.encode("utf-8")).digest()[:4], "big")
+        return value % (num_raters or self.num_raters)
+
+    def subset(self, keep: set[int]) -> None:
+        """Keep only the samples at the positions in ``keep``, in order."""
+        for name in ("image_paths", "label_paths", "image_ids"):
+            setattr(self, name, [v for i, v in enumerate(getattr(self, name)) if i in keep])
+
     def load(self, idx: int, rng: np.random.Generator | None = None) -> dict[str, Any]:
         """image (H, W, 3) float32, seg (R, H, W) int32 (or one rater's
         (H, W) unless ``return_all_raters``), image_id and dataset."""
@@ -99,6 +112,9 @@ class MultiRaterDataset:
         paths = self.label_paths[idx]
         if self.return_all_raters:
             masks = np.stack([np.load(p) for p in paths]).astype(np.int32)
+        elif self.single_rater:
+            masks = np.load(paths[self.stable_rater_index(self.image_ids[idx], len(paths))]
+                            ).astype(np.int32)
         else:
             pick = int((rng or np.random.default_rng()).integers(len(paths)))
             masks = np.load(paths[pick]).astype(np.int32)

@@ -1,6 +1,12 @@
-"""Sequential batch loader (the in-order, unshuffled paths of
-``diffuncertainty_tpu/data/loader.py``): numpy dicts of stacked images and
-rater masks, in dataset order.
+"""Batch loader (port of the python path of ``diffuncertainty_tpu/data/loader.py``):
+numpy dicts of stacked images and rater masks, in dataset order or shuffled.
+
+With ``shuffle`` the order of an epoch is ``np.random.default_rng((seed,
+epoch))``'s permutation; a random-rater dataset draws each sample's rater
+with a child generator seeded by ``default_rng((seed, epoch, 1))``, one per
+sample in order, as the JAX loader's python path does (its native C++ path
+draws raters its own way). Each iteration takes the epoch of ``set_epoch``
+(0 at first) and moves it one on.
 
 With ``drop_last`` (the default, which the quality tools use) only full
 batches are yielded. Without it the last batch is padded to ``batch_size``
@@ -21,10 +27,27 @@ from .dataset import MultiRaterDataset
 
 
 class BatchLoader:
-    def __init__(self, dataset: MultiRaterDataset, batch_size: int, *, drop_last: bool = True):
+    def __init__(self, dataset: MultiRaterDataset, batch_size: int, *, shuffle: bool = False,
+                 seed: int = 0, drop_last: bool = True,
+                 process_shard: tuple[int, int] | None = None):
+        if process_shard is not None:
+            raise NotImplementedError("process_shard: multi-process loading is not ported; it "
+                                      "is ROADMAP Queue 1 item 6")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
         self.drop_last = drop_last
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = epoch
+
+    def _order(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(idx)
+        return idx
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -57,7 +80,11 @@ class BatchLoader:
         }
 
     def __iter__(self) -> Iterator[dict]:
-        n = len(self.dataset)
+        order = self._order()
+        rng = np.random.default_rng((self.seed, self._epoch, 1))
+        self._epoch += 1
         for start in range(0, len(self) * self.batch_size, self.batch_size):
-            yield self._collate([self.dataset.load(i)
-                                 for i in range(start, min(start + self.batch_size, n))])
+            idxs = order[start:start + self.batch_size]
+            children = [np.random.default_rng(rng.integers(2**63)) for _ in idxs]
+            yield self._collate([self.dataset.load(int(i), child)
+                                 for i, child in zip(idxs, children)])

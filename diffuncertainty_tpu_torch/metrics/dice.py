@@ -1,12 +1,14 @@
 """Dice (port of ``diffuncertainty_tpu/metrics/dice.py``): binary Dice with
 the reference's edge cases (both masks empty -> 1, exactly one empty -> 0,
-else 2TP / (2TP + FP + FN)) and the multiclass macro Dice. Leading axes are
-batched. ``rater_weights`` and ``rater_mean`` leave out the raters a
-variable-rater batch pads (``metrics/ged.py`` of the JAX package)."""
+else 2TP / (2TP + FP + FN)), the multiclass macro and micro Dice, and the
+soft Dice loss of training. Leading axes are batched. ``rater_weights`` and
+``rater_mean`` leave out the raters a variable-rater batch pads
+(``metrics/ged.py`` of the JAX package)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def dice_from_counts(tp: torch.Tensor, pred_sum: torch.Tensor, gt_sum: torch.Tensor) -> torch.Tensor:
@@ -16,6 +18,50 @@ def dice_from_counts(tp: torch.Tensor, pred_sum: torch.Tensor, gt_sum: torch.Ten
     regular = 2.0 * tp / torch.where(denom > 0, denom, torch.ones_like(denom))
     one = torch.ones_like(regular)
     return torch.where(both_empty, one, torch.where(one_empty, torch.zeros_like(regular), regular))
+
+
+def dice_bin(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Binary Dice of (..., H, W) masks (nonzero is foreground); returns (...)."""
+    pred, gt = pred.bool(), gt.bool()
+    tp = (pred & gt).sum(dim=(-2, -1)).float()
+    return dice_from_counts(tp, pred.sum(dim=(-2, -1)).float(), gt.sum(dim=(-2, -1)).float())
+
+
+def dice_multiclass_micro(pred_idx: torch.Tensor, target_idx: torch.Tensor, num_classes: int,
+                          ignore_index: int | None = 255,
+                          include_background: bool = True) -> torch.Tensor:
+    """Micro-averaged Dice of (..., H, W) index maps; returns (...).
+
+    With ``include_background`` it is the accuracy over the valid pixels;
+    without, the foreground micro Dice over classes >= 1. No valid pixel ->
+    1.0; without background, both maps all background -> 1.0.
+    """
+    valid = (torch.ones_like(target_idx, dtype=torch.bool) if ignore_index is None
+             else target_idx != ignore_index)
+    n_valid = valid.sum(dim=(-2, -1)).float()
+    one = torch.ones_like(n_valid)
+    if include_background:
+        correct = ((pred_idx == target_idx) & valid).sum(dim=(-2, -1)).float()
+        return torch.where(n_valid == 0, one, correct / torch.where(n_valid > 0, n_valid, one))
+    pred_fg = (pred_idx >= 1) & valid
+    tgt_fg = (target_idx >= 1) & valid
+    tp = (pred_fg & tgt_fg & (pred_idx == target_idx)).sum(dim=(-2, -1)).float()
+    denom = (pred_fg.sum(dim=(-2, -1)) + tgt_fg.sum(dim=(-2, -1))).float()
+    score = 2.0 * tp / torch.where(denom > 0, denom, one)
+    return torch.where((n_valid == 0) | (denom == 0), one, score)
+
+
+def soft_dice_loss(probs: torch.Tensor, target_idx: torch.Tensor,
+                   smooth: float = 1e-5) -> torch.Tensor:
+    """Soft Dice loss of NHWC probabilities against (B, H, W) class indices:
+    the mean over batch and classes of ``-(2*intersect + s) / (denom + s)``
+    (``loss_modules.py:soft_dice`` of the reference, background included)."""
+    num_classes = probs.shape[-1]
+    onehot = F.one_hot(target_idx.long().clamp(0, num_classes - 1), num_classes).to(probs.dtype)
+    axes = tuple(range(1, probs.ndim - 1))  # spatial
+    intersect = (probs * onehot).sum(dim=axes)
+    denom = (probs + onehot).sum(dim=axes)
+    return (-((2.0 * intersect + smooth) / (denom + smooth))).mean()
 
 
 def dice_bin_masked(pred: torch.Tensor, gt: torch.Tensor, ignore_index: int | None) -> torch.Tensor:

@@ -41,6 +41,11 @@ class BuiltModel:
     dropout_spec: DropoutSpec = dataclasses.field(default_factory=DropoutSpec)
 
     @property
+    def needs_dropout_rng(self) -> bool:
+        """Whether a forward draws dropout masks from its generator."""
+        return self.dropout_spec.max_rate > 0.0
+
+    @property
     def has_batch_stats(self) -> bool:
         return self.backbone == "hrnet"
 

@@ -8,9 +8,11 @@ and dense layers are channel matmuls on the NHWC tensor. Submodules carry the
 flax names (``enc0_res``, ``mid0_attn``, ``up2``, ...), so the state_dict keys
 are the flax paths with '.' for '/' (``core/params.py``).
 
-Parameters stay float32; ``dtype`` is the compute dtype the convs, dense
-layers and attention run in (weights are cast per call, as flax's
-``promote_dtype`` does). Every GroupNorm goes through the hand-written
+Parameters stay float32; ``flax_init_`` draws the JAX model's initial
+weights for training (truncated ``lecun_normal`` kernels, zero ResBlock
+``out_conv``, attention ``proj_out`` and output heads). ``dtype`` is the
+compute dtype the convs, dense layers and attention run in (weights are cast
+per call, as flax's ``promote_dtype`` does). Every GroupNorm goes through the hand-written
 GroupNorm+activation kernel (``ops/cuda_groupnorm.py``), with float32
 statistics and, where SiLU follows the norm, the SiLU fused in. The output
 head runs in the input's dtype, as in the JAX model, and ends in
@@ -60,14 +62,51 @@ class UnetOutput:
     ssn_cov_factor: torch.Tensor | None = None  # (B, N, rank)
 
 
-class Conv(nn.Module):
-    """``k x k`` conv on NHWC input; weight OIHW, bias (O,)."""
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal``: variance_scaling(1, fan_in, truncated normal),
+    a normal cut at +-2 sigma whose std is corrected by 1/0.87962566 (the
+    std of the standard normal truncated to [-2, 2]) to 1/sqrt(fan_in).
+    Drawn on the generator's device, then copied into ``weight``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    draw = torch.empty(weight.shape, device=generator.device)
+    nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    with torch.no_grad():
+        weight.copy_(draw)
 
-    def __init__(self, cin: int, cout: int, k: int = 3, *, stride: int = 1):
+
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-initialize ``module``'s DiffUnet leaves in place as the JAX model's
+    ``init`` does: conv and dense kernels ``lecun_normal`` (zero where the
+    JAX model zero-initializes: every ResBlock ``out_conv``, every attention
+    ``proj_out``, the output heads), biases 0, GroupNorm scale 1 and bias 0.
+    Leaves are drawn from ``generator`` in module order."""
+    for m in module.modules():
+        if isinstance(m, (Conv, Dense)):
+            with torch.no_grad():
+                if m.zero_init:
+                    m.weight.zero_()
+                else:
+                    lecun_normal_(m.weight, m.weight[0].numel(), generator)
+                m.bias.zero_()
+        elif isinstance(m, GroupNorm32):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+    return module
+
+
+class Conv(nn.Module):
+    """``k x k`` conv on NHWC input; weight OIHW, bias (O,). ``zero_init``
+    marks a conv the JAX model initializes to zero (``flax_init_``)."""
+
+    def __init__(self, cin: int, cout: int, k: int = 3, *, stride: int = 1,
+                 zero_init: bool = False):
         super().__init__()
         self.stride = stride
         self.padding = k // 2
-        # lecun normal, the flax default; serving loads trained weights over it
+        self.zero_init = zero_init
+        # an untruncated lecun normal; training draws the flax init
+        # (flax_init_), serving loads trained weights over it
         self.weight = nn.Parameter(torch.randn(cout, cin, k, k) / math.sqrt(cin * k * k))
         self.bias = nn.Parameter(torch.zeros(cout))
 
@@ -84,8 +123,9 @@ class Conv(nn.Module):
 class Dense(nn.Module):
     """Dense layer over the last axis; weight (O, I)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, *, zero_init: bool = False):
         super().__init__()
+        self.zero_init = zero_init
         self.weight = nn.Parameter(torch.randn(cout, cin) / math.sqrt(cin))
         self.bias = nn.Parameter(torch.zeros(cout))
 
@@ -150,7 +190,7 @@ class ResBlock(nn.Module):
         # scale-shift applies between the norm and the SiLU, so it cannot fuse
         self.out_norm = GroupNorm32(cout, act="none" if use_scale_shift_norm else "silu")
         self.out_dropout = ChannelDropout(dropout)
-        self.out_conv = Conv(cout, cout, 3)
+        self.out_conv = Conv(cout, cout, 3, zero_init=True)
         self.skip_conv = Conv(cin, cout, 1) if cin != cout else None
         self.residual_dropout = ChannelDropout(residual_dropout)
 
@@ -181,7 +221,7 @@ class AttentionBlock(nn.Module):
         self.num_heads = num_heads
         self.norm = GroupNorm32(channels, act="none")
         self.qkv = Dense(channels, 3 * channels)
-        self.proj_out = Dense(channels, channels)
+        self.proj_out = Dense(channels, channels, zero_init=True)
 
     def forward(self, x, dtype):
         b, hh, ww, c = x.shape
@@ -321,12 +361,12 @@ class DiffUnet(nn.Module):
                     block_idx += 1
 
             self.out_norm = GroupNorm32(ch, act="silu")
-            self.out_conv = Conv(ch, out_channels, 3)
+            self.out_conv = Conv(ch, out_channels, 3, zero_init=True)
             if ssn:
                 self.ssn_cov_norm = GroupNorm32(ch, act="silu")
-                self.ssn_cov_conv = Conv(ch, out_channels, 3)
+                self.ssn_cov_conv = Conv(ch, out_channels, 3, zero_init=True)
                 self.ssn_factor_norm = GroupNorm32(ch, act="silu")
-                self.ssn_factor_conv = Conv(ch, out_channels * ssn_rank, 3)
+                self.ssn_factor_conv = Conv(ch, out_channels * ssn_rank, 3, zero_init=True)
 
         for name, module in self.named_modules():
             if isinstance(module, ChannelDropout):

@@ -10,6 +10,10 @@ Gate: bf16 -> the hand-written kernel, which takes every head width the
 repo's networks use and any token count, and raises on a CUDA tensor of any
 other width; fp32 (the "exact" path, which the JAX package keeps on XLA) ->
 the plain twin. On the CPU the kernel's wrapper runs the twin.
+
+Both routes differentiate: the bf16 kernel through its autograd Function
+(backward: the twin's VJP, ``cuda_attention.qkv_attention_vjp``), fp32
+through plain autograd of the twin.
 """
 
 from __future__ import annotations

@@ -9,7 +9,15 @@ block's slice its shared memory holds, from the shape alone.
 ``group_norm_act_reference`` is ``group_norm_32`` followed by the
 activation, taken in float32 before the cast back, as the TPU kernel does;
 the wrapper uses it only for tensors on the CPU. For a CUDA tensor the
-wrapper launches the kernel or raises. No backward: this slice only serves.
+wrapper launches the kernel or raises.
+
+Backward: when grad is enabled and ``x``, ``scale`` or ``bias`` requires
+it, the wrapper goes through :class:`GroupNormActFn`, whose forward is the
+kernel and whose backward is :func:`group_norm_act_vjp`, the VJP of the
+twin's math (float32 statistics, the activation in float32) on the saved
+inputs: dx in ``x``'s dtype, dscale and dbias in the affine's. The JAX
+package trains on its plain ``group_norm_32``; its Pallas kernel has no
+backward. Under ``no_grad`` the wrapper launches the kernel alone.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ PAIR_SMEM = SM_SMEM // 2 - 1024
 # it, at 16 rows, the larger clusters cost more than the SMs they fill)
 FILL_BLOCKS = 64
 _launches = 0
+_vjps = 0
 _clusters: dict[tuple, int] = {}  # plan key -> cudaOccupancyMaxActiveClusters
 
 
@@ -131,14 +140,19 @@ def cluster_plan(s: int, c: int, dtype: torch.dtype, rows: int) -> Plan | None:
     return plan_for(s, c, dtype, k, threads, budget)
 
 
+def vjp_count() -> int:
+    """Backward VJPs since the last :func:`reset_launch_count`."""
+    return _vjps
+
+
 def launch_count() -> int:
     """Kernel launches since the last :func:`reset_launch_count`."""
     return _launches
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    global _launches, _vjps
+    _launches = _vjps = 0
 
 
 def _activate(y: torch.Tensor, act: str) -> torch.Tensor:
@@ -155,8 +169,40 @@ def group_norm_act_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.T
                              act: str = "silu", *, eps: float = 1e-5) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: GroupNorm32 with float32 statistics,
     the activation in float32, the result in the input dtype."""
+    return _group_norm_act_math(x, scale, bias, act, eps)
+
+
+def _group_norm_act_math(x, scale, bias, act, eps):
     y = group_norm_f32(x, scale, bias, num_groups=num_groups_for(x.shape[-1]), eps=eps)
     return _activate(y, act).to(x.dtype)
+
+
+def group_norm_act_vjp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, act: str,
+                       eps: float, grad_out: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(dx, dscale, dbias) from d(loss)/d(out), by autograd through the
+    twin's math on the inputs; each in its input's dtype."""
+    global _vjps
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, scale, bias)]
+        grads = torch.autograd.grad(_group_norm_act_math(*leaves, act, eps), leaves, grad_out)
+    _vjps += 1
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (x, scale, bias)))
+
+
+class GroupNormActFn(torch.autograd.Function):
+    """The kernel forward with the twin's VJP as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, act: str, eps: float, plan):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.act, ctx.eps = act, eps
+        return _forward(x, scale, bias, act, eps, plan)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, scale, bias = ctx.saved_tensors
+        dx, dscale, dbias = group_norm_act_vjp(x, scale, bias, ctx.act, ctx.eps, grad_out)
+        return dx, dscale, dbias, None, None, None
 
 
 def _library() -> ctypes.CDLL:
@@ -207,7 +253,14 @@ def group_norm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     :func:`cluster_plan`'s launch (to measure another one).
 
     A CPU tensor goes through :func:`group_norm_act_reference`.
+    Differentiable through :class:`GroupNormActFn` when grad is enabled.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return GroupNormActFn.apply(x, scale, bias, act, eps, plan)
+    return _forward(x, scale, bias, act, eps, plan)
+
+
+def _forward(x, scale, bias, act, eps, plan):
     global _launches
     if x.device.type == "cpu":
         return group_norm_act_reference(x, scale, bias, act, eps=eps)

@@ -1,4 +1,5 @@
-"""GroupNorm with float32 statistics (port of ``diffuncertainty_tpu/ops/norm.py``).
+"""GroupNorm with float32 statistics (port of ``diffuncertainty_tpu/ops/norm.py``;
+float64 inputs keep float64).
 
 32 groups when the channel count is divisible by 32, else one group per
 channel. Statistics in float32 with var = E[x^2] - mean^2 (clamped at 0),
@@ -42,7 +43,8 @@ def group_norm_f32(
         raise ValueError(f"channels {c} not divisible by groups {groups}")
     batch = x.shape[0]
     cpg = c // groups
-    xf = x.float()
+    acc = torch.promote_types(x.dtype, torch.float32)  # float32, or float64 for gradcheck
+    xf = x.to(acc)
     spatial = tuple(range(1, x.ndim - 1))
     n = float(xf[0].numel() // c * cpg)
     ch_sum = xf.sum(dim=spatial)  # (B, C)
@@ -50,7 +52,7 @@ def group_norm_f32(
     g_mean = ch_sum.view(batch, groups, cpg).sum(-1) / n  # (B, G)
     g_var = torch.clamp(ch_sumsq.view(batch, groups, cpg).sum(-1) / n - g_mean * g_mean, min=0.0)
     inv = torch.rsqrt(g_var + eps).repeat_interleave(cpg, dim=-1)  # (B, C)
-    a = inv * scale.float()
-    b = bias.float() - g_mean.repeat_interleave(cpg, dim=-1) * a
+    a = inv * scale.to(acc)
+    b = bias.to(acc) - g_mean.repeat_interleave(cpg, dim=-1) * a
     bshape = (batch,) + (1,) * len(spatial) + (c,)
     return xf * a.view(bshape) + b.view(bshape)

@@ -135,6 +135,7 @@ def warp_affine_separable(
     images: torch.Tensor,
     dst_to_src: torch.Tensor,
     *,
+    interpolation: str = "bilinear",
     border_mode: str = "replicate",
     margin_x: int | None = None,
     margin_y: int | None = None,
@@ -146,9 +147,14 @@ def warp_affine_separable(
     ``sA = m00 - m01*m10/m11`` and ``cA(y) = (m01/m11)*y + m02 - m01*m12/m11``,
     then a Y pass ``out[v,u] = tmp(m11*v + m10*u + m12, u)``. Each pass
     interpolates bilinearly (double interpolation). ``margin_x/y`` bound the
-    per-row translation (pixels).
+    per-row translation (pixels). ``interpolation="nearest"`` selects in each
+    pass (a 0/1 matrix and the rounded tap), so values stay exact: the
+    training warp of label masks.
     """
     b, h, w, c = images.shape
+    if interpolation not in ("bilinear", "nearest"):
+        raise NotImplementedError(interpolation)
+    nearest = interpolation == "nearest"
     if border_mode not in ("constant", "replicate"):
         raise NotImplementedError(border_mode)
     replicate = border_mode == "replicate"
@@ -165,12 +171,14 @@ def warp_affine_separable(
 
     x = images.float().permute(0, 3, 1, 2)  # (B, C, H, W)
     rows = _resample_rows_1d(x.reshape(b, c * h, w), s_a, off0_a, slope_a, n_rep=c,
-                             n_rows=h, margin=e_x, replicate=replicate, l_out=w)
+                             n_rows=h, margin=e_x, replicate=replicate, l_out=w,
+                             nearest=nearest)
     xt = rows.reshape(b, c, h, w).transpose(2, 3)  # (B, C, W, H)
     rows = _resample_rows_1d(xt.reshape(b, c * w, h), m11, m12, m10, n_rep=c,
-                             n_rows=w, margin=e_y, replicate=replicate, l_out=h)
+                             n_rows=w, margin=e_y, replicate=replicate, l_out=h,
+                             nearest=nearest)
     out = rows.reshape(b, c, w, h).permute(0, 3, 2, 1)  # (B, H, W, C)
-    if not replicate:
+    if not replicate and not nearest:  # nearest selection is already 0 outside
         # exact far-outside zeroing, as warp_affine's constant border
         gy, gx = torch.meshgrid(
             torch.arange(h, dtype=torch.float32, device=m.device),
@@ -195,6 +203,7 @@ def _resample_rows_1d(
     margin: int,
     replicate: bool,
     l_out: int,
+    nearest: bool = False,
 ) -> torch.Tensor:
     """Per-row 1-D affine resample ``out[b,r,u] = rows[b,r](scale_b*u + off_b(row))``.
 
@@ -202,6 +211,8 @@ def _resample_rows_1d(
     off_b(row) = off0_b + off_slope_b*row. The per-image center-row offset is
     folded into the interpolation matrix; the per-row residual shift is a
     read at lane ``(j + start) mod mid`` (the JAX barrel shifter's roll).
+    ``nearest``: 0/1 selection (round half up) at the scale stage, then tap 0
+    or tap 1, whichever holds the true nearest source pixel.
     """
     b, r, l_in = rows.shape
     dev = rows.device
@@ -219,6 +230,20 @@ def _resample_rows_1d(
     k = torch.floor(shift)
     starts = (k.long() + e).clamp(0, 2 * e)
     lanes = torch.arange(l_out + 1, device=dev)
+    if nearest:
+        kmat = (torch.floor(coord + 0.5)[:, None, :] == wk[None, :, None]).to(rows.dtype)
+        shifted = torch.gather(torch.bmm(rows, kmat), 2,
+                               (lanes[None, None] + starts[..., None]) % mid)
+        u = torch.arange(l_out, dtype=torch.float32, device=dev)
+        scale_r = scale[:, None, None]
+        off_r = off_mid[:, None, None]
+        src_tap0 = scale_r * (u[None, None] + k[..., None]) + off_r
+        src_true = scale_r * (u[None, None] + shift[..., None]) + off_r
+        if replicate:
+            src_tap0 = src_tap0.clamp(0.0, l_in - 1.0)
+            src_true = src_true.clamp(0.0, l_in - 1.0)
+        take_next = torch.floor(src_true + 0.5) != torch.floor(src_tap0 + 0.5)
+        return torch.where(take_next, shifted[..., 1:], shifted[..., :l_out])
     # (B, L_in, mid) bilinear weights; out-of-range coords get all-zero columns
     kmat = torch.clamp(1.0 - torch.abs(coord[:, None, :] - wk[None, :, None]), min=0.0)
     sc = torch.bmm(rows, kmat)  # (B, R, mid)

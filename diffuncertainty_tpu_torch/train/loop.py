@@ -1,0 +1,414 @@
+"""Training loop (port of ``diffuncertainty_tpu/train/loop.py``): the step,
+EMA, SWAG collection, validation and checkpoints.
+
+- One step: the augmentation (single-rater targets) or the normalization
+  (multi-rater targets), the forward and the loss, the gradients of every
+  parameter, clipping by the global norm with optax's rule (unchanged below
+  ``gradient_clip_val``, else scaled by ``gradient_clip_val / norm``), then
+  AdamW with optax's math (b1 0.9, b2 0.999, eps 1e-8, eps_root 0, decoupled
+  ``weight_decay``, the learning rate of the step's count under the none,
+  linear or cosine schedule over optimizer steps), then the EMA lerp with the
+  first-step copy. ``grad_norm`` in the step's aux is the norm before the clip.
+- SWAG snapshots at epoch end, on the reference schedule (``start =
+  (max_epochs - 1) - freq * (K - 1)``, every ``freq``).
+- ``last`` full checkpoints and scheduled weight snapshots (EMA-only when
+  configured), in the flax layout the JAX trainer writes
+  (``core/checkpoint.py``); the graceful wall-clock stop.
+
+Parameters stay float32 in the module; ``trainer.precision=bf16`` runs the
+forward in bf16 through both hand-written kernels, whose backwards are their
+twins' VJPs (``ops/cuda_attention.py``, ``ops/cuda_groupnorm.py``).
+
+Randomness: the initial weights come from a CPU generator seeded with
+``cfg.seed`` (``models/unet.py::flax_init_``), so they are the same on the
+CPU and the card; each epoch's augmentation, dropout and rater draws come
+from one generator on the device seeded from ``(seed, epoch)``, so a run
+resumed at an epoch draws what the uninterrupted run draws; validation draws
+from a generator seeded ``seed + 1000 + epoch``.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.checkpoint import save_checkpoint, scheduled_epochs
+from ..core.config import ExperimentConfig
+from ..core.params import flax_to_torch, flax_to_torch_stacked, torch_to_flax
+from ..data.augment import TrainAugmentConfig, augment_batch, normalize_batch
+from ..metrics.dice import dice_bin, dice_multiclass_micro
+from ..metrics.ged import ged_binary
+from ..models import swag as swag_lib
+from ..models.factory import BuiltModel, build_model
+from ..models.unet import flax_init_
+from .losses import make_loss_fn
+
+State = dict[str, torch.Tensor]
+B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw's defaults, as the JAX trainer takes them
+
+
+class AdamState(NamedTuple):
+    """optax's ``ScaleByAdamState``: the update count and the moments."""
+
+    count: int
+    mu: State
+    nu: State
+
+
+class TrainState(NamedTuple):
+    step: int
+    params: State  # the module's own float32 parameters, by state_dict name
+    opt_state: AdamState
+    ema_params: State | None  # None when EMA is off
+
+
+class Trainer:
+    def __init__(self, cfg: ExperimentConfig, workdir: str | Path | None = None,
+                 device: str | torch.device = "cuda"):
+        tr = cfg.trainer
+        if tr.remat:
+            raise NotImplementedError(
+                "trainer.remat: torch.utils.checkpoint restores only the default generators, so "
+                "a recompute would redraw the MC-dropout masks from the explicit generator; "
+                "generator-safe recompute is ROADMAP Queue 1 item 5")
+        if tr.mesh_shape is not None and int(np.prod(tr.mesh_shape)) > 1:
+            raise NotImplementedError(f"trainer.mesh_shape={tuple(tr.mesh_shape)}: multi-device "
+                                      f"training is ROADMAP Queue 1 item 6")
+        if cfg.eu_method.name == "subensemble":
+            raise NotImplementedError("the sub-ensemble trainer is not ported (ROADMAP Queue 1 "
+                                      "item 5)")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Trainer: CUDA requested but torch.cuda.is_available() is False; "
+                               "pass device='cpu' to train on the CPU")
+        self.built: BuiltModel = build_model(cfg, device=self.device)
+        self.loss_fn = make_loss_fn(self.built, ignore_index=cfg.data.ignore_index)
+        self.workdir = Path(workdir) if workdir is not None else (
+            Path(cfg.save_dir) / cfg.auto_exp_name / str(cfg.version or "version_0"))
+        self.workdir.mkdir(parents=True, exist_ok=True)
+        aug = cfg.data.augmentations
+        self.aug_cfg = TrainAugmentConfig(
+            hflip_p=aug.hflip_p, rotation_limit=aug.rotation_limit,
+            scale_limit=tuple(aug.scale_limit),
+            gauss_noise_var_limit=tuple(aug.gauss_noise_var_limit),
+            gauss_noise_p=aug.gauss_noise_p, mean=tuple(aug.mean), std=tuple(aug.std),
+            augment_mult=aug.augment_mult)
+        self.total_steps = tr.lr_schedule_total_steps or max(tr.max_epochs, 1)
+        self.track_ema = cfg.ema.track_ema_weights
+        swag_cfg = cfg.eu_method.swag
+        self.swag_enabled = swag_cfg.enabled
+        self.swag_state: swag_lib.SwagState | None = None
+        if self.swag_enabled:
+            freq = max(1, swag_cfg.snapshot_frequency)
+            self.swag_freq = freq
+            self.swag_start_epoch = max(tr.max_epochs - 1 - freq * max(swag_cfg.max_snapshots - 1,
+                                                                      0), 0)
+        self._logger = None
+        # host wall time of each step of fit, loading included (the loop does
+        # not wait for the card, so a step's time is what it holds the host)
+        self.step_seconds: list[float] = []
+
+    # ---- state ----------------------------------------------------------
+
+    def init_state(self, generator: torch.Generator | None = None) -> TrainState:
+        """The flax initialization (from a CPU generator seeded ``cfg.seed``
+        unless one is given), zero moments, the EMA a copy of the weights."""
+        module = self.built.module
+        flax_init_(module, generator or torch.Generator().manual_seed(self.cfg.seed))
+        return self.fresh_state()
+
+    def fresh_state(self) -> TrainState:
+        """The module's current weights with a fresh optimizer (step 0), the
+        EMA a copy of them, fresh SWAG moments."""
+        params = dict(self.built.module.named_parameters())
+        zeros = {k: torch.zeros_like(p) for k, p in params.items()}
+        ema = {k: p.detach().clone() for k, p in params.items()} if self.track_ema else None
+        self._init_swag(params)
+        return TrainState(0, params, AdamState(0, zeros, {k: v.clone() for k, v in zeros.items()}),
+                          ema)
+
+    def _init_swag(self, params: State) -> None:
+        if self.swag_enabled:
+            swag_cfg = self.cfg.eu_method.swag
+            self.swag_state = swag_lib.init({k: p.detach() for k, p in params.items()},
+                                            swag_cfg.max_snapshots, diag_only=swag_cfg.diag_only)
+
+    def restore_state(self, saved: dict) -> TrainState:
+        """The state of a ``last`` checkpoint (numpy leaves in the flax
+        layout): weights, AdamW moments and count, step, EMA, SWAG moments."""
+        dev = self.device
+        module = self.built.module
+        module.load_state_dict(flax_to_torch(saved["params"]), strict=True)
+        params = dict(module.named_parameters())
+
+        def on_device(tree):
+            return {k: v.to(dev) for k, v in flax_to_torch(tree).items()}
+
+        opt = saved["opt_state"]
+        opt_state = AdamState(int(opt["count"]), on_device(opt["mu"]), on_device(opt["nu"]))
+        ema = on_device(saved["ema_params"]) if self.track_ema and "ema_params" in saved else None
+        if self.track_ema and ema is None:
+            ema = {k: p.detach().clone() for k, p in params.items()}
+        sw = saved.get("swag_state")
+        if self.swag_enabled and sw is None:
+            self._init_swag(params)
+        elif self.swag_enabled:
+            self.swag_state = swag_lib.SwagState(
+                int(sw["n_models"]), on_device(sw["mean"]), on_device(sw["sq_mean"]),
+                {k: v.to(dev) for k, v in flax_to_torch_stacked(sw["dev"]).items()}
+                if "dev" in sw else None)
+        return TrainState(int(saved["step"]), params, opt_state, ema)
+
+    # ---- the step -------------------------------------------------------
+
+    def learning_rate(self, count: int) -> float:
+        """The step size at optimizer count ``count``, in float32 as optax's
+        schedules compute it."""
+        tr = self.cfg.trainer
+        lr = np.float32(tr.learning_rate)
+        if tr.lr_schedule == "none":
+            return float(tr.learning_rate)
+        total = np.float32(self.total_steps)
+        if tr.lr_schedule == "linear":  # optax.linear_schedule(lr, 0, total)
+            frac = np.float32(1) - np.float32(min(max(count, 0), self.total_steps)) / total
+            return float(lr * frac)
+        if tr.lr_schedule == "cosine":  # optax.cosine_decay_schedule(lr, total)
+            c = np.float32(min(float(count), float(self.total_steps)))
+            decay = np.float32(0.5) * (np.float32(1) + np.cos(np.float32(np.pi) * c / total))
+            return float(lr * decay)
+        raise ValueError(tr.lr_schedule)
+
+    def train_step(self, state: TrainState, batch: dict, generator: torch.Generator
+                   ) -> tuple[TrainState, dict]:
+        loss, aux = self.forward_loss(batch, generator)
+        grads = self.gradients(state, loss)
+        state, grad_norm = self.apply_gradients(state, grads)
+        return state, dict(aux, loss=loss.detach(), grad_norm=grad_norm)
+
+    def forward_loss(self, batch: dict, generator: torch.Generator):
+        """The step's input pipeline, forward and loss: (loss, aux)."""
+        dev = self.device
+        images = torch.as_tensor(batch["image"]).to(dev)
+        seg = torch.as_tensor(batch["seg"]).to(dev)
+        if seg.ndim == 3:  # single-rater targets: the whole train pipeline
+            images, seg = augment_batch(self.aug_cfg, generator, images, seg)
+        else:  # multi-rater targets: normalize only
+            images = normalize_batch(images, self.aug_cfg.mean, self.aug_cfg.std)
+        return self.loss_fn(self.built.module, {"image": images, "seg": seg}, generator)
+
+    def gradients(self, state: TrainState, loss: torch.Tensor) -> list[torch.Tensor]:
+        """d(loss)/d(every parameter), in ``state.params`` order (zeros for
+        a parameter the loss does not reach)."""
+        params = list(state.params.values())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+    def apply_gradients(self, state: TrainState, grads: list[torch.Tensor]
+                        ) -> tuple[TrainState, torch.Tensor]:
+        """Clip, AdamW and the EMA, in place; the next state and the norm of
+        ``grads`` before the clip."""
+        names = list(state.params)
+        params = [state.params[k] for k in names]
+        grad_norm = self._adamw(state, names, params, grads)
+        if state.ema_params is not None:
+            # decay-average with the first-step copy
+            w = 0.0 if state.step == 0 else self.cfg.ema.ema_decay
+            ema = [state.ema_params[k] for k in names]
+            with torch.no_grad():
+                torch._foreach_mul_(ema, w)
+                torch._foreach_add_(ema, params, alpha=1.0 - w)
+        opt = state.opt_state
+        return TrainState(state.step + 1, state.params, opt._replace(count=opt.count + 1),
+                          state.ema_params), grad_norm
+
+    @torch.no_grad()
+    def _adamw(self, state: TrainState, names: list[str], params: list[torch.Tensor],
+               grads: list[torch.Tensor]) -> torch.Tensor:
+        """clip_by_global_norm then adamw, in place on the parameters and the
+        moments; returns the norm before the clip."""
+        max_norm = float(self.cfg.trainer.gradient_clip_val)
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+        torch._foreach_mul_(grads, factor)
+        opt = state.opt_state
+        count = opt.count + 1
+        mu = [opt.mu[k] for k in names]
+        nu = [opt.nu[k] for k in names]
+        torch._foreach_mul_(mu, B1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - B1)
+        torch._foreach_mul_(nu, B2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - B2)
+        mu_hat = torch._foreach_div(mu, float(np.float32(1) - np.float32(B1) ** count))
+        denom = torch._foreach_div(nu, float(np.float32(1) - np.float32(B2) ** count))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, EPS)
+        updates = torch._foreach_div(mu_hat, denom)
+        wd = float(self.cfg.trainer.weight_decay)
+        if wd:
+            torch._foreach_add_(updates, params, alpha=wd)
+        torch._foreach_add_(params, updates, alpha=-self.learning_rate(opt.count))
+        return norm
+
+    def epoch_generator(self, epoch: int) -> torch.Generator:
+        """The generator of one epoch's training draws, seeded from (seed, epoch)."""
+        seed = int(np.random.default_rng((self.cfg.seed, epoch, 2)).integers(2**63))
+        return torch.Generator(self.device).manual_seed(seed)
+
+    # ---- SWAG and validation -------------------------------------------
+
+    def _maybe_collect_swag(self, state: TrainState, epoch: int) -> bool:
+        swag_cfg = self.cfg.eu_method.swag
+        if (not self.swag_enabled or self.swag_state.n_models >= swag_cfg.max_snapshots
+                or epoch < self.swag_start_epoch
+                or (epoch - self.swag_start_epoch) % self.swag_freq):
+            return False
+        with torch.no_grad():
+            self.swag_state = swag_lib.collect(
+                self.swag_state, {k: p.detach() for k, p in state.params.items()},
+                max_num_models=swag_cfg.max_snapshots)
+        return True
+
+    @torch.no_grad()
+    def evaluate(self, state: TrainState, loader, *, epoch: int, use_ema: bool = False) -> dict:
+        """``val_loss``, ``val_dice`` (of the argmax of one prediction, the
+        mean over raters) and, for binary multi-rater targets, ``val_ged``."""
+        module = self.built.module
+        weights = state.ema_params if use_ema and state.ema_params is not None else None
+
+        def net(x, generator):
+            if weights is None:
+                return module(x, generator)
+            return torch.func.functional_call(module, weights, (x, generator))
+
+        dev = self.device
+        num_classes = self.built.num_classes
+        ignore = self.cfg.data.ignore_index
+        ged_ignore = ignore if ignore is not None and ignore >= 0 else None
+        generator = torch.Generator(dev).manual_seed(self.cfg.seed + 1000 + epoch)
+        losses, dices, geds = [], [], []
+        for batch in loader:
+            images = normalize_batch(torch.as_tensor(batch["image"]).to(dev), self.aug_cfg.mean,
+                                     self.aug_cfg.std)
+            seg = torch.as_tensor(batch["seg"]).to(dev)
+            loss, _ = self.loss_fn(net, {"image": images, "seg": seg}, generator)
+            probs = torch.softmax(net(images, generator).logits.float(), dim=-1)
+            pred_idx = probs.argmax(dim=-1)
+            seg4 = seg[:, None] if seg.ndim == 3 else seg
+            if num_classes == 2:
+                d = dice_bin(pred_idx[:, None], seg4)
+            else:
+                d = dice_multiclass_micro(pred_idx[:, None], seg4, num_classes,
+                                          ignore_index=ignore)
+            valid = torch.as_tensor(np.asarray(batch["valid"]), device=dev)
+            losses.append(float(loss))
+            dices.extend(d.mean(dim=1)[valid].tolist())
+            if seg4.shape[1] > 1 and num_classes == 2:
+                g = ged_binary(probs[valid][:, None], seg4[valid], ignore_index=ged_ignore)
+                geds.extend(g["ged"].tolist())
+        out = {"val_loss": float(np.mean(losses)), "val_dice": float(np.mean(dices))}
+        if geds:
+            out["val_ged"] = float(np.mean(geds))
+        return out
+
+    # ---- fit -------------------------------------------------------------
+
+    def fit(self, train_loader, val_loader=None, *, train_eval_loader=None,
+            resume_state: TrainState | None = None, start_epoch: int = 0) -> TrainState:
+        cfg = self.cfg
+        t_start = time.time()
+        shutdown_after = (cfg.ckpt_save_freq.shutdown_timer if cfg.ckpt_save_freq.do_shutdown
+                          else None)
+        if cfg.trainer.lr_schedule != "none" and cfg.trainer.lr_schedule_total_steps == 0:
+            # the schedule counts optimizer steps; a resumed run counts the same
+            self.total_steps = cfg.trainer.max_epochs * max(len(train_loader), 1)
+        sched = cfg.ckpt_save_freq
+        snapshot_epochs = set(scheduled_epochs(
+            max_epochs=cfg.trainer.max_epochs, use_linear=sched.use_linear_saving,
+            linear_freq=sched.linear_freq, use_exponential=sched.use_exponential_saving,
+            exponent_base=sched.exponent_base, exponential_start=sched.exponential_start))
+        state = resume_state
+        for epoch in range(start_epoch, cfg.trainer.max_epochs):
+            train_loader.set_epoch(epoch)
+            generator = self.epoch_generator(epoch)
+            losses = []
+            t_step = time.perf_counter()
+            for batch in train_loader:
+                if state is None:
+                    state = self.init_state()
+                state, aux = self.train_step(state, batch, generator)
+                losses.append(aux["loss"])
+                now = time.perf_counter()
+                self.step_seconds.append(now - t_step)
+                t_step = now
+            log = {"epoch": epoch, "train_loss": float(torch.stack(losses).mean())}
+            self._maybe_collect_swag(state, epoch)
+            if val_loader is not None and (epoch + 1) % cfg.trainer.val_every_n_epochs == 0:
+                log.update(self.evaluate(state, val_loader, epoch=epoch))
+                if train_eval_loader is not None:
+                    tm = self.evaluate(state, train_eval_loader, epoch=epoch)
+                    log.update({f"train_eval_{k.removeprefix('val_')}": v for k, v in tm.items()})
+            self._log(log)
+            if epoch in snapshot_epochs:
+                self._save_scheduled(state, epoch)
+            saved_last = ((epoch + 1) % max(1, sched.last_every_n_epochs) == 0
+                          or epoch == cfg.trainer.max_epochs - 1)
+            if saved_last:
+                self._save_last(state, epoch)
+            if shutdown_after is not None and time.time() - t_start > shutdown_after:
+                if not saved_last:
+                    self._save_last(state, epoch)
+                self._log({"epoch": epoch, "event": "graceful_shutdown"})
+                break
+        if self._logger is not None:
+            self._logger.close()
+            self._logger = None
+        return state
+
+    # ---- checkpoints -------------------------------------------------------
+
+    def _ckpt_dir(self) -> Path:
+        return self.workdir / "checkpoints"
+
+    def full_state_dict(self, state: TrainState) -> dict:
+        """The ``last`` checkpoint's state, in the JAX trainer's key layout."""
+        opt = state.opt_state
+        d = {"params": torch_to_flax(state.params),
+             "opt_state": {"count": np.asarray(opt.count, np.int32),
+                           "mu": torch_to_flax(opt.mu), "nu": torch_to_flax(opt.nu)},
+             "step": np.asarray(state.step, np.int32)}
+        if state.ema_params is not None:
+            d["ema_params"] = torch_to_flax(state.ema_params)
+        if self.swag_state is not None:
+            sw = self.swag_state
+            d["swag_state"] = {"n_models": np.asarray(sw.n_models, np.int32),
+                               "mean": torch_to_flax(sw.mean),
+                               "sq_mean": torch_to_flax(sw.sq_mean)}
+            if sw.dev is not None:
+                d["swag_state"]["dev"] = torch_to_flax(sw.dev, lead=1)
+        return d
+
+    def _save_last(self, state: TrainState, epoch: int) -> None:
+        save_checkpoint(self._ckpt_dir() / "last", self.full_state_dict(state), self.cfg,
+                        epoch=epoch, kind="full")
+
+    def _save_scheduled(self, state: TrainState, epoch: int) -> None:
+        if self.cfg.ema.only_save_ema and state.ema_params is not None:
+            payload, kind = {"ema_params": torch_to_flax(state.ema_params)}, "ema_only"
+        else:
+            payload, kind = {"params": torch_to_flax(state.params)}, "weights"
+            if state.ema_params is not None:
+                payload["ema_params"] = torch_to_flax(state.ema_params)
+        save_checkpoint(self._ckpt_dir() / f"epoch_{epoch:06d}", payload, self.cfg, epoch=epoch,
+                        kind=kind)
+
+    def _log(self, record: dict) -> None:
+        if self._logger is None:
+            from ..utils.loggers import MetricLogger
+
+            self._logger = MetricLogger(self.workdir, self.cfg.trainer.loggers)
+        self._logger.log(record)

@@ -156,38 +156,43 @@ def test_quality_eval_matches_jax_with_a_deterministic_sampler():
 
 
 def test_port_imports_without_jax_yaml_or_the_jax_package():
-    """Every module of the port, ``chip_smoke`` and the job's ``--help``
-    with JAX, YAML, PIL, orbax, tensorstore and the JAX package blocked."""
+    """Every module of the port, ``chip_smoke``, the job's ``--help`` and the
+    trainer's with JAX, optax, flax, YAML, tensorboardX, PIL, orbax,
+    tensorstore and the JAX package blocked."""
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'yaml', 'cv2', 'diffuncertainty_tpu', 'PIL',\n"
-        "             'orbax', 'tensorstore'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'tensorboardX', 'cv2',\n"
+        "             'diffuncertainty_tpu', 'PIL', 'orbax', 'tensorstore'):\n"
         "    sys.modules[name] = None\n"
         "import importlib, pkgutil, runpy\n"
         "import diffuncertainty_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')\n"
-        "        if m.name != 'diffuncertainty_tpu_torch.infer.__main__']\n"
+        "        if not m.name.endswith('.__main__')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "print(len(mods))\n"
-        "sys.argv = ['infer', '--help']\n"
-        "try:\n"
-        "    runpy.run_module('diffuncertainty_tpu_torch.infer', run_name='__main__')\n"
-        "except SystemExit as e:\n"
-        "    assert e.code == 0, e.code\n"
+        "for entry in ('infer', 'train'):\n"
+        "    sys.argv = [entry, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module('diffuncertainty_tpu_torch.' + entry, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, e.code\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
     count, *usage = out.stdout.splitlines()
     assert int(count) >= 30
-    assert "--checkpoint_paths" in "\n".join(usage) and "--device" in "\n".join(usage)
+    usage = "\n".join(usage)
+    assert "--checkpoint_paths" in usage and "--device" in usage
+    assert "python -m diffuncertainty_tpu_torch.train" in usage and "device=cpu" in usage
 
 
 def test_no_forbidden_imports_or_library_kernels_in_the_port():
     bad_import = re.compile(
-        r"^\s*(import|from)\s+(jax|yaml|PIL|orbax|tensorstore|diffuncertainty_tpu\b)")
+        r"^\s*(import|from)\s+(jax|yaml|PIL|orbax|tensorstore|optax|flax|tensorboardX"
+        r"|diffuncertainty_tpu\b)")
     files = sorted((REPO / "diffuncertainty_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
@@ -202,10 +207,14 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
     import chip_smoke
 
     assert chip_smoke.parse_paths([]) == chip_smoke.PATHS == (
-        "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "hrnet", "multiclass", "infer")
+        "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "hrnet", "multiclass", "infer",
+        "train")
     assert chip_smoke.parse_paths(["--paths", "multiclass,hrnet"]) == ("hrnet", "multiclass")
     assert chip_smoke.parse_paths(["--paths", "infer,softmax"]) == ("softmax", "infer")
+    assert chip_smoke.parse_paths(["--paths", "train,hrnet"]) == ("hrnet", "train")
     assert chip_smoke.PATH_ASSETS["infer"] == chip_smoke.PATH_ASSETS["softmax"]
+    # the train path trains from scratch: its one file is the JAX members' quality record
+    assert chip_smoke.PATH_ASSETS["train"].name == "ensemble16_quality.json"
     for bad in ("hrnet,resnet", ","):
         with pytest.raises(SystemExit):
             chip_smoke.parse_paths(["--paths", bad])
