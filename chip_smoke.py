@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,hrnet,multiclass,infer,train]
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,hrnet,multiclass,infer,train,train_diffusion,train_ssn,train_prob_unet]
 
 With no argument every path runs; ``--paths`` picks a comma-separated group
 of them (each needs its file under ``assets/``: a missing one is an error;
-``train`` reads only ``ensemble16_quality.json``).
+``train`` reads only ``ensemble16_quality.json``, the ``train_*`` family
+paths read none).
 The kernel build, the kernels' checks at the softmax path's shapes and at
 every other head width, and the checks at every shape of the chosen paths
 always run.
@@ -99,7 +100,23 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    reported, and the
    inference job run on that checkpoint as a subprocess, its mean Dice
    equal to the in-process one to 1e-4;
-13. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
+13. the trainer for the diffusion, SSN and prob-U-Net families (the
+   ``train_diffusion``, ``train_ssn`` and ``train_prob_unet`` paths, each
+   the family's recipe of ``tools/train_recipe.py`` trained from scratch):
+   each kernel's backward against fp32 autograd of its twin at every
+   attention and GroupNorm site of the family's training forward (the
+   prob-U-Net's base, prior and posterior encoders at d = 24 and 48, the
+   SSN's two head norms, the diffusion input's 5 channels); one counted
+   bf16 step at batch 16 from step 2 (11 / 56, 11 / 58 and 21 / 106
+   launches; the SSN also in its mean-only phase, 11 / 57; the prob-U-Net
+   base's unused head takes no VJP: 105), each leaf against the
+   twins-forced step; a short run through the entry point as a subprocess
+   (diffusion 4 epochs with two DDPM validations, SSN 12 epochs across its
+   mean-only flip with ``cov_failed`` per epoch, prob-U-Net 6 epochs with
+   beta rising), its loss falling; its checkpoint's EMA weights in the
+   family's serving sampler (110 / 560, 11 / 58, 16 / 81 launches, no
+   twin) and in the inference job as a subprocess over the 256 images;
+14. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
    bf16 path and of the SSN, prob-U-Net, ensemble and HRNet bf16 paths, and
    the multiclass quality (macro Dice, GED, NCC of TU and AU against the
    analytic switch map), held to bands around the JAX package's recorded
@@ -142,7 +159,9 @@ PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
                "multiclass": ASSET_MULTICLASS, "infer": ASSET,
                # trains from scratch on the generated toy-128 data: reads only
                # the JAX members' quality record its bands come from
-               "train": ENSEMBLE16_QUALITY}
+               "train": ENSEMBLE16_QUALITY,
+               # train from scratch and read no file of the repo's assets
+               "train_diffusion": None, "train_ssn": None, "train_prob_unet": None}
 PATHS = tuple(PATH_ASSETS)
 
 # kernel vs its twin: |kernel - twin| <= ATOL + RTOL*|twin| elementwise.
@@ -238,6 +257,23 @@ GRAD_TOL = (2.0 ** -6, 2.0 ** -7)
 # reaches the loss only through a GroupNorm of one channel per group, found
 # by the same step in float64 (chip_smoke.null_gradient_leaves).
 STEP_GRAD_TOL = 0.05
+# The train_diffusion, train_ssn and train_prob_unet paths: each family's
+# recipe (tools/train_recipe.py::recipe_tokens, bf16, batch 16, the toy-128
+# train split) trained from scratch. Per family: the epochs of the short run
+# through the entry point and its extra tokens, the launches (= VJPs) of
+# one training step (attention, GroupNorm), the SSN's in its mean-only
+# epochs, and the launches of one call of the family's serving sampler.
+TRAIN_FAMILIES = {
+    "diffusion": {"epochs": 4, "extra": ["trainer.val_every_n_epochs=2"], "step": (11, 56),
+                  "serve": (DDIM_STEPS * 11, DDIM_STEPS * 56)},
+    "ssn": {"epochs": 12, "extra": [], "step": (11, 58), "mean_only_step": (11, 57),
+            "serve": GENERATIVE16_LAUNCHES["ssn"]},
+    # base, prior and posterior encoders: the serving path's 16 / 81 and the
+    # posterior's 5 / 25; the base's output head is computed and not used
+    # (the fcomb decodes), so its norm's VJP does not run: 105 GroupNorm VJPs
+    "prob_unet": {"epochs": 6, "extra": ["trainer.val_every_n_epochs=3"], "step": (21, 106),
+                  "step_vjp": (21, 105), "serve": GENERATIVE16_LAUNCHES["prob_unet"]},
+}
 # the multiclass path (bench.py:698-701): frames, frame size, window, stride,
 # members, switched references per frame, seed
 MC_FRAMES, MC_SIZE, MC_WINDOW, MC_STRIDE, MC_MEMBERS, MC_SEED = 8, (256, 512), 128, 64, 8, 1234
@@ -1134,11 +1170,14 @@ def grad_error(name: str, got, ref) -> dict:
     return out
 
 
-def vjp_cases(norm_site_list) -> tuple[list[dict], list[dict]]:
+def vjp_cases(norm_site_list, attn_sites=None) -> tuple[list[dict], list[dict]]:
     """Each kernel's backward at the training step's shapes: the gradients
     through its autograd Function (kernel forward, the twin's VJP) against
     fp32 autograd of the twin on the same bf16 values, the VJP's time
-    (CUDA events), its bound and the library backward's time."""
+    (CUDA events), its bound and the library backward's time.
+    ``attn_sites``: {T: (calls, C)} of one training forward (unet16's by
+    default); ``norm_site_list``: its GroupNorm sites (shape without the
+    batch, dtype, act)."""
     import torch
     import torch.nn.functional as F
 
@@ -1148,7 +1187,7 @@ def vjp_cases(norm_site_list) -> tuple[list[dict], list[dict]]:
     from diffuncertainty_tpu_torch.tools.groupnorm_sites import event_ms
 
     attn = []
-    for i, (t, (calls, c)) in enumerate(UNET16_ATTENTION.items()):
+    for i, (t, (calls, c)) in enumerate((attn_sites or UNET16_ATTENTION).items()):
         gen = torch.Generator("cuda").manual_seed(900 + i)
         qkv = torch.randn((BATCH, t, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
         g_out = torch.randn((BATCH, t, c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -1250,7 +1289,8 @@ def null_gradient_leaves(trainer, state, batch) -> set[str]:
     of the largest leaf's gradient norm. These are biases that reach the
     loss only through a GroupNorm of one channel per group, which removes
     them (a ResBlock's ``in_conv`` bias at 32 channels, the last block's
-    ``out_conv`` and ``skip_conv`` biases before the head's norm)."""
+    ``out_conv`` and ``skip_conv`` biases before the head's norm), and the
+    prob-U-Net base's output head, which the fcomb's decode replaces."""
     import copy
 
     import torch
@@ -1258,23 +1298,31 @@ def null_gradient_leaves(trainer, state, batch) -> set[str]:
     from diffuncertainty_tpu_torch.data.augment import augment_batch
 
     module = copy.deepcopy(trainer.built.module).double()
-    module.dtype = torch.float64
+    for m in module.modules():  # every DiffUnet of the family computes in float64
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
     gen = torch.Generator("cuda").manual_seed(7)
     images = torch.as_tensor(batch["image"]).to("cuda", torch.float64)
     seg = torch.as_tensor(batch["seg"]).to("cuda")
     images, seg = augment_batch(trainer.aug_cfg, gen, images, seg)
     with twins_forced():
-        loss, _ = trainer.loss_fn(module, {"image": images, "seg": seg}, gen)
-        grads = torch.autograd.grad(loss, list(module.parameters()))
-    norms = {n: g.norm().item() for (n, _), g in zip(module.named_parameters(), grads)}
+        loss, _ = trainer.loss_fn(module, {"image": images, "seg": seg}, gen, trainer.sched)
+        grads = torch.autograd.grad(loss, list(module.parameters()), allow_unused=True)
+    norms = {n: 0.0 if g is None else g.norm().item()
+             for (n, _), g in zip(module.named_parameters(), grads)}
     assert list(norms) == list(state.params)
     top = max(norms.values())
     return {n for n, v in norms.items() if v < 1e-8 * top}
 
 
-def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked: set) -> dict:
-    """One full-model bf16 step at batch 16: launches and VJPs counted, every
-    leaf's gradient against the twins-forced step, and the step's split."""
+def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked: set,
+                     want: tuple = (11, 56), want_vjp: tuple | None = None,
+                     label: str = "train step", runs: int = 10) -> dict:
+    """One full-model bf16 step at batch 16: launches (``want``: attention,
+    GroupNorm) and VJPs (``want_vjp``, the launches by default) counted,
+    every leaf's gradient against the twins-forced step, and the step's
+    split (median of ``runs`` steps after 2) and busy share (over ``runs``
+    steps)."""
     import torch
 
     from diffuncertainty_tpu_torch.models.unet import AttentionBlock, GroupNorm32
@@ -1309,31 +1357,32 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
                   "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
     for h in hooks:
         h.remove()
-    want = {"qkv_attention": 11, "group_norm_act": 56, "qkv_attention_vjp": 11,
-            "group_norm_act_vjp": 56}
-    log(f"train step: launches and VJPs {counts} (expected {want}), twin forwards {twins}")
+    want_vjp = want_vjp or want
+    want = {"qkv_attention": want[0], "group_norm_act": want[1],
+            "qkv_attention_vjp": want_vjp[0], "group_norm_act_vjp": want_vjp[1]}
+    log(f"{label}: launches and VJPs {counts} (expected {want}), twin forwards {twins}")
     if counts != want or any(twins.values()):
-        raise AssertionError(f"train step: {counts} != {want} or twin forwards ran: {twins}")
+        raise AssertionError(f"{label}: {counts} != {want} or twin forwards ran: {twins}")
     shapes = {(b, hh * ww, c) for b, hh, ww, c in attn_seen}
     if not shapes <= attn_checked or not set(norm_seen) <= norm_checked:
-        raise AssertionError(f"train step: unchecked attention shapes {shapes - attn_checked} or "
+        raise AssertionError(f"{label}: unchecked attention shapes {shapes - attn_checked} or "
                              f"norm sites {set(norm_seen) - norm_checked}")
     names = list(state.params)
     null = null_gradient_leaves(trainer, state, batches[1])
     for name, gi in zip(names, g):
         if not torch.isfinite(gi).all() or not (name in null or gi.abs().max().item() > 0):
-            raise AssertionError(f"train step: the gradient of {name} is not finite or is 0")
+            raise AssertionError(f"{label}: the gradient of {name} is not finite or is 0")
     with twins_forced():
         loss_t, g_t = grads(7)
     rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
            for n, a, b in zip(names, g, g_t) if n not in null}
     worst = max(rel, key=rel.get)
-    log(f"train step: loss {loss.item():.6f} (twins forced {loss_t.item():.6f}); gradient rel "
+    log(f"{label}: loss {loss.item():.6f} (twins forced {loss_t.item():.6f}); gradient rel "
         f"L2 error per leaf through the kernels vs twins forced: max {rel[worst]:.3e} at "
         f"{worst}, median {statistics.median(rel.values()):.3e} over {len(rel)} leaves "
-        f"({len(null)} zero-gradient biases left out: {sorted(null)})")
+        f"({len(null)} zero-gradient leaves left out: {sorted(null)})")
     if rel[worst] > STEP_GRAD_TOL:
-        raise AssertionError(f"train step: {worst} gradient rel error {rel[worst]:.3e} > "
+        raise AssertionError(f"{label}: {worst} gradient rel error {rel[worst]:.3e} > "
                              f"{STEP_GRAD_TOL}")
     del g_t, loss_t
 
@@ -1363,7 +1412,7 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
         originals.append(fn)
         setattr(mod, name, wrapper)
     try:
-        for i in range(12):
+        for i in range(runs + 2):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             for v in vjp_events.values():
                 v.clear()
@@ -1394,21 +1443,21 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
     gen = torch.Generator("cuda").manual_seed(1)
     with torch.profiler.profile(activities=acts) as prof:
         start.record()
-        for i in range(10):
+        for i in range(runs):
             state, _ = trainer.train_step(state, batches[i % 2], gen)
         end.record()
         torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / 10
+    wall = start.elapsed_time(end) / runs
     busy = sum(a.self_device_time_total for a in prof.key_averages()
-               if a.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 10
+               if a.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / runs
     split.update(step_wall_ms=wall, device_ms=busy,
                  busy_share=busy / wall if busy > 0 else None,
                  peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
-    log(f"train step split on {smi} (batch {BATCH}, CUDA events, median of 10): forward "
+    log(f"{label} split on {smi} (batch {BATCH}, CUDA events, median of {runs}): forward "
         f"{split['forward']:.2f} ms, backward {split['backward']:.2f} ms (of which the "
         f"attention twin VJPs {split['attention_vjp']:.2f} ms and the GroupNorm twin VJPs "
         f"{split['group_norm_vjp']:.2f} ms), optimizer + EMA {split['optimizer_ema']:.2f} ms; "
-        f"10 steps: {wall:.2f} ms a step, device {busy:.2f} ms, busy share "
+        f"{runs} steps: {wall:.2f} ms a step, device {busy:.2f} ms, busy share "
         + ("not measured" if split["busy_share"] is None else f"{split['busy_share']:.3f}")
         + f", peak memory {split['peak_memory_gib']:.2f} GiB")
     return {"launches": counts, "max_leaf_rel_err": rel[worst], "split": split}
@@ -1510,6 +1559,173 @@ def phase_train(smi: str, norm_site_list) -> dict:
 
 
 
+def training_sites(trainer, batch) -> tuple[dict, list]:
+    """The attention sites {T: (calls, C)} and the GroupNorm sites (shape
+    without the batch, dtype, act), in call order, of one training forward
+    of ``trainer``'s family and phase (no gradient taken)."""
+    import torch
+
+    from diffuncertainty_tpu_torch.models.unet import AttentionBlock, GroupNorm32
+
+    attn_seen, norm_seen = [], []
+    hooks = [m.register_forward_pre_hook(
+        (lambda mod, args: attn_seen.append(tuple(args[0].shape))) if isinstance(m, AttentionBlock)
+        else (lambda mod, args: norm_seen.append(
+            (tuple(args[0].shape[1:]), str(args[0].dtype).split(".")[-1], mod.act))))
+        for m in trainer.built.module.modules() if isinstance(m, (AttentionBlock, GroupNorm32))]
+    with torch.no_grad():
+        trainer.forward_loss(batch, torch.Generator("cuda").manual_seed(3))
+    for h in hooks:
+        h.remove()
+    attn = {}
+    for _, hh, ww, c in attn_seen:
+        calls, _ = attn.get(hh * ww, (0, c))
+        attn[hh * ww] = (calls + 1, c)
+    return attn, norm_seen
+
+
+def counted_grads(trainer, state, batch, seed: int) -> dict:
+    """Launches and VJPs of one forward and backward, the counts set to 0
+    just before and read just after; fails if a plain twin ran."""
+    import torch
+
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+
+    torch.cuda.synchronize()
+    with counting_twins() as twins:
+        ca.reset_launch_count()
+        gn.reset_launch_count()
+        loss, _ = trainer.forward_loss(batch, torch.Generator("cuda").manual_seed(seed))
+        trainer.gradients(state, loss)
+        torch.cuda.synchronize()
+        counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
+                  "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
+    if any(twins.values()):
+        raise AssertionError(f"plain twins ran in the counted step: {twins}")
+    return counts
+
+
+def phase_train_family(smi: str, model: str) -> dict:
+    """One family's training (``TRAIN_FAMILIES``): each kernel's backward at
+    its training shapes, one counted bf16 step at batch 16 (the SSN's also
+    in its mean-only phase), a short run through the entry point as a
+    subprocess, and its checkpoint in the family's serving sampler (launches
+    counted) and in the inference job."""
+    import ast
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset
+    from diffuncertainty_tpu_torch.tools.train_recipe import load_trained, recipe_tokens
+    from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    fam = TRAIN_FAMILIES[model]
+    label = f"train_{model}"
+    data_dir = toy128_dataset(HW).base_dir
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tokens = recipe_tokens(data_dir, tmp, model=model, epochs=fam["epochs"]) + fam["extra"]
+        cfg, _ = parse_args(tokens)
+        trainer = Trainer(cfg, device="cuda", workdir=Path(tmp) / "probe")
+        full_epoch = cfg.model.ssn_pretrain_epochs  # 0 but for the SSN
+        trainer.set_epoch(full_epoch)
+        train_loader, _, _ = build_loaders(cfg)
+        batches = list(train_loader)[:2]
+        trainer.init_state()
+        attn_sites, norm_sites = training_sites(trainer, batches[0])
+        attn_cases, norm_cases = vjp_cases(norm_sites, attn_sites)
+        out["attention_vjp"], out["group_norm_vjp"] = attn_cases, norm_cases
+        attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
+        norm_checked = {(tuple(c["shape"]), c["dtype"], c["act"]) for c in norm_cases}
+        out["step"] = phase_train_step(smi, trainer, batches, attn_checked, norm_checked,
+                                       want=fam["step"], want_vjp=fam.get("step_vjp"),
+                                       label=f"{label} step", runs=5)
+        if "mean_only_step" in fam:  # the pretraining epochs skip the factor head
+            trainer.set_epoch(0)
+            counts = counted_grads(trainer, trainer.fresh_state(), batches[1], 11)
+            n_attn, n_norm = fam["mean_only_step"]
+            want = {"qkv_attention": n_attn, "group_norm_act": n_norm,
+                    "qkv_attention_vjp": n_attn, "group_norm_act_vjp": n_norm}
+            log(f"{label} mean-only step: launches and VJPs {counts} (expected {want})")
+            if counts != want:
+                raise AssertionError(f"{label} mean-only step: {counts} != {want}")
+            out["mean_only_launches"] = counts
+        del trainer, batches
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.train", *tokens],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"{label}: the trainer exited {run.returncode}:\n"
+                                 f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+        (steps_line,) = [ln for ln in run.stdout.splitlines() if ln.startswith("steps ")]
+        workdir = Path(tmp) / cfg.auto_exp_name / "version_0"
+        records = [json.loads(ln) for ln in (workdir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train_loss"] for r in records]
+        vals = [r for r in records if "val_dice" in r]
+        log(f"{label} run: exit 0 in {wall:.1f}s (process included) on {smi}: {steps_line}; "
+            f"train_loss by epoch {[round(x, 5) for x in losses]}; validation {vals}")
+        if (len(losses) != fam["epochs"] or not np.isfinite(losses).all()
+                or not losses[-1] < losses[0]):
+            raise AssertionError(f"{label} run: losses {losses} not {fam['epochs']} finite and "
+                                 f"falling")
+        if model == "ssn":
+            failed = [r["train_cov_failed"] for r in records]
+            log(f"{label} run: cov_failed by epoch {failed} (the factor head from epoch "
+                f"{cfg.model.ssn_pretrain_epochs} on)")
+            out["cov_failed"] = failed
+        if model == "prob_unet":
+            betas = [r["beta"] for r in records]
+            log(f"{label} run: beta by epoch {betas}")
+            if not all(a < b for a, b in zip(betas, betas[1:])):
+                raise AssertionError(f"{label} run: beta {betas} is not rising")
+            out["beta"] = betas
+        if model == "diffusion" and len(vals) != fam["epochs"] // 2:
+            raise AssertionError(f"{label} run: {len(vals)} validations (DDPM), expected "
+                                 f"{fam['epochs'] // 2}")
+        out["run"] = {"wall_s": wall, "steps_line": steps_line, "losses": losses}
+
+        # the checkpoint's EMA weights in the family's serving sampler
+        ckpt = workdir / "checkpoints" / "last"
+        built, sampler, ckpt_cfg = load_trained(ckpt)
+        images = test_images(ckpt_cfg)
+        stack, launches, _, _, _, _ = counted_call(built, sampler, images, 0)
+        n_attn, n_norm = fam["serve"]
+        check_launches(f"{label} checkpoint in the serving sampler", launches,
+                       {"qkv_attention": n_attn, "group_norm_act": n_norm})
+        check_stack(f"{label} checkpoint in the serving sampler", stack)
+        out["serve_launches"] = launches
+        del built, sampler, stack
+
+        argv = ["--checkpoint_paths", str(ckpt), "--test_split", "id", "--n_pred",
+                str(SAMPLES), "--n_models", "1", "--ema_mode", "true", "--test_batch_size",
+                str(BATCH), "--metrics_only", "--save_dir", str(Path(tmp) / "results")]
+        if model == "diffusion":
+            argv += ["--diffusion-sampler", "ddim", "--diffusion-num-steps", str(DDIM_STEPS)]
+        job = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.infer", *argv],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        if job.returncode != 0:
+            raise AssertionError(f"{label}: the inference job exited {job.returncode}:\n"
+                                 f"{job.stdout[-2000:]}\n{job.stderr[-4000:]}")
+        (summary,) = [ast.literal_eval(ln) for ln in job.stdout.splitlines()
+                      if ln.startswith("{'split'")]
+        metrics = json.loads((Path(summary["out_dir"]) / "metrics.json").read_text())
+        dice = [r["metrics"]["dice"] for r in metrics.values()]
+        log(f"{label}: infer job on its checkpoint: {summary}; mean Dice {np.mean(dice):.5f}")
+        if len(dice) != 256 or not all(0.0 <= d <= 1.0 for d in dice):
+            raise AssertionError(f"{label}: infer job gave {len(dice)} records")
+        out["infer"] = {"images_per_sec": summary.get("images_per_sec"),
+                        "mean_dice": float(np.mean(dice))}
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_multiclass_quality() -> dict:
     from diffuncertainty_tpu_torch.tools.multiclass_quality import gta_toy_quality_eval
 
@@ -1575,7 +1791,8 @@ def parse_paths(argv) -> tuple[str, ...]:
     unknown = sorted(set(names) - set(PATHS))
     if unknown or not names:
         parser.error(f"unknown or no paths {unknown}; choose from {', '.join(PATHS)}")
-    missing = [str(PATH_ASSETS[p]) for p in names if not PATH_ASSETS[p].is_file()]
+    missing = [str(PATH_ASSETS[p]) for p in names
+               if PATH_ASSETS[p] is not None and not PATH_ASSETS[p].is_file()]
     if missing:
         raise FileNotFoundError(f"assets of the chosen paths are missing: {missing}")
     return tuple(p for p in PATHS if p in names)
@@ -1674,6 +1891,13 @@ def main(argv=None) -> int:
         train_stats = phase_train(smi, sites["softmax"])
         launches_by_path["train"] = {k: v for k, v in train_stats["step"]["launches"].items()
                                      if not k.endswith("_vjp")}
+    family_stats = {}
+    for model in TRAIN_FAMILIES:
+        if f"train_{model}" in paths:
+            family_stats[model] = phase_train_family(smi, model)
+            launches_by_path[f"train_{model}"] = {
+                k: v for k, v in family_stats[model]["step"]["launches"].items()
+                if not k.endswith("_vjp")}
     quality = phase_quality(paths)
     if "multiclass" in paths:
         quality["multiclass_bf16"] = phase_multiclass_quality()
@@ -1733,16 +1957,18 @@ def main(argv=None) -> int:
             f"{a['bound_ms']:.4f} ms; ")
         log(f"{key}: {attn_text}GroupNorm device {fmt(n['device_ms'])} (events "
             f"{fmt(n['ms'])}), F.group_norm {fmt(n['library_ms'])}, bound {fmt(n['bound_ms'])}")
-    if "train" in paths:
-        # each kernel's backward (its twin's VJP) per training step at batch 16
-        for key, cases in (("attention", train_stats["attention_vjp"]),
-                           ("norm", train_stats["group_norm_vjp"])):
+    # each kernel's backward (its twin's VJP) per training step at batch 16
+    step_stats = ({"train": train_stats} if "train" in paths else {}) | {
+        f"train_{m}": st for m, st in family_stats.items()}
+    for path, st in step_stats.items():
+        for key, cases in (("attention", st["attention_vjp"]), ("norm", st["group_norm_vjp"])):
             per_step = {k: sum(c["calls"] * c[k] for c in cases)
                         for k in ("vjp_ms", "bound_ms", "library_ms")}
-            per_step["per"] = (f"one bf16 training step at batch {BATCH}: the twin's VJP at each "
+            per_step["per"] = (f"one bf16 {path} step at batch {BATCH}: the twin's VJP at each "
                                f"of its sites (CUDA events), bound and the library's backward")
-            (attn_extra if key == "attention" else norm_extra)["train_step_backward"] = per_step
-            log(f"{key} backward per training step on {smi}: twin VJPs "
+            name = "train_step_backward" if path == "train" else f"{path}_step_backward"
+            (attn_extra if key == "attention" else norm_extra)[name] = per_step
+            log(f"{key} backward per {path} step on {smi}: twin VJPs "
                 f"{per_step['vjp_ms']:.3f} ms, library backward {per_step['library_ms']:.3f} ms, "
                 f"bound {per_step['bound_ms']:.4f} ms")
     # the main path: softmax, else the chosen path that launches the kernels most
@@ -1812,6 +2038,9 @@ def main(argv=None) -> int:
         extra += (f"; train step {train_stats['step']['split']}, recipe "
                   f"{train_stats['recipe']}, trained quality on 32 images "
                   f"{train_stats['quality_32']}, on 256 {train_stats['quality']}")
+    for model, st in family_stats.items():
+        extra += (f"; train_{model} step {st['step']['split']}, run {st['run']['wall_s']:.1f}s, "
+                  f"serving launches {st['serve_launches']}, infer {st['infer']}")
     log(", ".join(f"{p} path {v:.3f} img/s" for p, v in img_s.items()) + extra
         + f"; quality {quality}")
     log(f"total {time.perf_counter() - T0:.1f}s")

@@ -42,7 +42,7 @@ class DropoutSpec:
 @dataclasses.dataclass(frozen=True)
 class ProbUnetSpec:
     """The ``model.prob_unet`` block (``ProbUnetSpec`` of the JAX package,
-    ``core/specs.py:85-95``, without the training-only beta schedule).
+    ``core/specs.py:85-101``), with the training's beta warm-up.
 
     The defaults are the JAX dataclass's, so configs of other families
     compare field by field; ``configs/model/prob_unet.yaml`` overrides most
@@ -56,3 +56,11 @@ class ProbUnetSpec:
     unet_channel_mult: float = 0.75
     prior_channel_mult: float = 0.5
     posterior_channel_mult: float = 0.5
+
+    def beta_at_epoch(self, epoch: int) -> float:
+        """The KL weight of ``epoch``: ``beta`` times ``(epoch + 1) /
+        beta_warmup_epochs``, at most 1; ``beta`` without a warm-up."""
+        if self.beta_warmup_epochs <= 0:
+            return self.beta
+        progress = min(1.0, max(0.0, float(epoch + 1) / self.beta_warmup_epochs))
+        return self.beta * progress

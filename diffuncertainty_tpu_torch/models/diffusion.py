@@ -1,31 +1,55 @@
-"""Continuous-time Gaussian diffusion, the sampling half (port of
+"""Continuous-time Gaussian diffusion (port of
 ``diffuncertainty_tpu/models/diffusion.py``).
 
-Gamma schedules (cosine and linear bases) with input scaling and logSNR
-endpoint clamping, evaluated on the host in float64; the prediction
-parameterizations (EPS / X / BOTH / V); and the reverse samplers (DDIM and
-ancestral DDPM with the small or large posterior variance). Per-step
-constants are computed once in float64 and cast to float32, as the JAX
-package feeds them to its ``lax.scan``; here the steps are a Python loop of
-eager forwards. The training half (loss weights, t samplers, masked loss,
-``train_loss_step``) is not ported yet. Layout NHWC: x is ``(B, H, W, C)``.
+Gamma schedules (linear, cosine, linear_simple and parabola bases) with
+input scaling and logSNR endpoint clamping: on the host in float64 for the
+samplers' per-step constants, and on the device in float32 for the traced
+training times ``t`` (the slope and bias still float64 on the host, as in
+the JAX package). The training half: loss weights (the SNR family, uniform,
+``sigmoid_b``, each optionally times ``-d logSNR/dt``), the t samplers
+(uniform, low_discrepency, uniform_low_d), the masked MSE/BCE loss and
+``train_loss_step``; its draws come from :func:`draw_t` and
+:func:`draw_eps`. The prediction parameterizations (EPS / X / BOTH / V) and
+the reverse samplers (DDIM and ancestral DDPM with the small or large
+posterior variance): per-step constants are computed once in float64 and
+cast to float32, as the JAX package feeds them to its ``lax.scan``; here the
+steps are a Python loop of eager forwards. Layout NHWC: x is ``(B, H, W, C)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import numpy as np
 import torch
 
 
-def _base_gamma_np(name: str) -> Callable[[np.ndarray], np.ndarray]:
+def _base_gamma(name: str, xp) -> Callable:
+    """The base schedule on ``xp`` arrays (numpy on the host, torch on the
+    device)."""
     if name == "linear":
-        return lambda t: 1.0 / (1.0 + np.expm1(1e-4 + 10.0 * t * t))
+        return lambda t: 1.0 / (1.0 + xp.expm1(1e-4 + 10.0 * t * t))
     if name == "cosine":
-        return lambda t: np.cos(t * np.pi / 2.0) ** 2
-    raise NotImplementedError(f"gamma schedule '{name}' is not ported (cosine, linear)")
+        return lambda t: xp.cos(t * np.pi / 2.0) ** 2
+    if name == "linear_simple":
+        return lambda t: 1.0 - t
+    if name == "parabola":
+        return lambda t: 1.0 - 2.0 * t**2 + t**4
+    raise NotImplementedError(name)
+
+
+def draw_t(diffusion: "ContinuousGaussianDiffusion", bs: int,
+           generator: torch.Generator) -> torch.Tensor:
+    """The (bs,) training times of one step (``diffusion.sample_t``)."""
+    return diffusion.sample_t(generator, bs)
+
+
+def draw_eps(shape: tuple, generator: torch.Generator, dtype: torch.dtype) -> torch.Tensor:
+    """Standard normals of ``shape`` on the generator's device: the training
+    noise, the start noise of a validation trajectory and the DDPM noise."""
+    return torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +70,7 @@ class GammaSchedule:
 
     @property
     def slope_bias(self) -> tuple[float, float]:
-        g = self._scaled_gamma(_base_gamma_np(self.schedule_name))
+        g = self._scaled_gamma(_base_gamma(self.schedule_name, np))
         g0_old = g(np.float64(0.0))
         g1_old = g(np.float64(1.0))
         g0_new = 1.0 / (1.0 + np.exp(-np.float64(self.logsnr_max)))
@@ -57,12 +81,39 @@ class GammaSchedule:
 
     def gamma_np(self, t) -> np.ndarray:
         slope, bias = self.slope_bias
-        g = self._scaled_gamma(_base_gamma_np(self.schedule_name))
+        g = self._scaled_gamma(_base_gamma(self.schedule_name, np))
         return g(np.asarray(t, dtype=np.float64)) * slope + bias
 
     def logsnr_np(self, t) -> np.ndarray:
         g = self.gamma_np(t)
         return np.log(g / (1.0 - g))
+
+    # ---- device (a tensor t, in its dtype) ----
+    def gamma(self, t: torch.Tensor) -> torch.Tensor:
+        slope, bias = self.slope_bias
+        g = self._scaled_gamma(_base_gamma(self.schedule_name, torch))
+        return g(t) * slope + bias
+
+    def snr(self, t: torch.Tensor) -> torch.Tensor:
+        g = self.gamma(t)
+        return g / (1.0 - g)
+
+    def alpha(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(self.gamma(t))
+
+    def sigma(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.sqrt(1.0 - self.gamma(t))
+
+    def logsnr(self, t: torch.Tensor) -> torch.Tensor:
+        return torch.log(self.snr(t))
+
+    def diff_logsnr(self, t: torch.Tensor) -> torch.Tensor:
+        """d logSNR / dt per element of ``t`` (autograd, as the JAX package
+        differentiates it), detached from any graph."""
+        with torch.enable_grad():
+            ti = torch.atleast_1d(t).detach().clone().requires_grad_(True)
+            (grad,) = torch.autograd.grad(self.logsnr(ti).sum(), ti)
+        return grad
 
 
 def _bcast(coefs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -89,6 +140,78 @@ class ContinuousGaussianDiffusion:
     def gamma_schedule(self) -> GammaSchedule:
         return GammaSchedule(self.schedule_name, self.input_scale, self.logsnr_min,
                              self.logsnr_max)
+
+    # ---- training ---------------------------------------------------------------
+
+    def loss_weights(self, t: torch.Tensor) -> torch.Tensor:
+        gs = self.gamma_schedule
+        snr = gs.snr(t)
+        wt = self.weights_type
+        if wt == "SNR":
+            weights = snr
+        elif wt == "SNR_plus1":
+            weights = 1.0 + snr
+        elif wt == "SNR_trunc":
+            weights = torch.clamp(snr, min=1.0)
+        elif wt == "uniform":
+            weights = torch.ones_like(snr)
+        elif wt.startswith("sigmoid"):
+            bias = 0.0 if wt == "sigmoid" else float(wt.split("_")[1])
+            weights = torch.sigmoid(gs.logsnr(t) + bias)
+        else:
+            raise NotImplementedError(wt)
+        if self.decouple_loss_weights:
+            weights = weights * (-gs.diff_logsnr(t))
+        return weights
+
+    def sample_t(self, generator: torch.Generator, bs: int) -> torch.Tensor:
+        """The (bs,) training times in [0, 1), float32, on the generator's
+        device."""
+        dev = generator.device
+        st = self.sampler_type
+        if st == "uniform":
+            return torch.rand(bs, generator=generator, device=dev)
+        if st == "low_discrepency":
+            t0 = torch.rand((), generator=generator, device=dev) / bs
+            t = torch.arange(bs, device=dev) / bs + t0
+            return t[torch.randperm(bs, generator=generator, device=dev)]
+        if st == "uniform_low_d":
+            perm = torch.randperm(bs, generator=generator, device=dev)
+            return (perm + torch.rand(bs, generator=generator, device=dev)) / bs
+        raise NotImplementedError(st)
+
+    def _masked_loss(self, pred: torch.Tensor, gt: torch.Tensor,
+                     loss_mask: torch.Tensor | None) -> torch.Tensor:
+        """Per-element loss of the batch, each element's mask normalized to
+        sum 1 (all pixels and classes when ``loss_mask`` is None)."""
+        axes = tuple(range(1, gt.ndim))
+        if loss_mask is None:
+            norm_mask = torch.full_like(gt, 1.0 / math.prod(gt.shape[1:]))
+        else:
+            norm_mask = loss_mask / (loss_mask.sum(dim=axes, keepdim=True) + 1e-14)
+        if self.loss_type == "MSE":
+            return (norm_mask * (pred - gt) ** 2).sum(dim=axes)
+        if self.loss_type == "BCE":
+            likelihood = torch.prod(1.0 - 0.5 * (pred - gt).abs(), dim=-1, keepdim=True)
+            return -(norm_mask * torch.log(likelihood)).sum(dim=axes)
+        raise NotImplementedError(self.loss_type)
+
+    def train_loss_step(self, model_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                        x: torch.Tensor, im: torch.Tensor, generator: torch.Generator,
+                        loss_mask: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One training step's loss: ``(scalar loss, pred_x)``.
+        ``model_fn(concat([x_t, im], -1), t)`` is the conditioned forward;
+        ``t`` comes from :func:`draw_t`, the noise from :func:`draw_eps`."""
+        gs = self.gamma_schedule
+        t = draw_t(self, x.shape[0], generator).to(x.device)
+        eps = draw_eps(tuple(x.shape), generator, x.dtype).to(x.device)
+        alpha_t, sigma_t = gs.alpha(t), gs.sigma(t)
+        x_t = _bcast(alpha_t, x) * x + _bcast(sigma_t, eps) * eps
+        output = model_fn(torch.cat([x_t, im], dim=-1), t)
+        pred_x, _ = self.get_predictions(output, x_t, alpha_t, sigma_t)
+        losses = self.loss_weights(t) * self._masked_loss(pred_x, x, loss_mask)
+        return losses.mean(), pred_x
 
     # ---- prediction parameterizations ----------------------------------------
 
@@ -175,8 +298,8 @@ class ContinuousGaussianDiffusion:
 
         ``model_fn(concat([x_t, im], -1), t, generator)`` runs once a step,
         so its dropout draws fresh masks from ``generator`` each step. DDPM
-        noise is ``noise_fn(step, shape)`` when given, else a standard normal
-        draw from ``generator``.
+        noise is ``noise_fn(step, shape)`` when given, else :func:`draw_eps`
+        from ``generator``.
         """
         if sampler_type not in ("ddim", "ddpm"):
             raise NotImplementedError(sampler_type)
@@ -199,7 +322,7 @@ class ContinuousGaussianDiffusion:
                 if noise_fn is not None:
                     noise = noise_fn(k, tuple(x_t.shape)).to(device=dev, dtype=x_t.dtype)
                 else:
-                    noise = torch.randn(x_t.shape, generator=generator, device=dev, dtype=x_t.dtype)
+                    noise = draw_eps(tuple(x_t.shape), generator, x_t.dtype)
                 mean = step["mean_xt_coef"] * x_t + step["mean_x_coef"] * pred_x
                 x_s = mean + step["std"] * noise
             x_t = pred_x if step["is_last"] > 0 else x_s

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ..core.config import ExperimentConfig
-from ..core.specs import DropoutSpec
+from ..core.specs import DropoutSpec, ProbUnetSpec
 from .diffusion import ContinuousGaussianDiffusion
 from .hrnet import HRNet, HRNetSpec
 from .prob_unet import build_prob_unet
@@ -38,6 +38,7 @@ class BuiltModel:
     diffusion: ContinuousGaussianDiffusion | None = None
     diffusion_num_steps: int = 10
     diffusion_sampler_type: str = "ddpm"
+    prob_unet_spec: ProbUnetSpec | None = None
     dropout_spec: DropoutSpec = dataclasses.field(default_factory=DropoutSpec)
 
     @property
@@ -142,5 +143,6 @@ def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda") -> B
                    if is_diffusion else None),
         diffusion_num_steps=sampling.num_steps,
         diffusion_sampler_type=sampling.sampler,
+        prob_unet_spec=cfg.model.prob_unet if au_type == "prob_unet" else None,
         dropout_spec=dropout_spec,
     )

@@ -7,7 +7,8 @@ their globally pooled mid-block features; ``Fcomb`` fuses the features with
 the latent, tiled over the pixels, through 1x1 convs. ``forward`` returns
 the features and the latent parameters; ``decode`` turns (features, z) into
 logits, so N latent draws reuse one backbone forward. The posterior serves
-training only (``elbo_loss`` is not ported yet).
+training only, through :func:`elbo_loss` (the reconstruction cross entropy
+plus beta times the mean KL of the posterior from the prior).
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ class LatentEncoder(nn.Module):
     def __init__(self, encoder: DiffUnet, latent_dim: int, channels: int):
         super().__init__()
         self.encoder = encoder
-        self.param_head = Conv(channels, 2 * latent_dim, 1)
+        # flax: kaiming_normal kernel, normal(1e-2) bias
+        self.param_head = Conv(channels, 2 * latent_dim, 1, init_scale=2.0, bias_std=1e-2)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> LatentParams:
         feats = self.encoder(x, generator).features  # (B, h, w, C)
@@ -159,3 +161,21 @@ def build_prob_unet(base_kwargs: dict[str, Any], spec: ProbUnetSpec) -> ProbUnet
         fcomb=Fcomb(mc + spec.latent_dim, out_ch, hidden_channels=mc,
                     num_layers=max(1, spec.num_fcomb_convs)),
     )
+
+
+def elbo_loss(logits: torch.Tensor, target: torch.Tensor, kl: torch.Tensor, beta: float,
+              ignore_index: int | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(-elbo, recon_ce, mean_kl)``: the cross entropy of NHWC ``logits``
+    against (B, H, W) ``target`` (the mean over the pixels whose target is not
+    ``ignore_index`` when it is >= 0) plus ``beta`` times the mean of ``kl``."""
+    num_classes = logits.shape[-1]
+    log_probs = F.log_softmax(logits, dim=-1)
+    picked = log_probs.gather(-1, target.long().clamp(0, num_classes - 1)[..., None])[..., 0]
+    if ignore_index is not None and ignore_index >= 0:
+        valid = (target != ignore_index).to(logits.dtype)
+        recon = -(picked * valid).sum() / valid.sum().clamp(min=1.0)
+    else:
+        recon = -picked.mean()
+    mean_kl = kl.mean()
+    return recon + beta * mean_kl, recon, mean_kl

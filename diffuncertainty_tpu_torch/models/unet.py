@@ -62,12 +62,14 @@ class UnetOutput:
     ssn_cov_factor: torch.Tensor | None = None  # (B, N, rank)
 
 
-def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator,
+                  scale: float = 1.0) -> None:
     """flax's ``lecun_normal``: variance_scaling(1, fan_in, truncated normal),
     a normal cut at +-2 sigma whose std is corrected by 1/0.87962566 (the
-    std of the standard normal truncated to [-2, 2]) to 1/sqrt(fan_in).
-    Drawn on the generator's device, then copied into ``weight``."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    std of the standard normal truncated to [-2, 2]) to 1/sqrt(fan_in);
+    ``scale`` 2 gives ``kaiming_normal``. Drawn on the generator's device,
+    then copied into ``weight``."""
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
     draw = torch.empty(weight.shape, device=generator.device)
     nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
     with torch.no_grad():
@@ -78,16 +80,22 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialize ``module``'s DiffUnet leaves in place as the JAX model's
     ``init`` does: conv and dense kernels ``lecun_normal`` (zero where the
     JAX model zero-initializes: every ResBlock ``out_conv``, every attention
-    ``proj_out``, the output heads), biases 0, GroupNorm scale 1 and bias 0.
-    Leaves are drawn from ``generator`` in module order."""
+    ``proj_out``, the output and SSN heads; ``kaiming_normal``, twice the
+    variance, for the prob-U-Net's latent heads), biases 0 (normal with std
+    1e-2 for the latent heads), GroupNorm scale 1 and bias 0. Leaves are
+    drawn from ``generator`` in module order."""
     for m in module.modules():
         if isinstance(m, (Conv, Dense)):
             with torch.no_grad():
                 if m.zero_init:
                     m.weight.zero_()
                 else:
-                    lecun_normal_(m.weight, m.weight[0].numel(), generator)
-                m.bias.zero_()
+                    lecun_normal_(m.weight, m.weight[0].numel(), generator, m.init_scale)
+                if m.bias_std:
+                    draw = torch.randn(m.bias.shape, generator=generator, device=generator.device)
+                    m.bias.copy_(m.bias_std * draw)
+                else:
+                    m.bias.zero_()
         elif isinstance(m, GroupNorm32):
             with torch.no_grad():
                 m.weight.fill_(1.0)
@@ -97,14 +105,18 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 class Conv(nn.Module):
     """``k x k`` conv on NHWC input; weight OIHW, bias (O,). ``zero_init``
-    marks a conv the JAX model initializes to zero (``flax_init_``)."""
+    marks a conv the JAX model initializes to zero, ``init_scale`` the
+    variance scale of its kernel's draw and ``bias_std`` a bias drawn from a
+    normal (``flax_init_``)."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, *, stride: int = 1,
-                 zero_init: bool = False):
+                 zero_init: bool = False, init_scale: float = 1.0, bias_std: float = 0.0):
         super().__init__()
         self.stride = stride
         self.padding = k // 2
         self.zero_init = zero_init
+        self.init_scale = init_scale
+        self.bias_std = bias_std
         # an untruncated lecun normal; training draws the flax init
         # (flax_init_), serving loads trained weights over it
         self.weight = nn.Parameter(torch.randn(cout, cin, k, k) / math.sqrt(cin * k * k))
@@ -126,6 +138,7 @@ class Dense(nn.Module):
     def __init__(self, cin: int, cout: int, *, zero_init: bool = False):
         super().__init__()
         self.zero_init = zero_init
+        self.init_scale, self.bias_std = 1.0, 0.0
         self.weight = nn.Parameter(torch.randn(cout, cin) / math.sqrt(cin))
         self.bias = nn.Parameter(torch.zeros(cout))
 

@@ -1,5 +1,6 @@
 """Training loop (port of ``diffuncertainty_tpu/train/loop.py``): the step,
-EMA, SWAG collection, validation and checkpoints.
+EMA, SWAG collection, validation and checkpoints, for the softmax,
+diffusion, SSN and prob-U-Net families on the DiffUnet.
 
 - One step: the augmentation (single-rater targets) or the normalization
   (multi-rater targets), the forward and the loss, the gradients of every
@@ -14,6 +15,15 @@ EMA, SWAG collection, validation and checkpoints.
 - ``last`` full checkpoints and scheduled weight snapshots (EMA-only when
   configured), in the flax layout the JAX trainer writes
   (``core/checkpoint.py``); the graceful wall-clock stop.
+- Per epoch (:meth:`Trainer.set_epoch`): the prob-U-Net's beta from its
+  warm-up, and the SSN's mean-only loss (no factor head, whose parameters
+  then get a zero gradient) for ``epoch < ssn_pretrain_epochs``. The epoch's
+  record adds ``train_cov_failed`` (SSN: the share of elements whose
+  covariance failed) and ``beta`` (prob-U-Net) to the JAX trainer's keys.
+- Validation predicts one mean per family: the softmax of the logits
+  (softmax, SSN), the decode at the prior's mean (prob-U-Net), or the x0 of
+  one reverse trajectory with the config's sampler and steps (diffusion),
+  which goes into the argmax and the GED as it is, as in the JAX trainer.
 
 Parameters stay float32 in the module; ``trainer.precision=bf16`` runs the
 forward in bf16 through both hand-written kernels, whose backwards are their
@@ -29,6 +39,7 @@ from a generator seeded ``seed + 1000 + epoch``.
 
 from __future__ import annotations
 
+import copy
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -42,6 +53,7 @@ from ..core.params import flax_to_torch, flax_to_torch_stacked, torch_to_flax
 from ..data.augment import TrainAugmentConfig, augment_batch, normalize_batch
 from ..metrics.dice import dice_bin, dice_multiclass_micro
 from ..metrics.ged import ged_binary
+from ..models import diffusion as diffusion_lib
 from ..models import swag as swag_lib
 from ..models.factory import BuiltModel, build_model
 from ..models.unet import flax_init_
@@ -87,7 +99,12 @@ class Trainer:
             raise RuntimeError("Trainer: CUDA requested but torch.cuda.is_available() is False; "
                                "pass device='cpu' to train on the CPU")
         self.built: BuiltModel = build_model(cfg, device=self.device)
-        self.loss_fn = make_loss_fn(self.built, ignore_index=cfg.data.ignore_index)
+        # by ssn_mean_only (only the SSN's pretraining epochs take True)
+        self._loss_fns = {mean_only: make_loss_fn(
+            self.built, ignore_index=cfg.data.ignore_index,
+            n_aleatoric_samples=cfg.model.n_aleatoric_samples, ssn_mean_only=mean_only)
+            for mean_only in (False, True)}
+        self.set_epoch(0)
         self.workdir = Path(workdir) if workdir is not None else (
             Path(cfg.save_dir) / cfg.auto_exp_name / str(cfg.version or "version_0"))
         self.workdir.mkdir(parents=True, exist_ok=True)
@@ -116,8 +133,11 @@ class Trainer:
     # ---- state ----------------------------------------------------------
 
     def init_state(self, generator: torch.Generator | None = None) -> TrainState:
-        """The flax initialization (from a CPU generator seeded ``cfg.seed``
-        unless one is given), zero moments, the EMA a copy of the weights."""
+        """The flax initialization of the family's module (from a CPU
+        generator seeded ``cfg.seed`` unless one is given; the diffusion
+        DiffUnet takes ``num_classes`` + image channels, the prob-U-Net's
+        posterior the image and its one-hot target), zero moments, the EMA a
+        copy of the weights."""
         module = self.built.module
         flax_init_(module, generator or torch.Generator().manual_seed(self.cfg.seed))
         return self.fresh_state()
@@ -164,6 +184,22 @@ class Trainer:
                 if "dev" in sw else None)
         return TrainState(int(saved["step"]), params, opt_state, ema)
 
+    # ---- the epoch's schedule ------------------------------------------
+
+    def sched_for_epoch(self, epoch: int) -> dict:
+        """The epoch's loss schedule: the prob-U-Net's ``beta`` (float32)."""
+        if self.built.au_type != "prob_unet":
+            return {}
+        return {"beta": float(np.float32(self.built.prob_unet_spec.beta_at_epoch(epoch)))}
+
+    def set_epoch(self, epoch: int) -> None:
+        """The loss and schedule of ``epoch`` for the steps that follow: the
+        SSN trains its mean alone before ``ssn_pretrain_epochs``."""
+        self.ssn_mean_only = (self.built.au_type == "ssn"
+                              and epoch < self.cfg.model.ssn_pretrain_epochs)
+        self.loss_fn = self._loss_fns[self.ssn_mean_only]
+        self.sched = self.sched_for_epoch(epoch)
+
     # ---- the step -------------------------------------------------------
 
     def learning_rate(self, count: int) -> float:
@@ -188,7 +224,7 @@ class Trainer:
         loss, aux = self.forward_loss(batch, generator)
         grads = self.gradients(state, loss)
         state, grad_norm = self.apply_gradients(state, grads)
-        return state, dict(aux, loss=loss.detach(), grad_norm=grad_norm)
+        return state, {**{k: v.detach() for k, v in aux.items()}, "grad_norm": grad_norm}
 
     def forward_loss(self, batch: dict, generator: torch.Generator):
         """The step's input pipeline, forward and loss: (loss, aux)."""
@@ -199,7 +235,8 @@ class Trainer:
             images, seg = augment_batch(self.aug_cfg, generator, images, seg)
         else:  # multi-rater targets: normalize only
             images = normalize_batch(images, self.aug_cfg.mean, self.aug_cfg.std)
-        return self.loss_fn(self.built.module, {"image": images, "seg": seg}, generator)
+        return self.loss_fn(self.built.module, {"image": images, "seg": seg}, generator,
+                            self.sched)
 
     def gradients(self, state: TrainState, loss: torch.Tensor) -> list[torch.Tensor]:
         """d(loss)/d(every parameter), in ``state.params`` order (zeros for
@@ -273,18 +310,36 @@ class Trainer:
                 max_num_models=swag_cfg.max_snapshots)
         return True
 
+    def _mean_prediction(self, module, images: torch.Tensor,
+                         generator: torch.Generator) -> torch.Tensor:
+        """The family's one prediction of validation: probabilities, or the
+        x0 of one reverse trajectory (diffusion)."""
+        built = self.built
+        if built.au_type in ("softmax", "ssn"):
+            return torch.softmax(module(images, generator).logits.float(), dim=-1)
+        if built.au_type == "prob_unet":
+            out = module(images, generator=generator)
+            return torch.softmax(module.decode(out.features, out.prior.mu).float(), dim=-1)
+        b, h, w, _ = images.shape
+        x_init = diffusion_lib.draw_eps((b, h, w, built.num_classes), generator, images.dtype)
+
+        def model_fn(x_with_im, t, gen):
+            return module(x_with_im, gen, timesteps=t).logits
+
+        return built.diffusion.sample_loop(model_fn, x_init, images, built.diffusion_num_steps,
+                                           generator, sampler_type=built.diffusion_sampler_type)
+
     @torch.no_grad()
     def evaluate(self, state: TrainState, loader, *, epoch: int, use_ema: bool = False) -> dict:
-        """``val_loss``, ``val_dice`` (of the argmax of one prediction, the
-        mean over raters) and, for binary multi-rater targets, ``val_ged``."""
+        """``val_loss`` (the full loss with the epoch's schedule), ``val_dice``
+        (of the argmax of one mean prediction, the mean over raters) and, for
+        binary multi-rater targets, ``val_ged``. With ``use_ema``, a copy of
+        the module holding the EMA weights predicts."""
         module = self.built.module
-        weights = state.ema_params if use_ema and state.ema_params is not None else None
-
-        def net(x, generator):
-            if weights is None:
-                return module(x, generator)
-            return torch.func.functional_call(module, weights, (x, generator))
-
+        if use_ema and state.ema_params is not None:
+            module = copy.deepcopy(module)
+            module.load_state_dict(state.ema_params)
+        loss_fn, sched = self._loss_fns[False], self.sched_for_epoch(epoch)
         dev = self.device
         num_classes = self.built.num_classes
         ignore = self.cfg.data.ignore_index
@@ -295,8 +350,8 @@ class Trainer:
             images = normalize_batch(torch.as_tensor(batch["image"]).to(dev), self.aug_cfg.mean,
                                      self.aug_cfg.std)
             seg = torch.as_tensor(batch["seg"]).to(dev)
-            loss, _ = self.loss_fn(net, {"image": images, "seg": seg}, generator)
-            probs = torch.softmax(net(images, generator).logits.float(), dim=-1)
+            loss, _ = loss_fn(module, {"image": images, "seg": seg}, generator, sched)
+            probs = self._mean_prediction(module, images, generator)
             pred_idx = probs.argmax(dim=-1)
             seg4 = seg[:, None] if seg.ndim == 3 else seg
             if num_classes == 2:
@@ -334,18 +389,24 @@ class Trainer:
         state = resume_state
         for epoch in range(start_epoch, cfg.trainer.max_epochs):
             train_loader.set_epoch(epoch)
+            self.set_epoch(epoch)
             generator = self.epoch_generator(epoch)
-            losses = []
+            losses, failed = [], []
             t_step = time.perf_counter()
             for batch in train_loader:
                 if state is None:
                     state = self.init_state()
                 state, aux = self.train_step(state, batch, generator)
                 losses.append(aux["loss"])
+                if "cov_failed" in aux:
+                    failed.append(aux["cov_failed"])
                 now = time.perf_counter()
                 self.step_seconds.append(now - t_step)
                 t_step = now
             log = {"epoch": epoch, "train_loss": float(torch.stack(losses).mean())}
+            if failed:
+                log["train_cov_failed"] = float(torch.stack(failed).mean())
+            log.update(self.sched)
             self._maybe_collect_swag(state, epoch)
             if val_loader is not None and (epoch + 1) % cfg.trainer.val_every_n_epochs == 0:
                 log.update(self.evaluate(state, val_loader, epoch=epoch))

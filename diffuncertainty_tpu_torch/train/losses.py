@@ -1,29 +1,38 @@
-"""Training losses (port of ``diffuncertainty_tpu/train/losses.py``), the
-softmax family: masked cross entropy when ``ignore_index != 0``, else the
-soft Dice of the softmax plus cross entropy (``lightning_experiment.py:646-661``
-of the reference). A multi-rater target (B, R, H, W) trains on one rater per
-element, drawn by :func:`draw_rater`.
+"""Training losses (port of ``diffuncertainty_tpu/train/losses.py``), one per
+AU type. A multi-rater target (B, R, H, W) trains on one rater per element,
+drawn by :func:`draw_rater`.
 
-The SSN, diffusion and prob-U-Net losses and the HRNet's ``batch_stats``
-updates are not ported: ``make_loss_fn`` raises for them.
+- softmax: masked cross entropy when ``ignore_index != 0``, else the soft
+  Dice of the softmax plus cross entropy (``lightning_experiment.py:646-661``
+  of the reference);
+- ssn: the Monte-Carlo log-likelihood: ``n_aleatoric_samples``
+  reparameterized draws of the low-rank normal over the logits
+  (``models/ssn.py::sample_n``), each draw's summed log-probability of the
+  target, logsumexp over the draws minus log S, the mean over the batch;
+  ``ssn_mean_only`` (the pretraining epochs) runs without the factor head;
+- diffusion: the one-hot target with the ignored pixels zeroed and a
+  ``loss_mask`` over the valid ones, through ``train_loss_step``;
+- prob_unet: the posterior latent of the image and its one-hot target,
+  decoded, the negative ELBO with the schedule's beta, plus
+  ``regularizer_coeff`` times the squared L2 norm of the ``prior``,
+  ``posterior`` and ``fcomb`` parameters.
+
+The HRNet's ``batch_stats`` updates are not ported: ``make_loss_fn`` raises
+for the HRNet.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
 from ..metrics.dice import soft_dice_loss
+from ..models import ssn as ssn_lib
 from ..models.factory import BuiltModel
-
-# the ROADMAP Queue 1 item 5 entry that takes each unported loss
-UNPORTED = {
-    "diffusion": "the diffusion losses and schedules (ROADMAP Queue 1 item 5, first)",
-    "ssn": "the SSN loss (ROADMAP Queue 1 item 5, second)",
-    "prob_unet": "the prob-U-Net elbo_loss (ROADMAP Queue 1 item 5, third)",
-}
+from ..models.prob_unet import elbo_loss, kl_diag_gaussians, sample_latent
 
 
 def masked_ce(logits: torch.Tensor, target: torch.Tensor, ignore_index: int | None) -> torch.Tensor:
@@ -52,30 +61,98 @@ def select_random_rater(seg: torch.Tensor, generator: torch.Generator) -> torch.
     return seg[torch.arange(seg.shape[0], device=seg.device), idx]
 
 
-def make_loss_fn(built: BuiltModel, *, ignore_index: int = -1) -> Callable:
-    """``loss_fn(module, batch, generator) -> (loss, aux)``: ``batch`` holds
-    ``image`` (B, H, W, C) preprocessed inputs and ``seg`` (B, H, W) or
-    (B, R, H, W) labels; ``module`` is ``built.module`` or a module of its
-    architecture; dropout masks and the rater come from ``generator``."""
-    if built.au_type in UNPORTED:
-        raise NotImplementedError(f"training au_type={built.au_type!r}: "
-                                  f"{UNPORTED[built.au_type]} is not ported")
-    if built.au_type != "softmax":
-        raise ValueError(built.au_type)
+def make_loss_fn(built: BuiltModel, *, ignore_index: int = -1, n_aleatoric_samples: int = 10,
+                 ssn_mean_only: bool = False) -> Callable:
+    """``loss_fn(module, batch, generator, sched=None) -> (loss, aux)``:
+    ``batch`` holds ``image`` (B, H, W, C) preprocessed inputs and ``seg``
+    (B, H, W) or (B, R, H, W) labels; ``module`` is ``built.module`` or a
+    module of its architecture; every draw (dropout masks, the rater, the
+    family's own) comes from ``generator``. ``sched`` holds the epoch's
+    ``beta`` (prob-U-Net; the spec's ``beta`` when absent)."""
     if built.backbone == "hrnet":
         raise NotImplementedError("training the HRNet (its batch_stats updates) is not ported "
                                   "(ROADMAP Queue 1 item 5, fourth)")
-    # the reference's convention: ignore_index 0 means "no ignore" and adds Dice
+    au = built.au_type
+    num_classes = built.num_classes
+    # the reference's convention: ignore_index 0 means "no ignore" (and the
+    # softmax family adds Dice)
     use_ignore = ignore_index != 0
+    ce_ignore = ignore_index if use_ignore else None
 
-    def loss_fn(module, batch: dict, generator: torch.Generator):
-        logits = module(batch["image"], generator).logits
-        target = select_random_rater(batch["seg"], generator)
-        if use_ignore:
-            loss = masked_ce(logits, target, ignore_index)
-        else:
-            loss = (soft_dice_loss(torch.softmax(logits, dim=-1), target)
-                    + masked_ce(logits, target, None))
-        return loss, {"loss": loss}
+    if au == "softmax":
+
+        def loss_fn(module, batch: dict, generator: torch.Generator, sched=None):
+            logits = module(batch["image"], generator).logits
+            target = select_random_rater(batch["seg"], generator)
+            if use_ignore:
+                loss = masked_ce(logits, target, ignore_index)
+            else:
+                loss = (soft_dice_loss(torch.softmax(logits, dim=-1), target)
+                        + masked_ce(logits, target, None))
+            return loss, {"loss": loss}
+
+    elif au == "ssn":
+        s = n_aleatoric_samples
+
+        def loss_fn(module, batch: dict, generator: torch.Generator, sched=None):
+            target = select_random_rater(batch["seg"], generator)
+            out = module(batch["image"], generator, mean_only=ssn_mean_only)
+            dist = ssn_lib.build_distribution(out.ssn_mean, out.ssn_cov_diag, out.ssn_cov_factor)
+            b, h, w, c = out.logits.shape
+            logp = F.log_softmax(ssn_lib.sample_n(dist, generator, s).reshape(s, b, h, w, c),
+                                 dim=-1)
+            index = target.long().clamp(0, c - 1)[None, ..., None].expand(s, b, h, w, 1)
+            picked = logp.gather(-1, index)[..., 0]
+            if use_ignore:
+                picked = picked * (target != ce_ignore).to(picked.dtype)[None]
+            per_sample_logprob = picked.sum(dim=(2, 3))  # (S, B)
+            loss = -(torch.logsumexp(per_sample_logprob, dim=0) - math.log(s)).mean()
+            return loss, {"loss": loss, "cov_failed": dist.cov_failed.float().mean()}
+
+    elif au == "diffusion":
+
+        def loss_fn(module, batch: dict, generator: torch.Generator, sched=None):
+            images = batch["image"]
+            target = select_random_rater(batch["seg"], generator)
+            ignore_mask = (target == ce_ignore) if use_ignore else torch.zeros_like(
+                target, dtype=torch.bool)
+            safe_target = torch.where(ignore_mask, torch.zeros_like(target), target)
+            one_hot = F.one_hot(safe_target.long(), num_classes).to(images.dtype)
+            loss_mask = (~ignore_mask).to(one_hot.dtype)[..., None].expand(one_hot.shape)
+            one_hot = one_hot * loss_mask
+
+            def model_fn(x_with_im, t):
+                return module(x_with_im, generator, timesteps=t).logits
+
+            loss, _ = built.diffusion.train_loss_step(
+                model_fn, one_hot, images, generator,
+                loss_mask=loss_mask if use_ignore else None)
+            return loss, {"loss": loss}
+
+    elif au == "prob_unet":
+        spec = built.prob_unet_spec
+
+        def loss_fn(module, batch: dict, generator: torch.Generator, sched=None):
+            images = batch["image"]
+            target = select_random_rater(batch["seg"], generator)
+            safe_target = target
+            if use_ignore:
+                safe_target = torch.where(target == ce_ignore, torch.zeros_like(target), target)
+            segm = F.one_hot(safe_target.long(), num_classes).to(images.dtype)
+            if use_ignore:
+                segm = segm * (target != ce_ignore).to(segm.dtype)[..., None]
+            out = module(images, segm, generator=generator)
+            logits = module.decode(out.features, sample_latent(out.posterior, generator))
+            kl = kl_diag_gaussians(out.posterior, out.prior)
+            beta = (sched or {}).get("beta", spec.beta)
+            neg_elbo, recon, mean_kl = elbo_loss(logits, target, kl, beta, ignore_index=ce_ignore)
+            # the L2 regularizer of the reference over the latent nets and the fcomb
+            reg = sum((p ** 2).sum() for name, p in module.named_parameters()
+                      if name.split(".", 1)[0] in ("prior", "posterior", "fcomb"))
+            loss = neg_elbo + spec.regularizer_coeff * reg
+            return loss, {"loss": loss, "recon": recon, "kl": mean_kl}
+
+    else:
+        raise ValueError(au)
 
     return loss_fn

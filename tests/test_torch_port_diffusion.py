@@ -56,7 +56,7 @@ def test_timestep_embedding_matches_jax(rng, dim):
 
 @pytest.mark.parametrize("num_steps", [10, 3])
 @pytest.mark.parametrize("var_type", ["small", "large"])
-@pytest.mark.parametrize("schedule", ["cosine", "linear"])
+@pytest.mark.parametrize("schedule", ["cosine", "linear", "linear_simple", "parabola"])
 def test_step_constants_match_jax(schedule, var_type, num_steps):
     kw = dict(schedule_name=schedule, var_type=var_type)
     ref = JDiffusion(**kw)._step_constants(num_steps)
@@ -73,8 +73,12 @@ def test_step_constants_match_jax(schedule, var_type, num_steps):
 
 
 def test_unported_schedule_raises():
-    with pytest.raises(NotImplementedError, match="parabola"):
-        GammaSchedule("parabola").gamma_np(0.5)
+    """Every schedule of the JAX package is ported; a name neither knows
+    raises on both sides."""
+    with pytest.raises(NotImplementedError, match="quartic"):
+        JGamma("quartic").gamma_np(0.5)
+    with pytest.raises(NotImplementedError, match="quartic"):
+        GammaSchedule("quartic").gamma_np(0.5)
 
 
 @pytest.mark.parametrize("clip_x", [False, True])

@@ -194,6 +194,10 @@ def test_no_forbidden_imports_or_library_kernels_in_the_port():
         r"^\s*(import|from)\s+(jax|yaml|PIL|orbax|tensorstore|optax|flax|tensorboardX"
         r"|diffuncertainty_tpu\b)")
     files = sorted((REPO / "diffuncertainty_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    port = REPO / "diffuncertainty_tpu_torch"
+    assert {port / "train" / "losses.py", port / "train" / "loop.py",
+            port / "models" / "diffusion.py", port / "models" / "prob_unet.py",
+            port / "core" / "specs.py", port / "tools" / "train_recipe.py"} <= set(files)
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             assert not bad_import.match(line), f"{path}:{n}: {line}"
@@ -208,13 +212,19 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
 
     assert chip_smoke.parse_paths([]) == chip_smoke.PATHS == (
         "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "hrnet", "multiclass", "infer",
-        "train")
+        "train", "train_diffusion", "train_ssn", "train_prob_unet")
     assert chip_smoke.parse_paths(["--paths", "multiclass,hrnet"]) == ("hrnet", "multiclass")
     assert chip_smoke.parse_paths(["--paths", "infer,softmax"]) == ("softmax", "infer")
     assert chip_smoke.parse_paths(["--paths", "train,hrnet"]) == ("hrnet", "train")
     assert chip_smoke.PATH_ASSETS["infer"] == chip_smoke.PATH_ASSETS["softmax"]
     # the train path trains from scratch: its one file is the JAX members' quality record
     assert chip_smoke.PATH_ASSETS["train"].name == "ensemble16_quality.json"
+    # the families' training paths read no file: they ride either group
+    assert chip_smoke.parse_paths(["--paths", "train_prob_unet,hrnet,train_diffusion"]) == (
+        "hrnet", "train_diffusion", "train_prob_unet")
+    for model in ("diffusion", "ssn", "prob_unet"):
+        assert chip_smoke.PATH_ASSETS[f"train_{model}"] is None
+        assert set(chip_smoke.TRAIN_FAMILIES) == {"diffusion", "ssn", "prob_unet"}
     for bad in ("hrnet,resnet", ","):
         with pytest.raises(SystemExit):
             chip_smoke.parse_paths(["--paths", bad])
