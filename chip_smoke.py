@@ -1,11 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,hrnet,multiclass,infer,train,train_diffusion,train_ssn,train_prob_unet]
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,train,train_diffusion,train_ssn,train_prob_unet]
 
 With no argument every path runs; ``--paths`` picks a comma-separated group
 of them (each needs its file under ``assets/``: a missing one is an error;
 ``train`` reads only ``ensemble16_quality.json``, the ``train_*`` family
-paths read none).
+paths and ``unet256`` read none).
 The kernel build, the kernels' checks at the softmax path's shapes and at
 every other head width, and the checks at every shape of the chosen paths
 always run.
@@ -51,10 +51,33 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
 8. the ensemble path (``bench.py``'s "ensemble stack"): 16 unet16 members
    drawn on the card from the trained SWAG-diag moments (generator seed 42,
    scale 1.0), each one 16-row bf16 forward with MC-dropout live and its own
-   TTA draw (``member_mode="params_stack"``), with the launch counts read
-   around one call, the mean EU over pixels, bf16 held against fp32 with the
-   same members and draws, the median time of 10 calls, and what binding a
-   member's weights (``functional_call``) and casting them to bf16 cost;
+   TTA draw (``member_mode="params_stack"``, ``member_chunk=1``), with the
+   launch counts read around one call, the mean EU over pixels, bf16 held
+   against fp32 with the same members and draws, the median time of 10
+   calls, and what binding a member's weights (``functional_call``) and
+   casting them to bf16 cost (the sampler casts them once, when built);
+8a. the folded ensemble (``ensemble_folded``): the same 16 members three
+   ways: all in one member-folded 256-row forward (``member_chunk=None``,
+   ``member_fold=True``: a ``DiffUnet(members=16)``, GroupNorm with its
+   ``(16, C)`` affine), four folded 64-row forwards (``member_chunk=4``) and
+   one member at a time (``member_chunk=1``); for each, every kernel shape
+   it gives (from one uncounted call) checked against the twin first, then
+   the counted call (11 / 56, 44 / 224, 176 / 896 launches, no twin), the
+   stack and its EU, quality on the 256 test images inside the ensemble
+   bands, the median ms per call of 10, img/s, device time and busy share
+   (torch.profiler, 3 calls: the union of the kernel intervals, beside
+   their plain sum) and peak memory; the "auto" choice beside the fastest;
+   and an fp32 call with dropout 0 and TTA off whose folded logits and
+   stack equal the one-member-at-a-time ones to atol 1e-5 and rtol 1e-4;
+8b. unet256 (``unet256``): ``load_config(network="unet256")``, MC-dropout
+   p 0.2, seeded random weights with every leaf non-zero (the flax init's
+   zero output convs would hide both kernels from the logits), 16 members x
+   TTA in one 256-row bf16 forward on 16 images: its new attention (d = 128,
+   192) and GroupNorm (up to 1536 channels) shapes checked against the
+   twins, 19 / 94 launches counted with no twin, the whole call against
+   the same call with both twins forced (same draws; mean |dp| at most
+   TOL's bf16 atol and argmax agreement 0.99), ms per call, img/s and peak
+   memory;
 9. the HRNet path (``bench.py``'s "hrnet x16"): hrnet-s with the trained
    toy-128 weights, 16 MC-dropout members (final dropout) x TTA folded into
    one 256-row bf16 forward on 16 images, BatchNorm on its running
@@ -155,7 +178,10 @@ ASSET_HRNET = REPO / "assets" / "bench_hrnet_s_toy128.npz"
 ASSET_MULTICLASS = REPO / "assets" / "bench_unet16_gtatoy_multiclass.npz"
 ENSEMBLE16_QUALITY = REPO / "assets" / "ensemble16_quality.json"
 PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
-               "prob_unet": ASSET_PROB_UNET, "ensemble": ASSET_SWAG, "hrnet": ASSET_HRNET,
+               "prob_unet": ASSET_PROB_UNET, "ensemble": ASSET_SWAG,
+               "ensemble_folded": ASSET_SWAG,
+               # seeded random weights: reads no file of the repo's assets
+               "unet256": None, "hrnet": ASSET_HRNET,
                "multiclass": ASSET_MULTICLASS, "infer": ASSET,
                # trains from scratch on the generated toy-128 data: reads only
                # the JAX members' quality record its bands come from
@@ -274,6 +300,18 @@ TRAIN_FAMILIES = {
     "prob_unet": {"epochs": 6, "extra": ["trainer.val_every_n_epochs=3"], "step": (21, 106),
                   "step_vjp": (21, 105), "serve": GENERATIVE16_LAUNCHES["prob_unet"]},
 }
+# the folded ensemble: per strategy, the sampler's member fields and the
+# launches of one call (attention, GroupNorm)
+FOLD_STRATEGIES = {"folded": (dict(member_chunk=None, member_fold=True), (11, 56)),
+                   "chunk4": (dict(member_chunk=4), (44, 224)),
+                   "chunk1": (dict(member_chunk=1), (176, 896))}
+# unet256: the weights' seed and the launches of one 256-row forward
+UNET256_SEED, UNET256_LAUNCHES = 256, (19, 94)
+# a whole bf16 call through the kernels against the same call through both
+# twins, same draws: each of the 113 sites may move an element by one bf16
+# rounding (TOL), which the network carries to the probabilities; their
+# mean |dp| is held to TOL's bf16 atol and the argmax to 99% agreement
+TWIN_CALL_TOL = (TOL["bfloat16"][0], 0.99)
 # the multiclass path (bench.py:698-701): frames, frame size, window, stride,
 # members, switched references per frame, seed
 MC_FRAMES, MC_SIZE, MC_WINDOW, MC_STRIDE, MC_MEMBERS, MC_SEED = 8, (256, 512), 128, 64, 8, 1234
@@ -423,7 +461,9 @@ def attention_width_cases() -> list[dict]:
 
 
 def group_norm_case(shape: tuple, dtype_name: str, act: str, seed: int,
-                    timed: bool = True) -> dict:
+                    timed: bool = True, members: int = 0) -> dict:
+    """The kernel against its twin at ``shape``; ``members`` > 0: an
+    ``(members, C)`` affine over member-major rows (a folded ensemble's)."""
     import torch
     import torch.nn.functional as F
 
@@ -436,8 +476,9 @@ def group_norm_case(shape: tuple, dtype_name: str, act: str, seed: int,
     gen = torch.Generator("cuda").manual_seed(seed)
     c = shape[-1]
     x = (3.0 * torch.randn(shape, generator=gen, device="cuda") + 1.0).to(dtype)
-    scale = torch.randn(c, generator=gen, device="cuda")
-    bias = torch.randn(c, generator=gen, device="cuda")
+    lead = (members,) if members else ()
+    scale = torch.randn(lead + (c,), generator=gen, device="cuda")
+    bias = torch.randn(lead + (c,), generator=gen, device="cuda")
     out = gn.group_norm_act(x, scale, bias, act)
     ref = gn.group_norm_act_reference(x, scale, bias, act)
     torch.cuda.synchronize()
@@ -446,15 +487,17 @@ def group_norm_case(shape: tuple, dtype_name: str, act: str, seed: int,
     s = x.numel() // (shape[0] * c)
     plan = gn.cluster_plan(s, c, dtype, shape[0])
     clusters = gn.max_active_clusters(s, c, dtype, act, plan, x.device)
-    case = {"shape": list(shape), "dtype": dtype_name, "act": act, "max_abs_err": max_err,
+    case = {"shape": list(shape), "dtype": dtype_name, "act": act, "members": members,
+            "max_abs_err": max_err,
             "cluster": plan.cluster, "mode": plan.mode, "smem": plan.smem,
             "threads": plan.threads, "cache_pix": plan.cache_pix,
             "slice_pix": plan.slice_pix, "active_clusters": clusters}
     plan_text = (f"K={plan.cluster} {plan.mode} ({plan.cache_pix}/{plan.slice_pix} px cached), "
                  f"{plan.threads} threads, {plan.smem} B shared, {clusters} clusters at once")
     if not timed:
-        log(f"group_norm_act {shape} {dtype_name} {act}: max|kernel-twin| {max_err:.3e}; "
-            f"{plan_text}")
+        affine = f", ({members}, {c}) affine" if members else ""
+        log(f"group_norm_act {shape} {dtype_name} {act}{affine}: max|kernel-twin| "
+            f"{max_err:.3e}; {plan_text}")
         return case
     ms = median_ms(lambda: gn.group_norm_act(x, scale, bias, act))
     dev_ms = device_ms(lambda: gn.group_norm_act(x, scale, bias, act))
@@ -508,7 +551,12 @@ def ensemble_members():
                              torch.Generator("cuda").manual_seed(SWAG_SEED), MEMBERS)
 
 
-def build_path(precision: str, separable: bool, model: str = "softmax"):
+def build_path(precision: str, separable: bool, model: str = "softmax", **members_fields):
+    """(config, built model, sampler) of a path; ``members_fields``
+    (``member_chunk``, ``member_fold``) replace the ensemble's one member at
+    a time."""
+    import dataclasses
+
     import torch
 
     from diffuncertainty_tpu_torch.core.config import load_config
@@ -543,6 +591,8 @@ def build_path(precision: str, separable: bool, model: str = "softmax"):
                         separable_warp=separable)
         spec = SamplerSpec(n_pred=1, n_members=MEMBERS, tta=True, tta_config=tta,
                            member_mode="dropout" if members is None else "params_stack")
+        if members is not None:
+            spec = dataclasses.replace(spec, **{"member_chunk": 1, **members_fields})
     torch.cuda.synchronize()
     return cfg, built, make_sampler(built, spec, members=members)
 
@@ -601,7 +651,7 @@ def counted_call(built, sampler, images, seed: int):
 
     attn_seen, norm_seen = [], []
     hooks = []
-    for m in built.module.modules():
+    for m in (m for net in getattr(sampler, "modules", [built.module]) for m in net.modules()):
         if isinstance(m, AttentionBlock):
             hooks.append(m.register_forward_pre_hook(
                 lambda mod, args: attn_seen.append(tuple(args[0].shape))))
@@ -872,8 +922,259 @@ def phase_ensemble(attn_checked16: set, norm_checked16: set):
     log(f"ensemble path bf16: {per_call * 1e3:.2f} ms per call (median of 10) of {BATCH} "
         f"images x {MEMBERS} members -> {BATCH / per_call:.2f} img/s; per call, binding "
         f"{MEMBERS} members' weights (functional_call) {overheads['functional_call_ms']:.2f} ms, "
-        f"casting them to bf16 {overheads['weight_casts_ms']:.2f} ms")
+        f"casting them to bf16 {overheads['weight_casts_ms']:.2f} ms (the sampler casts them "
+        f"once, when it is built)")
     return launches, attn_calls, norm_seen, BATCH / per_call, overheads
+
+
+@contextlib.contextmanager
+def recording_sites(sampler):
+    """Records, while the block runs, the input shape of every attention
+    call and (shape, dtype, act, members) of every GroupNorm call in the
+    modules the sampler's forwards run."""
+    from diffuncertainty_tpu_torch.models.unet import AttentionBlock, GroupNorm32
+
+    attn_seen, norm_seen, hooks = [], [], []
+    for m in (m for net in sampler.modules for m in net.modules()):
+        if isinstance(m, AttentionBlock):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args: attn_seen.append(tuple(args[0].shape))))
+        elif isinstance(m, GroupNorm32):
+            hooks.append(m.register_forward_pre_hook(lambda mod, args: norm_seen.append(
+                (tuple(args[0].shape), str(args[0].dtype).split(".")[-1],
+                 "none" if mod.act == "gelu" else mod.act, mod.members))))
+    try:
+        yield attn_seen, norm_seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def check_sites(sampler, images, attn_checked: set, norm_checked: set, seed: int
+                ) -> tuple[list, list]:
+    """Every attention and GroupNorm shape one (uncounted) call of the
+    sampler gives the kernels, checked against the twins unless checked
+    before (not timed); returns the new cases."""
+    import torch
+
+    with recording_sites(sampler) as (attn_seen, norm_seen):
+        sampler(images, torch.Generator("cuda").manual_seed(99))
+        torch.cuda.synchronize()
+    attn_cases, norm_cases = [], []
+    for b, hh, ww, c in sorted(set(attn_seen)):
+        if (b, hh * ww, c) not in attn_checked:
+            attn_cases.append(attention_case(b, hh * ww, c, 4, seed=seed + len(attn_cases),
+                                             timed=False))
+            attn_checked.add((b, hh * ww, c))
+    for key in sorted(set(norm_seen)):
+        if key not in norm_checked:
+            shape, dt, act, members = key
+            norm_cases.append(group_norm_case(shape, dt, act, seed=seed + 50 + len(norm_cases),
+                                              timed=False, members=members))
+            norm_checked.add(key)
+    return attn_cases, norm_cases
+
+
+def profiled_ms(sampler, images, calls: int = 3) -> tuple[float, dict]:
+    """(wall ms by CUDA events, ``profile_main_path.device_ms``) per call over
+    ``calls`` calls after a warm one; ``busy`` / wall is the busy share."""
+    import torch
+
+    from diffuncertainty_tpu_torch.tools.profile_main_path import device_ms
+
+    sampler(images, torch.Generator("cuda").manual_seed(50))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for i in range(calls):
+            sampler(images, torch.Generator("cuda").manual_seed(60 + i))
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls, device_ms(prof, calls)
+
+
+def peak_memory_gib(sampler, images) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sampler(images, torch.Generator("cuda").manual_seed(70))
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def folded_fp32_check() -> dict:
+    """fp32, dropout 0, TTA off: the 16 members' logits from one folded
+    256-row forward (``DiffUnet(members=16)``) and the folded sampler's
+    stack against one member at a time, to atol 1e-5 and rtol 1e-4."""
+    import torch
+
+    from diffuncertainty_tpu_torch.core.config import load_config
+    from diffuncertainty_tpu_torch.models.factory import build_model
+    from diffuncertainty_tpu_torch.models.unet import DiffUnet
+    from diffuncertainty_tpu_torch.sampling.sampler import (SamplerSpec, _tile_rows, cast_stack,
+                                                            make_sampler)
+
+    cfg = load_config(data="lidc128", network="unet16", model="softmax", eu_method="none",
+                      precision="fp32")
+    built = build_model(cfg, device="cuda")
+    members = ensemble_members()
+    stack = cast_stack(built.module, members)
+    images = test_images(cfg)
+    with torch.device("meta"):
+        folded = DiffUnet(**{**built.module.config, "members": MEMBERS}).eval()
+    call = torch.func.functional_call
+    with torch.no_grad():
+        got = call(folded, stack, (_tile_rows(images, MEMBERS),)).logits
+        ref = torch.cat([call(built.module, {k: v[m] for k, v in stack.items()}, (images,)).logits
+                         for m in range(MEMBERS)])
+    err = (got - ref).abs()
+    bad = int((err > 1e-5 + 1e-4 * ref.abs()).sum())
+    spec = dict(n_pred=1, n_members=MEMBERS, member_mode="params_stack")
+    stacks = {name: make_sampler(built, SamplerSpec(**spec, **fields), members=members)(
+        images, torch.Generator("cuda").manual_seed(0)).groups
+        for name, fields in (("folded", dict(member_chunk=None, member_fold=True)),
+                             ("chunk1", dict(member_chunk=1)))}
+    p_err = (stacks["folded"] - stacks["chunk1"]).abs()
+    p_bad = int((p_err > 1e-5 + 1e-4 * stacks["chunk1"].abs()).sum())
+    out = {"logits_max_abs_err": err.max().item(), "logits_beyond": bad,
+           "stack_max_abs_err": p_err.max().item(), "stack_beyond": p_bad}
+    log(f"ensemble_folded fp32 (dropout 0, TTA off): folded vs one member at a time: logits "
+        f"max |d| {out['logits_max_abs_err']:.3e} ({bad} beyond 1e-5 + 1e-4|ref|), stack max "
+        f"|d| {out['stack_max_abs_err']:.3e} ({p_bad} beyond)")
+    if bad or p_bad:
+        raise AssertionError(f"folded fp32 ensemble differs from one member at a time: {out}")
+    return out
+
+
+def phase_ensemble_folded(smi: str, attn_checked: set, norm_checked: set) -> dict:
+    """The 16-member SWAG-diag ensemble folded three ways (``FOLD_STRATEGIES``):
+    each strategy's kernel shapes against the twins, its counted call, stack,
+    EU, quality on 256 images, times, busy share and peak memory; the
+    fp32 folded check."""
+    import torch
+
+    from diffuncertainty_tpu_torch.sampling import sampler as sampler_mod
+    from diffuncertainty_tpu_torch.tools.quality import toy128_quality_eval
+
+    stats, attn_cases, norm_cases = {}, [], []
+    for i, (name, (fields, (n_attn, n_norm))) in enumerate(FOLD_STRATEGIES.items()):
+        cfg, built, sampler = build_path("bf16", separable=True, model="ensemble", **fields)
+        images = test_images(cfg)
+        a, n = check_sites(sampler, images, attn_checked, norm_checked, seed=800 + 100 * i)
+        attn_cases += a
+        norm_cases += n
+        stack, launches, _, _, _, _ = counted_call(built, sampler, images, 0)
+        label = f"ensemble_folded {name} (blocks {sampler.blocks})"
+        check_launches(label, launches, {"qkv_attention": n_attn, "group_norm_act": n_norm})
+        check_stack(label, stack)
+        if stack.groups.shape != (MEMBERS, 1, BATCH, HW, HW, 2):
+            raise AssertionError(f"{label} stack shape {tuple(stack.groups.shape)}")
+        eu = mean_eu(label, stack)
+        t0 = time.perf_counter()
+        q = toy128_quality_eval(built, sampler, cfg.data, batch=BATCH, hw=HW, device="cuda")
+        log(f"quality {label} (256 test images, {time.perf_counter() - t0:.1f}s): {q}")
+        for metric, ref in PARITY["ensemble_bf16"].items():
+            if abs(q[metric] - ref) > BANDS[metric]:
+                raise AssertionError(f"{label} {metric} {q[metric]:.5f} outside "
+                                     f"{ref} +- {BANDS[metric]}")
+        per_call = median_call_s(sampler, images, 10)
+        wall_ms, dev = profiled_ms(sampler, images)
+        peak = peak_memory_gib(sampler, images)
+        stats[name] = {"blocks": sampler.blocks, "launches": launches, "mean_eu": eu,
+                       "quality": q, "ms": per_call * 1e3, "img_s": BATCH / per_call,
+                       "profiled_wall_ms": wall_ms, "device_ms": dev["busy"],
+                       "device_sum_ms": dev["sum"], "streams": dev["streams"],
+                       "busy_share": dev["busy"] / wall_ms if dev["busy"] > 0 else None,
+                       "peak_memory_gib": peak}
+        log(f"{label} bf16 on {smi}: {per_call * 1e3:.2f} ms per call (median of 10) -> "
+            f"{BATCH / per_call:.2f} img/s; under the profiler {wall_ms:.2f} ms, device "
+            f"{dev['busy']:.2f} ms (kernel times summed {dev['sum']:.2f} ms, "
+            f"{dev['streams']} streams), busy share "
+            + ("not measured" if not dev["busy"] else f"{dev['busy'] / wall_ms:.3f}")
+            + f"; peak memory {peak:.2f} GiB")
+        del sampler, built, stack
+        torch.cuda.empty_cache()
+    fastest = min(stats, key=lambda k: stats[k]["ms"])
+    auto = sampler_mod.AUTO_MEMBER_CHUNK.get(("cuda", "softmax"), 1)
+    auto_name = {None: "folded", 4: "chunk4", 1: "chunk1"}.get(auto, f"chunk{auto}")
+    log(f"ensemble_folded: fastest strategy {fastest} ({stats[fastest]['ms']:.2f} ms); "
+        f"member_chunk 'auto' for stacked softmax members on cuda is {auto!r} ({auto_name})"
+        + ("" if auto_name == fastest else " -- not the fastest in this run"))
+    return {"strategies": stats, "fastest": fastest, "auto": auto_name,
+            "fp32": folded_fp32_check(), "attn_cases": attn_cases, "norm_cases": norm_cases}
+
+
+def seeded_weights_(module, seed: int) -> None:
+    """Random weights on every leaf from ``seed``: conv and dense kernels
+    N(0, 1/fan_in), norm scales 1 + N(0, 0.1^2), biases N(0, 0.1^2)."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            z = torch.randn(p.shape, generator=gen, device="cuda")
+            if p.ndim >= 2:
+                p.copy_(z / p[0].numel() ** 0.5)
+            else:
+                p.copy_((1.0 if name.endswith("weight") else 0.0) + 0.1 * z)
+            if not p.abs().max() > 0:
+                raise AssertionError(f"unet256 leaf {name} is all zero")
+
+
+def phase_unet256(smi: str, attn_checked: set, norm_checked: set) -> dict:
+    """unet256 (64 channels, mult 1,2,4,8,12, attention at the two deepest
+    levels), seeded weights, 16 MC-dropout members x TTA in one 256-row bf16
+    forward: the new shapes against the twins, the counted call, the call
+    against the twins-forced call with the same draws, time and memory."""
+    import torch
+
+    from diffuncertainty_tpu_torch.core.config import load_config
+    from diffuncertainty_tpu_torch.models.factory import build_model
+    from diffuncertainty_tpu_torch.sampling.sampler import SamplerSpec, make_sampler
+    from diffuncertainty_tpu_torch.sampling.tta import TTAConfig
+
+    cfg = load_config(data="lidc128", network="unet256", model="softmax", eu_method="dropout",
+                      precision="bf16")
+    built = build_model(cfg, device="cuda")
+    seeded_weights_(built.module, UNET256_SEED)
+    tta = TTAConfig(hflip_p=0.5, rotation_limit=22.5, scale_limit=(-0.2, 0.2),
+                    separable_warp=True)
+    sampler = make_sampler(built, SamplerSpec(n_pred=1, n_members=MEMBERS, member_mode="dropout",
+                                              tta=True, tta_config=tta))
+    images = test_images(cfg)
+    n_params = sum(p.numel() for p in built.module.parameters())
+    attn_cases, norm_cases = check_sites(sampler, images, attn_checked, norm_checked, seed=1200)
+    stack, launches, n_attn, n_norm, _, _ = counted_call(built, sampler, images, 0)
+    check_launches(f"unet256 ({n_params} weights)", launches,
+                   {"qkv_attention": UNET256_LAUNCHES[0], "group_norm_act": UNET256_LAUNCHES[1]})
+    if (n_attn, n_norm) != UNET256_LAUNCHES:
+        raise AssertionError(f"unet256 has {n_attn} AttentionBlocks and {n_norm} GroupNorms")
+    check_stack("unet256", stack)
+    with torch.no_grad():
+        with twins_forced():
+            twin = sampler(images, torch.Generator("cuda").manual_seed(0))
+    diff = (stack.mean.float() - twin.mean.float()).abs()
+    agree = (stack.mean.argmax(-1) == twin.mean.argmax(-1)).float().mean().item()
+    log(f"unet256 call vs the same call through both twins (same draws): mean |dp| "
+        f"{diff.mean().item():.3e}, max |dp| {diff.max().item():.3e}, argmax agreement "
+        f"{agree:.5f} (held to mean {TWIN_CALL_TOL[0]} and {TWIN_CALL_TOL[1]})")
+    if diff.mean().item() > TWIN_CALL_TOL[0] or agree < TWIN_CALL_TOL[1]:
+        raise AssertionError("unet256 through the kernels disagrees with the twins-forced call")
+    per_call = median_call_s(sampler, images, 5)
+    peak = peak_memory_gib(sampler, images)
+    log(f"unet256 bf16 on {smi}: {per_call * 1e3:.2f} ms per call (median of 5) of {BATCH} "
+        f"images x {MEMBERS} members -> {BATCH / per_call:.2f} img/s; peak memory {peak:.2f} GiB")
+    out = {"launches": launches, "weights": n_params, "ms": per_call * 1e3,
+           "img_s": BATCH / per_call, "peak_memory_gib": peak,
+           "twin_call": {"mean_abs_dp": diff.mean().item(), "max_abs_dp": diff.max().item(),
+                         "argmax_agreement": agree},
+           "attn_cases": attn_cases, "norm_cases": norm_cases}
+    del sampler, built, stack, twin
+    torch.cuda.empty_cache()
+    return out
 
 
 def mean_eu(name: str, stack) -> float:
@@ -1328,6 +1629,7 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
     from diffuncertainty_tpu_torch.models.unet import AttentionBlock, GroupNorm32
     from diffuncertainty_tpu_torch.ops import cuda_attention as ca
     from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+    from diffuncertainty_tpu_torch.tools.profile_main_path import device_ms
 
     # from the flax init, the zero head conv stops every gradient but its own
     # at step 0, and the zero ResBlock out_convs stop the blocks' inner
@@ -1448,16 +1750,17 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end) / runs
-    busy = sum(a.self_device_time_total for a in prof.key_averages()
-               if a.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / runs
-    split.update(step_wall_ms=wall, device_ms=busy,
+    dev = device_ms(prof, runs)
+    busy = dev["busy"]
+    split.update(step_wall_ms=wall, device_ms=busy, device_sum_ms=dev["sum"],
                  busy_share=busy / wall if busy > 0 else None,
                  peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     log(f"{label} split on {smi} (batch {BATCH}, CUDA events, median of {runs}): forward "
         f"{split['forward']:.2f} ms, backward {split['backward']:.2f} ms (of which the "
         f"attention twin VJPs {split['attention_vjp']:.2f} ms and the GroupNorm twin VJPs "
         f"{split['group_norm_vjp']:.2f} ms), optimizer + EMA {split['optimizer_ema']:.2f} ms; "
-        f"{runs} steps: {wall:.2f} ms a step, device {busy:.2f} ms, busy share "
+        f"{runs} steps: {wall:.2f} ms a step, device {busy:.2f} ms (kernel times summed "
+        f"{dev['sum']:.2f} ms, {dev['streams']} streams), busy share "
         + ("not measured" if split["busy_share"] is None else f"{split['busy_share']:.3f}")
         + f", peak memory {split['peak_memory_gib']:.2f} GiB")
     return {"launches": counts, "max_leaf_rel_err": rel[worst], "split": split}
@@ -1880,6 +2183,21 @@ def main(argv=None) -> int:
         norm_checked_ens = {((BATCH,) + shape, dt, act) for shape, dt, act in sites["softmax"]}
         (launches_by_path["ensemble"], ens_attn_calls, ens_norm_seen, img_s["ensemble"],
          ens_overheads) = phase_ensemble(attn_checked16, norm_checked_ens)
+    # the folded ensemble and unet256 check the shapes they give the kernels
+    # against the twins (beyond those checked above) before their counted calls
+    seen_attn, seen_norm = set(attn_checked), set()
+    folded = unet256 = None
+    if "ensemble_folded" in paths:
+        folded = phase_ensemble_folded(smi, seen_attn, seen_norm)
+        launches_by_path["ensemble_folded"] = folded["strategies"]["folded"]["launches"]
+        for name, st in folded["strategies"].items():
+            launches_by_path[f"ensemble_folded_{name}"] = st["launches"]
+            img_s[f"ensemble_folded_{name}"] = st["img_s"]
+    if "unet256" in paths:
+        unet256 = phase_unet256(smi, seen_attn, seen_norm)
+        launches_by_path["unet256"], img_s["unet256"] = unet256["launches"], unet256["img_s"]
+    new_attn_cases = [c for ph in (folded, unet256) if ph for c in ph["attn_cases"]]
+    new_norm_cases = [c for ph in (folded, unet256) if ph for c in ph["norm_cases"]]
     if "hrnet" in paths:
         launches_by_path["hrnet"], img_s["hrnet"], hrnet_eu = phase_hrnet()
     if "multiclass" in paths:
@@ -1987,8 +2305,8 @@ def main(argv=None) -> int:
         "source": "diffuncertainty_tpu_torch/csrc/qkv_attention.cu",
         "replaces": "diffuncertainty_tpu/ops/pallas_attention.py:38",
         **launches("qkv_attention"),
-        "max_abs_err": max(c["max_abs_err"]
-                           for c in attn_cases + attn_cases16 + attn_cases168 + width_cases),
+        "max_abs_err": max(c["max_abs_err"] for c in attn_cases + attn_cases16 + attn_cases168
+                           + width_cases + new_attn_cases),
         "ms": attn_per["ms"],
         "plain_ms": attn_per["plain_ms"],
         "bound_ms": attn_per["bound_ms"],
@@ -2001,6 +2319,7 @@ def main(argv=None) -> int:
         "shapes16": attn_cases16,
         "shapes168": attn_cases168,
         "other_widths": width_cases,
+        "folded_and_unet256_shapes": new_attn_cases,
         "ptxas": ptxas.get("qkv_attention", {}),
     }, {
         "name": "group_norm_act",
@@ -2008,7 +2327,8 @@ def main(argv=None) -> int:
         "source": "diffuncertainty_tpu_torch/csrc/group_norm_act.cu",
         "replaces": "diffuncertainty_tpu/ops/pallas_groupnorm.py:32",
         **launches("group_norm_act"),
-        "max_abs_err": max(c["max_abs_err"] for c in list(norm_cases.values()) + wide_cases),
+        "max_abs_err": max(c["max_abs_err"] for c in list(norm_cases.values()) + wide_cases
+                           + new_norm_cases),
         "ms": norm_per["ms"],
         "device_ms": norm_per["device_ms"],
         "plain_ms": norm_per["plain_ms"],
@@ -2023,11 +2343,21 @@ def main(argv=None) -> int:
         **norm_extra,
         "shapes": list(norm_cases.values()),
         "wide_shapes": wide_cases,
+        "folded_and_unet256_shapes": new_norm_cases,
         "ptxas": ptxas.get("group_norm_act", {}),
     }]
     extra = ""
     if "ensemble" in paths:
         extra += f" (ensemble member overheads {ens_overheads})"
+    if folded:
+        extra += "; ensemble_folded " + ", ".join(
+            f"{k} {v['ms']:.2f} ms (busy {v['busy_share']}, peak {v['peak_memory_gib']:.2f} GiB)"
+            for k, v in folded["strategies"].items()) + (
+            f", fastest {folded['fastest']}, auto "
+            f"{folded['auto']}, fp32 {folded['fp32']}")
+    if unet256:
+        extra += (f"; unet256 {unet256['ms']:.2f} ms, peak {unet256['peak_memory_gib']:.2f} GiB, "
+                  f"twin call {unet256['twin_call']}")
     if "hrnet" in paths:
         extra += f"; hrnet mean EU {hrnet_eu:.4e}"
     if "multiclass" in paths:

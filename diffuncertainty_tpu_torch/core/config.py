@@ -5,13 +5,14 @@ The dataclasses carry every field of the JAX package's, with its defaults,
 so that ``from_dict`` reads the ``config.json`` a JAX checkpoint holds and
 ``to_dict`` writes one the JAX ``from_dict`` reads back. Fields that only
 training reads (trainer, EMA and snapshot schedules, batch sizes) are carried
-through unread. A field whose value selects a network option the port lacks
-raises ``NotImplementedError`` naming it when the config is made: dropping it
-would build another network under the same weights.
+through unread. Every network option of the JAX package is ported
+(``models/unet.py``); as there, an unknown ``act`` or ``final_act`` raises
+when the network is built.
 
 ``load_config`` composes the groups the port has, as the JAX ``load_config``
 composes ``configs/<group>/<name>.yaml`` over the defaults: ``data/{lidc64,
-lidc128, toy64, gta_toy}``, ``network/{unet16, hrnet-s, hrnet-m}``,
+lidc128, toy64, gta_toy}``, ``network/{unet4, unet16, unet64, unet256,
+hrnet-s, hrnet-m}``,
 ``model/{softmax, diffusion, ssn, prob_unet}`` and ``eu_method/{dropout,
 none, ensemble, swag, swag_diag}``, their patches held here as Python
 constants, then the overrides: a nested dict, or the command line's dotted
@@ -51,25 +52,11 @@ class NetworkConfig:
     one_skip_per_reso: bool = False
     mlp_attn: bool = False
     act: str = "silu"
-    final_act: str = "none"  # none | softmax (model/diffusion.yaml sets softmax)
+    final_act: str = "none"  # none | softmax | tanh | sigmoid (model/diffusion.yaml: softmax)
     dropout: float = 0.0  # rate when eu_method does not patch the dropout spec
     # HRNet-specific (backbone == "hrnet")
     hrnet_width: int = 18
     hrnet_pretrained: str | None = None
-
-    def __post_init__(self):
-        unported = {
-            "network.new_upsample_method": self.new_upsample_method,
-            "network.one_skip_per_reso": self.one_skip_per_reso,
-            "network.mlp_attn": self.mlp_attn,
-            f"network.act={self.act!r}": self.act != "silu",
-            f"network.final_act={self.final_act!r}": self.final_act not in ("none", "softmax"),
-            f"network.num_heads_upsample={self.num_heads_upsample}":
-                self.num_heads_upsample not in (-1, self.num_heads),
-        }
-        for option, selected in unported.items():
-            if selected:
-                raise NotImplementedError(f"{option} is not ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,7 +272,15 @@ _GROUPS = {
                 gauss_noise_var_limit=(0.01, 0.05))}},
     },
     "network": {
+        "unet4": {"network": {"name": "unet", "nickname": "unet_s", "backbone": "diff_unet",
+                              "model_channels": 16}},
         "unet16": {"network": {"name": "unet", "nickname": "unet_s", "backbone": "diff_unet"}},
+        "unet64": {"network": {"name": "unet", "nickname": "unet_m", "backbone": "diff_unet",
+                               "num_res_blocks": (2, 2, 3, 4, 4),
+                               "channel_mult": (1, 2, 4, 8, 12)}},
+        "unet256": {"network": {"name": "unet", "nickname": "unet_l", "backbone": "diff_unet",
+                                "model_channels": 64, "num_res_blocks": (2, 2, 3, 4, 4),
+                                "channel_mult": (1, 2, 4, 8, 12)}},
         "hrnet-s": {"network": {"name": "hrnet", "nickname": "hrnet_s", "backbone": "hrnet",
                                 "hrnet_width": 24}},
         "hrnet-m": {"network": {"name": "hrnet", "nickname": "hrnet_m", "backbone": "hrnet",
@@ -324,16 +319,15 @@ def load_config(
     overrides: dict | list[str] | None = None,
 ) -> ExperimentConfig:
     """The four groups over the defaults, then ``trainer.precision`` and the
-    ``overrides`` (a nested dict, or dotted ``a.b=c`` tokens); a group name
-    the port lacks raises."""
+    ``overrides`` (a nested dict, or dotted ``a.b=c`` tokens); an unknown
+    group name raises."""
     cfg = ExperimentConfig()
     for group, name in (("data", data), ("network", network), ("model", model),
                         ("eu_method", eu_method)):
         options = _GROUPS[group]
         if name not in options:
             raise NotImplementedError(
-                f"config '{name}' in group '{group}' is not ported; "
-                f"available: {sorted(options)}")
+                f"no config '{name}' in group '{group}'; available: {sorted(options)}")
         cfg = _merge(cfg, options[name])
     cfg = _merge(cfg, {"trainer": {"precision": precision}})
     if isinstance(overrides, (list, tuple)):

@@ -16,7 +16,9 @@ trainer saves its checkpoints in the flax layout through it.
 
 Member stacks (the sampler's ``params_stack``) are state dicts of (M, ...)
 tensors: ``flax_to_torch_stacked`` maps a flax tree with a leading member
-axis (kernels transposed past it), ``stack_states`` stacks the state dicts
+axis (kernels transposed past it): a stacked ensemble, or the tree of a
+member-folded JAX ``DiffUnet(members=M)``, which is the state dict of the
+port's ``DiffUnet(members=M)`` as it is; ``stack_states`` stacks the state dicts
 of several checkpoints (a deep ensemble, ``load_member_stack``), and
 ``load_swag_npz`` reads the SWAG-diag moments asset
 (``tools/train_bench_assets.py`` of the JAX package).

@@ -8,7 +8,10 @@
 // C/G consecutive channels; mean = sum/n and var = max(sumsq/n - mean^2, 0)
 // with n = S*C/G; inv = 1/sqrt(var + eps); the affine folded into
 // a = inv*scale, b = bias - mean*a; y = x*a + b; the activation (none, SiLU,
-// ReLU) in f32; the cast back to the input type. The TPU kernel's lane fold
+// ReLU) in f32; the cast back to the input type. The affine is (C,) or, for
+// member-folded rows (a stacked ensemble, ops/member_fold.py), (M, C): row b
+// takes member b / rows_per_member's row of it, as the JAX group_norm_32
+// repeats an (M, C) affine over M member-major blocks. The TPU kernel's lane fold
 // (f = 128/C) is a layout trick for its 128-lane registers and has no
 // counterpart here.
 //
@@ -294,8 +297,9 @@ __device__ __forceinline__ void block_channel_sums(float (&val)[V], float* part,
 template <typename T, int ACT>
 __global__ void __launch_bounds__(kMaxThreads)
     group_norm_act_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                          const float* __restrict__ bias, T* __restrict__ y, int s, int c,
-                          int groups, int slice_pix, int cache_pix, float n, float eps) {
+                          const float* __restrict__ bias, T* __restrict__ y,
+                          int rows_per_member, int s, int c, int groups, int slice_pix,
+                          int cache_pix, float n, float eps) {
   constexpr int V = VecOf<T>::N;
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -387,11 +391,13 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   cluster_arrive();  // done with the other blocks' shared memory
   __syncthreads();
+  // this element's member's row of the affine
+  const long long affine_row = (row / rows_per_member) * c;
   for (int ch = tid; ch < c; ch += nt) {
     const int g = ch / cpg;
-    const float a = g_inv[g] * scale[ch];
+    const float a = g_inv[g] * scale[affine_row + ch];
     ch_a[ch] = a;
-    ch_b[ch] = bias[ch] - g_mean[g] * a;
+    ch_b[ch] = bias[affine_row + ch] - g_mean[g] * a;
   }
   __syncthreads();
 
@@ -411,7 +417,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 template <typename T>
 using KernelFn = void (*)(const T*, const float*, const float*, T*, int, int, int, int, int,
-                          float, float);
+                          int, float, float);
 
 template <typename T>
 KernelFn<T> kernel_for(int act) {
@@ -479,8 +485,10 @@ cudaError_t configure(int act, long long rows, long long s, int c, int groups, i
 
 template <typename T>
 cudaError_t launch(const void* x, const float* scale, const float* bias, void* y, int act,
-                   long long rows, long long s, int c, int groups, int cluster, int threads,
-                   int slice_pix, int cache_pix, int smem, float eps, cudaStream_t stream) {
+                   long long rows, long long s, int c, int groups, int rows_per_member,
+                   int cluster, int threads, int slice_pix, int cache_pix, int smem, float eps,
+                   cudaStream_t stream) {
+  if (rows_per_member <= 0 || rows % rows_per_member != 0) return cudaErrorInvalidValue;
   KernelFn<T> fn;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
@@ -489,7 +497,8 @@ cudaError_t launch(const void* x, const float* scale, const float* bias, void* y
   if (err != cudaSuccess) return err;
   const float n = static_cast<float>(s) * static_cast<float>(c / groups);
   err = cudaLaunchKernelEx(&cfg, fn, static_cast<const T*>(x), scale, bias, static_cast<T*>(y),
-                           static_cast<int>(s), c, groups, slice_pix, cache_pix, n, eps);
+                           rows_per_member, static_cast<int>(s), c, groups, slice_pix, cache_pix,
+                           n, eps);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -531,15 +540,18 @@ int group_norm_act_clusters(int dtype, int act, long long s, int c, int groups, 
 }
 
 // x, y: (rows, s, c) contiguous, 16-byte aligned, of the type named by dtype
-// (0 = fp32, 1 = bf16); scale, bias: (c,) fp32. act: 0 none, 1 SiLU, 2 ReLU.
+// (0 = fp32, 1 = bf16); scale, bias: (rows / rows_per_member, c) fp32, row b of
+// x taking row b / rows_per_member of the affine (rows_per_member = rows for a
+// (c,) affine; rows * cluster < 2^31, so an int holds it). act: 0 none, 1 SiLU,
+// 2 ReLU.
 // One cluster of `cluster` blocks of `threads` threads per row; block r takes
 // pixels [r * slice_pix, (r + 1) * slice_pix) and holds the first cache_pix of
 // them in its `smem` bytes of dynamic shared memory. Returns a cudaError_t
 // value (0 on success).
 int group_norm_act(const void* x, const void* scale, const void* bias, void* y, int dtype,
-                   int act, long long rows, long long s, int c, int groups, int cluster,
-                   int threads, int slice_pix, int cache_pix, int smem, float eps, void* stream,
-                   int device) {
+                   int act, long long rows, long long s, int c, int groups, int rows_per_member,
+                   int cluster, int threads, int slice_pix, int cache_pix, int smem, float eps,
+                   void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -547,11 +559,11 @@ int group_norm_act(const void* x, const void* scale, const void* bias, void* y, 
   const float* bi = static_cast<const float*>(bias);
   switch (dtype) {
     case 0:
-      return launch<float>(x, sc, bi, y, act, rows, s, c, groups, cluster, threads, slice_pix,
-                           cache_pix, smem, eps, st);
+      return launch<float>(x, sc, bi, y, act, rows, s, c, groups, rows_per_member, cluster,
+                           threads, slice_pix, cache_pix, smem, eps, st);
     case 1:
-      return launch<__nv_bfloat16>(x, sc, bi, y, act, rows, s, c, groups, cluster, threads,
-                                   slice_pix, cache_pix, smem, eps, st);
+      return launch<__nv_bfloat16>(x, sc, bi, y, act, rows, s, c, groups, rows_per_member,
+                                   cluster, threads, slice_pix, cache_pix, smem, eps, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
-"""Multi-rater 2D dataset over the on-disk contract (port of the single-schema
-path of ``diffuncertainty_tpu/data/dataset.py``; the combined schema raises).
+"""Multi-rater 2D dataset over the on-disk contract (port of
+``diffuncertainty_tpu/data/dataset.py``).
 
 ``{base_dir}/preprocessed/images/*.npy`` float32 or uint8 images (grayscale
 replicated to 3 channels, uint8 scaled by 1/255);
@@ -11,6 +11,15 @@ rater count comes from the caller, the fold's ``_meta.num_raters`` or the
 dataset name (``infer_num_raters``). ``load`` returns every rater's mask,
 one drawn at random, or with ``single_rater`` the one a stable hash of the
 image picks (the reference's ``_stable_rater_index``).
+
+A fold whose ``_meta.schema`` names "combined" (the reference's
+``lidc2d_dataset.py:197-235``) mixes datasets: its subject ids are
+``<dataset>/<path under that dataset's preprocessed/>``, resolved under the
+parent of ``base_dir``, and each sample takes its dataset's rater count from
+``_meta.dataset_configs[<dataset>]["num_raters"]``, so samples of one split
+may carry different counts (the loader pads them, the batch metrics mask the
+padding); ``num_raters`` is the largest, ``load`` labels each sample with its
+own dataset.
 """
 
 from __future__ import annotations
@@ -65,29 +74,47 @@ class MultiRaterDataset:
             raise ValueError(f"fold {data_fold_id} not in splits ({len(folds)} folds)")
         fold = folds[data_fold_id]
         meta = fold.get("_meta", {})
-        if "combined" in str(meta.get("schema") or "").lower():
-            raise NotImplementedError("the combined split schema is not ported")
         rater_pattern = meta.get("rater_pattern") or "{base_id}_{rater:02d}_mask.npy"
         if split not in fold:
             available = sorted(k for k in fold if not k.startswith("_"))
             raise ValueError(f"Unknown split '{split}'. Available: {available}")
+        self.image_paths: list[Path] = []
+        self.label_paths: list[list[Path]] = []
+        self.image_ids: list[str] = []
+        self.sample_datasets: list[str] = []
+        subject_ids = list(np.asarray(fold[split]).tolist())
+        if "combined" in str(meta.get("schema") or "").lower():
+            self.dataset_label = str(meta.get("dataset_name") or "combined")
+            configs = meta.get("dataset_configs", {})
+            if not configs:
+                raise ValueError("combined split needs _meta.dataset_configs")
+            counts = []
+            for rel in subject_ids:
+                ds_name, sub_rel = str(rel).split("/", 1)
+                n_r = int(configs[ds_name].get("num_raters"))
+                proc = self.base_dir.parent / ds_name / "preprocessed"
+                self._add(proc, sub_rel, rater_pattern, n_r, ds_name)
+                counts.append(n_r)
+            self.num_raters = max(counts) if counts else (num_raters or 0)
+            return
         self.dataset_label = str(meta.get("dataset_name") or self.base_dir.name)
         self.num_raters = (num_raters or meta.get("num_raters")
                            or infer_num_raters(self.dataset_label))
         if self.num_raters is None:
             raise ValueError(f"Cannot infer rater count for dataset '{self.dataset_label}'")
-        proc_dir = self.base_dir / "preprocessed"
-        self.image_paths: list[Path] = []
-        self.label_paths: list[list[Path]] = []
-        self.image_ids: list[str] = []
-        for rel in list(np.asarray(fold[split]).tolist()):
-            base_id = Path(rel).stem
-            self.image_paths.append(proc_dir / rel)
-            self.label_paths.append([
-                proc_dir / "labels" / rater_pattern.format(base_id=base_id, rater=r)
-                for r in range(self.num_raters)
-            ])
-            self.image_ids.append(base_id)
+        for rel in subject_ids:
+            self._add(self.base_dir / "preprocessed", rel, rater_pattern, self.num_raters,
+                      self.dataset_label)
+
+    def _add(self, proc_dir: Path, rel: str, rater_pattern: str, n_raters: int,
+             dataset: str) -> None:
+        base_id = Path(rel).stem
+        self.image_paths.append(proc_dir / rel)
+        self.label_paths.append([proc_dir / "labels" / rater_pattern.format(base_id=base_id,
+                                                                             rater=r)
+                                 for r in range(n_raters)])
+        self.image_ids.append(base_id)
+        self.sample_datasets.append(dataset)
 
     def __len__(self) -> int:
         return len(self.image_paths)
@@ -99,7 +126,7 @@ class MultiRaterDataset:
 
     def subset(self, keep: set[int]) -> None:
         """Keep only the samples at the positions in ``keep``, in order."""
-        for name in ("image_paths", "label_paths", "image_ids"):
+        for name in ("image_paths", "label_paths", "image_ids", "sample_datasets"):
             setattr(self, name, [v for i, v in enumerate(getattr(self, name)) if i in keep])
 
     def load(self, idx: int, rng: np.random.Generator | None = None) -> dict[str, Any]:
@@ -119,4 +146,4 @@ class MultiRaterDataset:
             pick = int((rng or np.random.default_rng()).integers(len(paths)))
             masks = np.load(paths[pick]).astype(np.int32)
         return {"image": img, "seg": masks, "image_id": self.image_ids[idx],
-                "dataset": self.dataset_label}
+                "dataset": self.sample_datasets[idx]}

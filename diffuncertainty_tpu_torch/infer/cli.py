@@ -9,6 +9,7 @@ JAX checkpoint).
     python -m diffuncertainty_tpu_torch.infer \\
         --checkpoint_paths saves/exp/v0/checkpoints/last \\
         --test_split id ood_noise --n_pred 10 --n_models 10 --tta [--device cpu]
+        [--member_chunk auto|none|N] [--same_dropout]
 
 Runs on the card unless ``--device cpu`` is given. Prints one summary dict
 per split (images, seconds, images_per_sec, out_dir).
@@ -31,7 +32,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_pred", type=int, default=10)
     p.add_argument("--n_models", type=int, default=10)
     p.add_argument("--tta", action="store_true")
-    p.add_argument("--same_dropout", action="store_true")
+    p.add_argument("--same_dropout", action="store_true",
+                   help="one dropout draw per member, reused by all its samples")
+    p.add_argument("--member_chunk", type=_member_chunk, default="auto",
+                   help="members per forward: auto (default), none (all) or an int")
     p.add_argument("--discretize", action="store_true")
     p.add_argument("--direct_au", dest="direct_au", action="store_true")
     p.add_argument("--ema_mode", choices=["true", "false", "both"], default="false")
@@ -56,6 +60,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="(data, member) device mesh; the port takes only 1 1")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
+
+
+def _member_chunk(text: str) -> int | str | None:
+    if text in ("auto", "none"):
+        return None if text == "none" else text
+    if not text.isdigit() or int(text) < 1:
+        raise argparse.ArgumentTypeError(f"member_chunk takes auto, none or an int >= 1, "
+                                         f"got {text!r}")
+    return int(text)
 
 
 def expand_checkpoints(patterns: list[str]) -> list[Path]:
@@ -103,6 +116,7 @@ def main(argv=None) -> list[dict]:
             skip_existing=args.skip_existing, diffusion_num_steps=args.diffusion_num_steps,
             diffusion_sampler=args.diffusion_sampler, swag_scale=args.swag_scale,
             data_input_dir=args.data_dir, save_dir=args.save_dir, version=job["version"],
+            member_chunk=args.member_chunk,
             mesh_shape=tuple(args.mesh_shape) if args.mesh_shape else None,
             device=args.device)
         runner = UncertaintyInference(job["checkpoints"], icfg)

@@ -15,9 +15,12 @@ the results tree (``infer/results.py``), on one device:
   generator seeded from the ``i``-th draw of a host generator seeded
   ``seed``; several samplers draw from it one after another.
 
-Runs on ``InferenceConfig.device`` (``cuda`` by default; without a card that
+Members execute as ``member_chunk`` and ``same_dropout`` say
+(``sampling/sampler.py``; the JAX job's two fields: ``member_chunk=None``
+folds every stacked member into one forward). Runs on
+``InferenceConfig.device`` (``cuda`` by default; without a card that
 raises, it never falls back to the CPU). One device only: the JAX job's
-(data, member) mesh and its member chunking are not ported.
+(data, member) mesh is not ported.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ class InferenceConfig:
     n_pred: int = 10
     n_models: int = 10
     tta: bool = False
-    same_dropout: bool = False  # not ported: the sampler raises
+    same_dropout: bool = False
     discretize: bool = False
     direct_au: bool = False
     use_ema: bool = False
@@ -68,7 +71,9 @@ class InferenceConfig:
     data_input_dir: str | None = None
     save_dir: str | None = None
     version: str = "version_0"
-    member_chunk: int | str | None = "auto"  # only "auto" is ported
+    # members per forward (SamplerSpec.member_chunk): "auto", None (all) or
+    # an int, which bounds peak memory
+    member_chunk: int | str | None = "auto"
     mesh_shape: tuple[int, int] | None = None  # only None or (1, 1) is ported
     device: str = "cuda"
 
@@ -78,10 +83,6 @@ def _check_ported(icfg: InferenceConfig) -> None:
         raise NotImplementedError(
             f"mesh_shape {tuple(icfg.mesh_shape)}: the port runs on one device; the (data, "
             f"member) mesh is ROADMAP Queue 1 item 6")
-    if icfg.member_chunk != "auto":
-        raise NotImplementedError(
-            f"member_chunk {icfg.member_chunk!r}: only 'auto' is ported (members one after "
-            f"another); chunked and vmapped members are ROADMAP Queue 1 item 2")
 
 
 def _tta_config(aug) -> TTAConfig:
@@ -210,6 +211,7 @@ class UncertaintyInference:
             tta_config=_tta_config(self.cfg.data.augmentations),
             same_dropout=icfg.same_dropout, discretize=icfg.discretize,
             direct_au=icfg.direct_au or force_singletons,
+            member_chunk=icfg.member_chunk,
             external_generative_members=external_generative_members,
             diffusion_num_steps=icfg.diffusion_num_steps,
             diffusion_sampler=icfg.diffusion_sampler)

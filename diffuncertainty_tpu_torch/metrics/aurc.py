@@ -52,3 +52,12 @@ def aurc(risks: np.ndarray, confids: np.ndarray) -> float:
     sr_arr = np.asarray(sr)
     w_arr = np.asarray(w)
     return float(np.sum((sr_arr[:-1] + sr_arr[1:]) * 0.5 * w_arr))
+
+
+def eaurc(risks: np.ndarray, confids: np.ndarray) -> float:
+    """AURC minus the optimal-confidence AURC for the same risks."""
+    risks = np.asarray(risks, dtype=np.float64)
+    n = len(risks)
+    selective_risks = np.sort(risks).cumsum() / np.arange(1, n + 1)
+    aurc_opt = float(selective_risks.sum()) / n
+    return aurc(risks, confids) - aurc_opt

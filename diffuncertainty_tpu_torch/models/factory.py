@@ -119,9 +119,14 @@ def build_model(cfg: ExperimentConfig, device: str | torch.device = "cuda") -> B
         channel_mult=tuple(net.channel_mult),
         conv_resample=net.conv_resample,
         num_heads=net.num_heads,
+        num_heads_upsample=net.num_heads_upsample,
         use_scale_shift_norm=net.use_scale_shift_norm,
         diffusion=is_diffusion,
         final_act=net.final_act,
+        one_skip_per_reso=net.one_skip_per_reso,
+        new_upsample_method=net.new_upsample_method,
+        mlp_attn=net.mlp_attn,
+        act=net.act,
         ssn=au_type == "ssn",
         ssn_rank=cfg.model.ssn_rank,
         ssn_eps=cfg.model.ssn_eps,

@@ -25,7 +25,9 @@ integer factors (2, 4, 8) the network uses, edges included.
 The final dropout is elementwise on each branch's features (keep
 ``1 - final_dropout``, scale ``1/keep``), always live when its rate is
 positive, one draw per branch over all rows from the ``torch.Generator``
-passed to ``forward`` (``HRNet.draw_keep``). ``stage_dropout`` (per-branch
+passed to ``forward`` (``HRNet.draw_keep``), or, given a
+``models/unet.py::SameDropout`` (the sampler's ``same_dropout``), one draw
+per member and image reused by its samples. ``stage_dropout`` (per-branch
 channel dropout in stages 3 and 4), which the factory leaves at zero, is
 not ported and raises.
 
@@ -43,7 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .unet import UnetOutput
+from .unet import SameDropout, UnetOutput
 
 
 class Conv(nn.Module):
@@ -257,6 +259,14 @@ class HRNet(nn.Module):
         """Boolean keep mask of the final dropout for ``branch``, NHWC ``shape``."""
         return torch.rand(shape, generator=generator, device=device) < 1.0 - self.spec.final_dropout
 
+    def _keep(self, branch: int, br: torch.Tensor, generator) -> torch.Tensor:
+        """The NHWC keep mask of ``branch``'s NCHW features ``br``."""
+        shape = (br.shape[0], br.shape[2], br.shape[3], br.shape[1])
+        if isinstance(generator, SameDropout):
+            return generator.mask(("hrnet", branch), shape, lambda s: self.draw_keep(
+                branch, s, generator.generator, br.device))
+        return self.draw_keep(branch, shape, generator, br.device)
+
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
                 *, mean_only: bool = False) -> UnetOutput:
         spec, dt = self.spec, self.dtype
@@ -287,11 +297,8 @@ class HRNet(nn.Module):
                 raise ValueError("HRNet's final dropout needs a torch.Generator")
             keep = 1.0 - spec.final_dropout
             zero = torch.zeros((), dtype=dt, device=x.device)
-            branches = [
-                torch.where(self.draw_keep(i, (br.shape[0], br.shape[2], br.shape[3], br.shape[1]),
-                                           generator, x.device).permute(0, 3, 1, 2),
-                            br / keep, zero)
-                for i, br in enumerate(branches)]
+            branches = [torch.where(self._keep(i, br, generator).permute(0, 3, 1, 2),
+                                    br / keep, zero) for i, br in enumerate(branches)]
 
         h0, w0 = branches[0].shape[2], branches[0].shape[3]
         feats = torch.cat([branches[0]] + [upsample_to(b, h0, w0) for b in branches[1:]], dim=1)

@@ -60,7 +60,8 @@ class LatentEncoder(nn.Module):
         super().__init__()
         self.encoder = encoder
         # flax: kaiming_normal kernel, normal(1e-2) bias
-        self.param_head = Conv(channels, 2 * latent_dim, 1, init_scale=2.0, bias_std=1e-2)
+        self.param_head = Conv(channels, 2 * latent_dim, 1, init_scale=2.0, bias_std=1e-2,
+                               compute_dtype=False)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> LatentParams:
         feats = self.encoder(x, generator).features  # (B, h, w, C)
@@ -81,9 +82,9 @@ class Fcomb(nn.Module):
         self.num_body = max(0, num_layers - 1)
         cin = in_channels
         for i in range(self.num_body):
-            self.add_module(f"body_{i}", Conv(cin, hidden_channels, 1))
+            self.add_module(f"body_{i}", Conv(cin, hidden_channels, 1, compute_dtype=False))
             cin = hidden_channels
-        self.head = Conv(cin, num_classes, 1)
+        self.head = Conv(cin, num_classes, 1, compute_dtype=False)
 
     def forward(self, features: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = features.shape

@@ -9,7 +9,9 @@ block's slice its shared memory holds, from the shape alone.
 ``group_norm_act_reference`` is ``group_norm_32`` followed by the
 activation, taken in float32 before the cast back, as the TPU kernel does;
 the wrapper uses it only for tensors on the CPU. For a CUDA tensor the
-wrapper launches the kernel or raises.
+wrapper launches the kernel or raises. The affine is ``(C,)``, or ``(M, C)``
+for member-folded rows (row ``r`` of ``B`` takes member ``r // (B / M)``'s
+row of it; ``B % M != 0`` raises), as the JAX ``group_norm_32`` takes it.
 
 Backward: when grad is enabled and ``x``, ``scale`` or ``bias`` requires
 it, the wrapper goes through :class:`GroupNormActFn`, whose forward is the
@@ -213,6 +215,7 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, scale, bias, y
             ctypes.c_int, ctypes.c_int,  # dtype, act
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # rows, s, c, groups
+            ctypes.c_int,  # rows per member
             *plan, ctypes.c_float, ctypes.c_void_p, ctypes.c_int]  # eps, stream, device
         lib.group_norm_act.restype = ctypes.c_int
         lib.group_norm_act_clusters.argtypes = [
@@ -226,6 +229,13 @@ def _library() -> ctypes.CDLL:
 def _plan_args(s: int, c: int, plan: Plan) -> tuple:
     return (s, c, num_groups_for(c), plan.cluster, plan.threads, plan.slice_pix, plan.cache_pix,
             plan.smem)
+
+
+def _launch_args(s: int, c: int, rows_per_member: int, plan: Plan) -> tuple:
+    """:func:`_plan_args` with the rows per member after the groups, as the
+    launch takes them."""
+    args = _plan_args(s, c, plan)
+    return args[:3] + (rows_per_member,) + args[3:]
 
 
 def max_active_clusters(s: int, c: int, dtype: torch.dtype, act: str, plan: Plan,
@@ -249,7 +259,7 @@ def group_norm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    act: str = "silu", *, eps: float = 1e-5, plan: Plan | None = None
                    ) -> torch.Tensor:
     """GroupNorm32 + ``act`` over the channels of ``(B, ..., C)``, bf16 or
-    fp32, through the CUDA kernel; affine ``(C,)``. ``plan`` replaces
+    fp32, through the CUDA kernel; affine ``(C,)`` or ``(M, C)``. ``plan`` replaces
     :func:`cluster_plan`'s launch (to measure another one).
 
     A CPU tensor goes through :func:`group_norm_act_reference`.
@@ -279,19 +289,24 @@ def _forward(x, scale, bias, act, eps, plan):
         raise ValueError(f"kernel does not take C={c} in {x.dtype}")
     scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    if scale.shape != (c,) or bias.shape != (c,):
-        raise ValueError(f"affine shapes {tuple(scale.shape)}, {tuple(bias.shape)} != ({c},)")
+    rows = x.shape[0]
+    if scale.shape != bias.shape or scale.shape not in ((c,), (scale.shape[0], c)):
+        raise ValueError(f"affine shapes {tuple(scale.shape)}, {tuple(bias.shape)}: expected "
+                         f"({c},) or (M, {c})")
+    members = scale.shape[0] if scale.ndim == 2 else 1
+    if members < 1 or rows % members:
+        raise ValueError(f"folded rows ({rows}) not divisible by the member count ({members}): "
+                         f"a member's affine would reach another member's rows")
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    rows = x.shape[0]
     s = x.numel() // (rows * c)
     plan = plan or cluster_plan(s, c, x.dtype, rows)
     if max_active_clusters(s, c, x.dtype, act, plan, x.device) == 0:
         raise RuntimeError(f"group_norm_act: no cluster of {plan} fits on {x.device}")
     err = _library().group_norm_act(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), DTYPES[x.dtype],
-        ACTS[act], rows, *_plan_args(s, c, plan), eps,
+        ACTS[act], rows, *_launch_args(s, c, rows // members, plan), eps,
         torch.cuda.current_stream(x.device).cuda_stream, x.device.index)
     if err != 0:
         raise RuntimeError(f"group_norm_act kernel launch failed for {plan}: cudaError_t {err}")

@@ -5,6 +5,10 @@ float64 inputs keep float64).
 channel. Statistics in float32 with var = E[x^2] - mean^2 (clamped at 0),
 the affine folded into ``x * a + b``, the result cast back to the input
 dtype. Layout is channels-last: ``(B, ..., C)``.
+
+The affine is ``(C,)``, or ``(M, C)`` for member-folded rows
+(``ops/member_fold.py``): the B rows are M member-major blocks of B / M rows
+and row ``r`` takes member ``r // (B / M)``'s affine.
 """
 
 from __future__ import annotations
@@ -16,6 +20,19 @@ def num_groups_for(num_channels: int) -> int:
     return 32 if num_channels % 32 == 0 else num_channels
 
 
+def member_rows(affine: torch.Tensor, rows: int) -> torch.Tensor:
+    """A ``(C,)`` affine as it is, an ``(M, C)`` one repeated to ``(rows, C)``
+    over M member-major blocks; ``rows`` not a multiple of M raises (a silent
+    repeat would give one member's affine to another's rows)."""
+    if affine.ndim == 1:
+        return affine
+    m = affine.shape[0]
+    if rows % m:
+        raise ValueError(f"folded rows ({rows}) not divisible by the member count ({m}): "
+                         f"a member's affine would reach another member's rows")
+    return affine.repeat_interleave(rows // m, dim=0)
+
+
 def group_norm_32(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -24,7 +41,8 @@ def group_norm_32(
     num_groups: int | None = None,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """GroupNorm over the trailing channel axis of ``(B, ..., C)``; affine (C,)."""
+    """GroupNorm over the trailing channel axis of ``(B, ..., C)``; affine
+    ``(C,)`` or ``(M, C)``."""
     return group_norm_f32(x, scale, bias, num_groups=num_groups, eps=eps).to(x.dtype)
 
 
@@ -52,6 +70,7 @@ def group_norm_f32(
     g_mean = ch_sum.view(batch, groups, cpg).sum(-1) / n  # (B, G)
     g_var = torch.clamp(ch_sumsq.view(batch, groups, cpg).sum(-1) / n - g_mean * g_mean, min=0.0)
     inv = torch.rsqrt(g_var + eps).repeat_interleave(cpg, dim=-1)  # (B, C)
+    scale, bias = member_rows(scale, batch), member_rows(bias, batch)
     a = inv * scale.to(acc)
     b = bias.to(acc) - g_mean.repeat_interleave(cpg, dim=-1) * a
     bshape = (batch,) + (1,) * len(spatial) + (c,)

@@ -1,26 +1,54 @@
 """The fused (members x samples x batch) prediction stack (port of
-``diffuncertainty_tpu/sampling/sampler.py``: the flat-row paths of softmax,
-diffusion, SSN and prob-U-Net, and stacked-parameter members).
+``diffuncertainty_tpu/sampling/sampler.py``, every execution strategy).
 
-MC-dropout members, TTA rounds and diffusion trajectories share the
-parameters and differ only in random draws, so all ``n_members * n_pred``
-rounds fold into the batch axis (the softmax path takes either backbone,
-the DiffUnet or the HRNet, whose final dropout draws per row and branch): rows are member-major (row ``r*B + i`` is
-round r of image i), every row gets its own TTA draw, dropout masks and
-diffusion start noise, and one forward (softmax) or one reverse trajectory of
-forwards (diffusion) serves the whole stack. The SSN runs one forward per
-member and draws its ``n_pred`` logit samples from the low-rank normal
-(``sampler.py:290-298``). The prob-U-Net runs one feature and prior forward
-per member, then decodes ``n_pred`` latent draws; its decode rows are
-sample-major (row ``s*B + i`` is sample s of image i, ``sampler.py:317-332``).
+Members run in *blocks*: a block of k members is one forward (one reverse
+trajectory of forwards for diffusion) over k member-major blocks of rows,
+row ``(m*S + s)*B + i`` being sample s of image i under member m (the JAX
+``_tile_rows`` and ``reshape(n_members, samples_per_member, B)`` order,
+``sampler.py:270-288``). Every row takes its own TTA draw, dropout masks and
+diffusion start noise, drawn from the one generator block after block. The
+bodies (:func:`make_sampler`'s ``softmax_group``, ``ssn_group``,
+``diffusion_group`` and ``prob_unet_group``) are the JAX per-member group
+builders with their member and sample axes folded into the rows, as the JAX
+flat path folds them (``sampler.py:259-268`` holds the two to be the same
+distribution); the SSN draws its ``n_pred`` logit samples from the low-rank
+normal of one forward, and the prob-U-Net decodes its latent draws on
+sample-major rows (row ``s*kB + r``).
 
-Stacked members (``member_mode="params_stack"``: SWAG draws, a deep or a
-masked sub-ensemble) carry their own weights, bound when the sampler is
-built. They run one after another (the JAX ``member_chunk`` 1), each through
-the same flat body with one member, on the one module with its weights
-swapped in by ``torch.func.functional_call``; each takes fresh draws from the
-generator. The JAX package holds the flat fold and its per-member group
-builders to be the same distribution (``sampler.py:259-268``).
+How members fold into blocks:
+
+- shared-weight members (``member_mode`` single or dropout: MC-dropout
+  replicas): blocks of ``member_chunk`` members, all in one block when it
+  is None or "auto". With ``flat_fold`` on this is the JAX flat path, with
+  it off (or an int chunk, or ``same_dropout``) the JAX nested path of
+  per-member group builders under vmap or ``lax.map``: the port's bodies
+  are both;
+- stacked members (``params_stack``: SWAG draws, a deep or a masked
+  sub-ensemble) carry their own weights, bound when the sampler is built
+  and cast to the compute dtype there, once. A block of one member runs the
+  module with its weights swapped in by ``torch.func.functional_call``; a
+  block of k > 1 members runs a ``DiffUnet(members=k)`` built on the meta
+  device with the block's ``(k, ...)`` slice of the stack bound the same
+  way: member-folded rows, the port's stand-in for the JAX vmap and
+  ``lax.map`` (the kernels are bound through ctypes, which a
+  ``torch.func.vmap`` cannot pass). ``member_chunk``: an int k gives blocks
+  of k, None one block of all, "auto" :data:`AUTO_MEMBER_CHUNK` for the
+  stack's device and the family (one member a block where it names none).
+  ``member_fold=True`` puts all members in one block whatever
+  ``member_chunk`` says (the JAX flag replaces both vmap and chunking),
+  except where the JAX sampler ignores it (``sampler.py:113-121``):
+  with ``same_dropout``, with the prob-U-Net and off the DiffUnet; then
+  ``member_chunk`` holds. The prob-U-Net and the HRNet have no member-folded
+  form: their stacked members run one per block whatever the chunk.
+
+``same_dropout`` (``sampler.py:200, 221``): one dropout draw per member and
+image, reused across all of that member's samples (TTA rounds, diffusion
+trajectories) and every diffusion step (``models/unet.py::SameDropout``).
+
+A member-sharded layout over several cards (ROADMAP Queue 1 item 6) must
+win over an explicit ``member_chunk``: the JAX sampler lets the chunk
+override it (``sampler.py:152``), a fault the port does not copy; the port
+has no mesh yet.
 
 Grouping as in the JAX sampler (``sampler.py:346-364, 391-405``): each member
 contributes one group of ``n_pred`` samples when it is generative or TTA is
@@ -42,25 +70,33 @@ from torch import nn
 from ..models import ssn
 from ..models.factory import AU_TYPES, BuiltModel
 from ..models.prob_unet import LatentParams, sample_latent
+from ..models.unet import Conv, Dense, DiffUnet, SameDropout
 from .tta import TTAConfig, apply_tta, invert_tta, sample_tta_params
 
-
+# "auto" for stacked members, by the stack's device type and the family:
+# on the H100 all members in one folded forward (None) was the fastest of
+# chunk 1, 4 and all for the 16-member SWAG-diag softmax ensemble (16 images
+# x TTA, 256 rows: 103.54 ms a call against 156.84 and 432.17, peak 4.34 GiB;
+# PERF.md §6, chip_smoke.py's ensemble_folded phase). Stacked diffusion and
+# SSN members (members x samples x batch rows, over every diffusion step)
+# were not timed, nor was anything on the CPU: there, one member at a time
+AUTO_MEMBER_CHUNK = {("cuda", "softmax"): None}
 @dataclasses.dataclass(frozen=True)
 class SamplerSpec:
     n_pred: int = 10
     n_members: int = 1
     member_mode: str = "single"  # single | dropout | params_stack
-    # "auto": stacked members run one at a time, shared-weight members fold
-    # into the rows; an int (chunked members) or None with params_stack
-    # (vmapped members) is not ported
+    # members per forward: an int, None (all) or "auto" (shared-weight
+    # members: all; stacked members: AUTO_MEMBER_CHUNK of the stack's device
+    # and the family, else 1)
     member_chunk: int | None | str = "auto"
     tta: bool = False
     tta_config: TTAConfig = TTAConfig()
-    same_dropout: bool = False  # not ported
+    same_dropout: bool = False  # one dropout draw per member, reused by its samples
     discretize: bool = False
     direct_au: bool = False
-    flat_fold: bool = True  # False (the nested per-member path) is not ported
-    member_fold: bool = False  # not ported
+    flat_fold: bool = True  # the JAX flat fold or (False) its nested group builders
+    member_fold: bool = False  # params_stack: all members in one folded forward
     external_generative_members: int = 0  # generative members of sibling samplers
     diffusion_num_steps: int | None = None  # None -> the model's default
     diffusion_sampler: str | None = None  # ddim | ddpm; None -> the model's default
@@ -107,16 +143,10 @@ def _check_spec(built: BuiltModel, spec: SamplerSpec, members: dict | None) -> N
         raise NotImplementedError(f"AU type '{built.au_type}' is not ported")
     if spec.member_mode not in ("single", "dropout", "params_stack"):
         raise ValueError(f"unknown member_mode '{spec.member_mode}'")
-    for name, unported in (("same_dropout", spec.same_dropout),
-                           ("member_fold", spec.member_fold),
-                           ("flat_fold=False", not spec.flat_fold),
-                           ("an integer member_chunk", isinstance(spec.member_chunk, int)),
-                           ("member_chunk=None (vmapped members) with params_stack",
-                            spec.member_chunk is None and spec.member_mode == "params_stack")):
-        if unported:
-            raise NotImplementedError(f"{name} is not ported")
-    if spec.member_chunk not in ("auto", None) and not isinstance(spec.member_chunk, int):
-        raise ValueError(f"member_chunk must be 'auto', None or an int, got {spec.member_chunk!r}")
+    chunk = spec.member_chunk
+    if not (chunk in ("auto", None) or (isinstance(chunk, int) and not isinstance(chunk, bool)
+                                        and chunk > 0)):
+        raise ValueError(f"member_chunk must be 'auto', None or a positive int, got {chunk!r}")
     if spec.member_mode != "params_stack":
         if members is not None:
             raise ValueError(f"a member stack was given for member_mode '{spec.member_mode}'")
@@ -135,30 +165,54 @@ def _check_spec(built: BuiltModel, spec: SamplerSpec, members: dict | None) -> N
                              f"dimension must be n_members")
 
 
+def cast_stack(module: nn.Module, members: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The member stack as the forwards use it: the weights and biases of
+    every conv and dense layer that runs in the network's compute dtype
+    (``Conv.compute_dtype``) cast to it once, conv kernels with each
+    member's kernel channels-last (so a member's slice, or a block's, is
+    what ``F.conv2d`` takes with no copy); the rest (GroupNorm affines, the
+    heads that run in the input's dtype) as given."""
+    out = dict(members)
+    for name, m in module.named_modules():
+        dtype = getattr(m, "dtype", None)
+        if isinstance(m, DiffUnet) and dtype != torch.float32:
+            for sub, layer in m.named_modules():
+                if isinstance(layer, (Conv, Dense)) and layer.compute_dtype:
+                    prefix = ".".join(p for p in (name, sub) if p)
+                    w, b = f"{prefix}.weight", f"{prefix}.bias"
+                    out[w] = out[w].to(dtype)
+                    if out[w].ndim == 5:  # (M, O, I, kh, kw): each member channels-last
+                        out[w] = out[w].permute(0, 1, 3, 4, 2).contiguous().permute(0, 1, 4, 2, 3)
+                    out[b] = out[b].to(dtype)
+    return out
+
+
 def make_sampler(built: BuiltModel, spec: SamplerSpec,
                  members: dict[str, torch.Tensor] | None = None) -> Callable:
     """Build ``fn(images, generator) -> PredictionStack``.
 
     ``images``: (B, H, W, C_in) normalized inputs on the model's device;
-    ``generator``: a ``torch.Generator`` on that device, consumed by the TTA
-    draws and then the dropout masks (softmax), by the start noise and then
-    each step's dropout masks (diffusion), or by the dropout masks and then
-    the logit or latent draws (SSN, prob-U-Net); stacked members consume it
-    one after another. Runs without autograd. TTA applies to the softmax path
-    only: the other paths ignore ``spec.tta``, as the JAX sampler does.
+    ``generator``: a ``torch.Generator`` on that device, consumed block after
+    block: by the TTA draws and then the dropout masks (softmax), by the
+    start noise and then each step's dropout masks (diffusion), or by the
+    dropout masks and then the logit or latent draws (SSN, prob-U-Net). Runs
+    without autograd. TTA applies to the softmax path only: the other paths
+    ignore ``spec.tta``, as the JAX sampler does.
 
     ``members``: with ``member_mode="params_stack"``, the stacked member
     weights, a state dict of the module's keys whose tensors have a leading
     member axis of ``spec.n_members`` (``core/params.py``,
     ``models/swag.py::sample_members``, ``models/subensemble.py``); required
     there and refused for every other mode.
+
+    The returned function carries ``meta`` (the stack's grouping),
+    ``blocks`` (the members of each forward) and ``modules`` (every module
+    its forwards run: the built module and the member-folded ones).
     """
     _check_spec(built, spec, members)
     module = built.module
     stacked = spec.member_mode == "params_stack"
     n_members = spec.n_members if spec.member_mode != "single" else 1
-    # members folded into the rows of one forward
-    folded = 1 if stacked else n_members
     member_is_generative = built.is_generative or (built.au_type == "softmax" and spec.tta)
     num_steps = spec.diffusion_num_steps or built.diffusion_num_steps
     sampler_type = spec.diffusion_sampler or built.diffusion_sampler_type
@@ -173,72 +227,103 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
     else:
         meta = SamplerMeta(n_members, samples_per_member, (built.is_generative,) * n_members)
 
+    # members per block
+    foldable = isinstance(module, DiffUnet) and built.au_type != "prob_unet"
+    chunk = spec.member_chunk
+    if stacked:
+        if spec.member_fold and not spec.same_dropout and foldable:
+            chunk = None
+        elif chunk == "auto":
+            device = next(iter(members.values())).device.type
+            chunk = AUTO_MEMBER_CHUNK.get((device, built.au_type), 1)
+        if not foldable:
+            chunk = 1
+    chunk = n_members if chunk in (None, "auto") else min(chunk, n_members)
+    blocks = [(a, min(chunk, n_members - a)) for a in range(0, n_members, chunk)]
+
     n_pred = spec.n_pred
 
-    # each body takes the forward (and, for the prob-U-Net, the decode) to run
-    def flat_softmax(forward, decode, images, generator):
+    def dropout_draws(generator, k, rounds):
+        return SameDropout(generator, k, rounds) if spec.same_dropout else generator
+
+    # each body runs a block of k members through ``forward`` (and, for the
+    # prob-U-Net, ``decode``) -> (k, samples_per_member, B, H, W, C)
+    def softmax_group(forward, decode, k, images, generator):
         b, h, w, _ = images.shape
-        rows = folded * samples_per_member
+        rows = k * samples_per_member
         x = _tile_rows(images, rows)
         tta_params = None
         if spec.tta:
             tta_params = sample_tta_params(spec.tta_config, generator, rows * b, h, w)
             x = apply_tta(x, tta_params)
-        probs = torch.softmax(forward(x, generator).logits, dim=-1)
+        out = forward(x, dropout_draws(generator, k, samples_per_member))
+        probs = torch.softmax(out.logits, dim=-1)
         if spec.tta:
             probs = invert_tta(probs, tta_params)
-        return probs.reshape(folded, samples_per_member, b, h, w, probs.shape[-1])
+        return probs.reshape(k, samples_per_member, b, h, w, probs.shape[-1])
 
-    def flat_diffusion(forward, decode, images, generator):
+    def diffusion_group(forward, decode, k, images, generator):
         b, h, w, _ = images.shape
         c = built.num_classes
-        rows = folded * samples_per_member
+        rows = k * samples_per_member
         imgs = _tile_rows(images, rows)
         x_init = initial_noise((rows * b, h, w, c), generator, images.dtype)
+        same = SameDropout(generator, k, samples_per_member) if spec.same_dropout else None
 
         def model_fn(x_with_im, t, gen):
-            return forward(x_with_im, gen, timesteps=t).logits
+            return forward(x_with_im, same or gen, timesteps=t).logits
 
         # final_act=softmax: the x_0 prediction of the last step is a simplex
         x0 = built.diffusion.sample_loop(model_fn, x_init, imgs, num_steps, generator,
                                          sampler_type=sampler_type)
-        return x0.reshape(folded, samples_per_member, b, h, w, c)
+        return x0.reshape(k, samples_per_member, b, h, w, c)
 
-    def flat_ssn(forward, decode, images, generator):
+    def ssn_group(forward, decode, k, images, generator):
         b, h, w, _ = images.shape
-        out = forward(_tile_rows(images, folded), generator)
+        out = forward(_tile_rows(images, k), dropout_draws(generator, k, 1))
         dist = ssn.build_distribution(out.ssn_mean, out.ssn_cov_diag, out.ssn_cov_factor)
-        flat = ssn.sample_n(dist, generator, n_pred)  # (S, M*B, N)
-        logits = flat.reshape(n_pred, folded, b, h, w, out.logits.shape[-1])
+        flat = ssn.sample_n(dist, generator, n_pred)  # (S, k*B, N)
+        logits = flat.reshape(n_pred, k, b, h, w, out.logits.shape[-1])
         return torch.softmax(logits, dim=-1).movedim(0, 1)
 
-    def flat_prob_unet(forward, decode, images, generator):
+    def prob_unet_group(forward, decode, k, images, generator):
         b, h, w, _ = images.shape
-        out = forward(_tile_rows(images, folded), generator=generator)
+        out = forward(_tile_rows(images, k), generator=dropout_draws(generator, k, 1))
         prior = LatentParams(*(_tile_rows(p, n_pred) for p in out.prior))
         z = sample_latent(prior, generator)
         logits = decode(_tile_rows(out.features, n_pred), z)
         probs = torch.softmax(logits, dim=-1)
-        return probs.reshape(n_pred, folded, b, h, w, probs.shape[-1]).movedim(0, 1)
+        return probs.reshape(n_pred, k, b, h, w, probs.shape[-1]).movedim(0, 1)
 
-    flat_fn = {"softmax": flat_softmax, "diffusion": flat_diffusion, "ssn": flat_ssn,
-               "prob_unet": flat_prob_unet}[built.au_type]
+    group_fn = {"softmax": softmax_group, "diffusion": diffusion_group, "ssn": ssn_group,
+                "prob_unet": prob_unet_group}[built.au_type]
 
+    modules = [module]
     if stacked:
         call = torch.func.functional_call
+        stack = cast_stack(module, members)
+        folded = {}
+        for _, k in blocks:
+            if k > 1 and k not in folded:
+                with torch.device("meta"):
+                    folded[k] = DiffUnet(**{**module.config, "members": k}).eval()
+        modules += list(folded.values())
         decoder = _Method(module, "decode") if built.au_type == "prob_unet" else None
-        member_states = [{k: v[m] for k, v in members.items()} for m in range(n_members)]
-        decode_states = [{f"net.{k}": v for k, v in st.items()} if decoder else None
-                         for st in member_states]
-
-        def run(images, generator):
-            return torch.cat([flat_fn(
-                lambda *a, _st=st, **kw: call(module, _st, a, kw),
-                lambda *a, _st=dst: call(decoder, _st, a),
-                images, generator) for st, dst in zip(member_states, decode_states)])
+        runs = []
+        for a, k in blocks:
+            if k == 1:
+                state = {key: v[a] for key, v in stack.items()}
+                net = module
+            else:
+                state = {key: v[a:a + k] for key, v in stack.items()}
+                net = folded[k]
+            dstate = {f"net.{key}": v for key, v in state.items()} if decoder else None
+            runs.append((k,
+                         lambda *args, _n=net, _s=state, **kw: call(_n, _s, args, kw),
+                         lambda *args, _s=dstate: call(decoder, _s, args)))
     else:
-        def run(images, generator):
-            return flat_fn(module, getattr(module, "decode", None), images, generator)
+        decode = getattr(module, "decode", None)
+        runs = [(k, module, decode) for _, k in blocks]
 
     def finalize(groups):
         if spec.discretize:
@@ -251,7 +336,10 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
 
     @torch.no_grad()
     def sampler(images: torch.Tensor, generator: torch.Generator) -> PredictionStack:
-        return finalize(run(images, generator))
+        groups = [group_fn(forward, decode, k, images, generator) for k, forward, decode in runs]
+        return finalize(groups[0] if len(groups) == 1 else torch.cat(groups))
 
     sampler.meta = meta
+    sampler.blocks = [k for _, k in blocks]
+    sampler.modules = modules
     return sampler

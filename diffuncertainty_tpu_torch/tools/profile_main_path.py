@@ -1,7 +1,8 @@
 """Device-time breakdown of the main paths on the card.
 
     python3 -m diffuncertainty_tpu_torch.tools.profile_main_path
-        [--workload softmax|diffusion|ssn|prob_unet|ensemble|hrnet|multiclass] [--norm-twin]
+        [--workload softmax|diffusion|ssn|prob_unet|ensemble|ensemble_folded|hrnet|multiclass]
+        [--norm-twin]
 
 ``softmax`` (default): the bf16 unet16 MC-dropout + TTA sampler with the
 trained toy-128 weights (16 images at 128x128, 16 members: one 256-row
@@ -13,20 +14,22 @@ trained toy-128 weights (16 images, 16 samples: one 16-row forward, then 16
 low-rank normal draws or 16 latent decodes, per call), 5 traced calls.
 ``ensemble``: the bf16 unet16 sampler over 16 stacked members drawn from the
 trained SWAG-diag moments (generator seed 42), MC-dropout live and TTA on
-(16 images: one 16-row forward per member, 16 per call), 3 traced calls; it
-also prints the device time per member forward. ``hrnet``: the bf16 hrnet-s
+(16 images: one 16-row forward per member, 16 per call, ``member_chunk=1``),
+3 traced calls; it also prints the device time per member forward.
+``ensemble_folded``: the same members in one member-folded 256-row forward
+(``member_fold=True``), 3 traced calls. ``hrnet``: the bf16 hrnet-s
 MC-dropout (final dropout) + TTA sampler with the trained toy-128 weights (16
 images, 16 members: one 256-row forward per call), 3 traced calls.
 ``multiclass``: the bf16 unet16 multiclass model with the trained gta-toy
 weights, 8 MC-dropout members one after another, each one forward of the 168
 tiles (window 128, stride 64) of 8 frames of 256x512 and the stitch, 1
 traced call; it also prints the device time per member forward. Each is
-warmed up first, then traced with ``torch.profiler``. Prints the wall time per call
-(CUDA events), the device busy share (the sum of kernel times over the wall
-time; kernels on one stream do not overlap), the kernel time by category and
-the top kernels by name. ``--norm-twin`` routes every GroupNorm through the
-kernel's plain float32 twin instead, to measure what the kernel replaced.
-Needs a CUDA device.
+warmed up first, then traced with ``torch.profiler``. Prints the wall time
+per call (CUDA events), the device busy share (:func:`device_ms`: the union
+of the kernel intervals over the wall time, beside their plain sum), the
+kernel time by category and the top kernels by name. ``--norm-twin`` routes
+every GroupNorm through the kernel's plain float32 twin instead, to measure
+what the kernel replaced. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -71,7 +74,8 @@ def category(name: str) -> str:
     return "other"
 
 
-WORKLOADS = ("softmax", "diffusion", "ssn", "prob_unet", "ensemble", "hrnet", "multiclass")
+WORKLOADS = ("softmax", "diffusion", "ssn", "prob_unet", "ensemble", "ensemble_folded", "hrnet",
+             "multiclass")
 MEMBERS = 16  # member forwards per ensemble call
 # member forwards per multiclass call, and its frames
 MC_MEMBERS, MC_FRAMES, MC_SIZE = 8, 8, (256, 512)
@@ -103,17 +107,37 @@ def build_sampler(workload: str):
                            diffusion_sampler="ddim", diffusion_num_steps=10)
         return make_sampler(built, spec), 1
     built = build_model(load_config(precision="bf16"), device="cuda")
-    if workload == "ensemble":
+    if workload in ("ensemble", "ensemble_folded"):
         moments = load_swag_npz(ASSETS / "bench_unet16_toy128_swag.npz")
         members = swag_draw_members(moments.mean, moments.std,
                                     torch.Generator("cuda").manual_seed(42), MEMBERS)
+        fields = (dict(member_fold=True) if workload == "ensemble_folded"
+                  else dict(member_chunk=1))
         spec = SamplerSpec(n_pred=1, n_members=MEMBERS, member_mode="params_stack", tta=True,
-                           tta_config=TTAConfig())
+                           tta_config=TTAConfig(), **fields)
         return make_sampler(built, spec, members=members), 3
     load_into(built.module, ASSETS / "bench_unet16_toy128.npz")
     spec = SamplerSpec(n_pred=1, n_members=16, member_mode="dropout", tta=True,
                        tta_config=TTAConfig())
     return make_sampler(built, spec), 3
+
+
+def device_ms(prof, calls: int) -> dict:
+    """Device time per call from a ``torch.profiler`` trace: ``busy``, the
+    union of the kernel, copy and set intervals (Kineto's user annotations,
+    which mirror host ranges onto the device timeline, left out), and
+    ``sum``, their durations added; ``sum`` above ``busy`` means intervals
+    overlapped (on ``streams`` streams) or were listed twice."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.device_resource_id)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation)
+    busy, reach = 0.0, float("-inf")
+    for start, end, _ in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return {"busy": busy / 1e3 / calls, "sum": sum(e - s for s, e, _ in spans) / 1e3 / calls,
+            "streams": len({r for _, _, r in spans})}
 
 
 def main() -> None:
@@ -146,11 +170,12 @@ def main() -> None:
 
     kernels = {}
     for avg in prof.key_averages():
-        if avg.device_type != torch.autograd.DeviceType.CUDA:
+        if avg.device_type != torch.autograd.DeviceType.CUDA or avg.is_user_annotation:
             continue
         kernels[avg.key] = (avg.self_device_time_total / 1e3 / calls,
                             avg.count // calls)
-    busy_ms = sum(ms for ms, _ in kernels.values())
+    dev = device_ms(prof, calls)
+    busy_ms = dev["busy"]
     by_cat: dict[str, float] = {}
     for name, (ms, _) in kernels.items():
         by_cat[category(name)] = by_cat.get(category(name), 0.0) + ms
@@ -158,8 +183,9 @@ def main() -> None:
     print(f"workload {args.workload}{' (GroupNorm through the twin)' if args.norm_twin else ''}; "
           f"device: {torch.cuda.get_device_name(0)}; {calls} traced calls")
     unit = "frames" if args.workload == "multiclass" else "img"
-    print(f"wall {wall_ms:.2f} ms per call ({shape[0] / wall_ms * 1e3:.2f} {unit}/s); kernel "
-          f"time {busy_ms:.2f} ms per call; busy share {busy_ms / wall_ms:.3f}")
+    print(f"wall {wall_ms:.2f} ms per call ({shape[0] / wall_ms * 1e3:.2f} {unit}/s); device "
+          f"busy {busy_ms:.2f} ms per call (kernel times summed {dev['sum']:.2f} ms, "
+          f"{dev['streams']} streams); busy share {busy_ms / wall_ms:.3f}")
     per_member = {}
     members = {"ensemble": MEMBERS, "multiclass": MC_MEMBERS}.get(args.workload)
     if members:
@@ -175,7 +201,7 @@ def main() -> None:
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[: TOP]:
         print(f"  {ms:9.3f} ms {n:5d}x  [{category(name)}] {name[:110]}")
     print(json.dumps({"workload": args.workload, "norm_twin": args.norm_twin,
-                      "wall_ms": wall_ms, "busy_ms": busy_ms,
+                      "wall_ms": wall_ms, "busy_ms": busy_ms, "kernel_sum_ms": dev["sum"],
                       "by_category_ms": by_cat, **per_member,
                       "device": torch.cuda.get_device_name(0)}))
 

@@ -7,7 +7,7 @@ job's member expansion from checkpoints.
   no ``opt_state``;
 - the config dict round-trips both ways, ``load_config`` composes what the
   JAX ``load_config`` composes from its YAML files, ``auto_exp_name`` equals
-  JAX's, and an unported network option raises;
+  JAX's, and each network option round-trips and builds the JAX network;
 - the job on (c) a SWAG-diag checkpoint (members drawn by the port from
   JAX's own normals), (d) a two-checkpoint deep ensemble and (e) two mixes
   of checkpoints, run through the JAX job and the port's on the same split,
@@ -30,10 +30,12 @@ from diffuncertainty_tpu.core.checkpoint import save_checkpoint as j_save_checkp
 from diffuncertainty_tpu.core.config import ExperimentConfig as JExperimentConfig
 from diffuncertainty_tpu.core.config import load_config as j_load_config
 from diffuncertainty_tpu.models import ssn as j_ssn
+from diffuncertainty_tpu.models.factory import build_model as j_build_model
 from diffuncertainty_tpu_torch.core import checkpoint as t_checkpoint
 from diffuncertainty_tpu_torch.core.config import ExperimentConfig, load_config
 from diffuncertainty_tpu_torch.core.params import flax_to_torch
 from diffuncertainty_tpu_torch.models import ssn as t_ssn
+from diffuncertainty_tpu_torch.models.factory import build_model
 from diffuncertainty_tpu_torch.models import swag as t_swag
 from test_torch_port_infer import (BATCH, HW, assert_same_tree, checkpoint_pair, j_config,
                                    random_variables, run_jax, run_port, toy_dir)  # noqa: F401
@@ -48,6 +50,9 @@ GROUPS = [  # (data, network, model, eu_method, precision)
     ("lidc128", "hrnet-s", "softmax", "ensemble", "fp32"),
     ("gta_toy", "hrnet-m", "ssn", "none", "bf16"),
     ("gta_toy", "unet16", "softmax", "dropout", "fp32"),
+    ("lidc128", "unet4", "softmax", "dropout", "bf16"),
+    ("lidc128", "unet64", "diffusion", "none", "fp32"),
+    ("lidc64", "unet256", "ssn", "swag_diag", "bf16"),
 ]
 
 
@@ -77,13 +82,33 @@ def test_config_dict_round_trips_both_ways_and_load_config_equals_jax(groups):
     ("network.final_act=tanh", "final_act"),
     ("network.num_heads_upsample=2", "num_heads_upsample")])
 def test_an_unported_network_option_raises_and_is_never_dropped(override, option, tmp_path):
+    """Each of the six network options that raised before they were ported
+    round-trips through ``from_dict``, ``to_dict`` and a checkpoint, and
+    builds the JAX network: the same logits on the same variables
+    (``one_skip_per_reso`` with ``new_upsample_method``, which it needs on
+    both sides)."""
+    from test_torch_port_unet_options import forward_pair
+
     ref = j_load_config("lidc128", "unet16", "softmax", "none", overrides=[override])
-    with pytest.raises(NotImplementedError, match=option):
-        ExperimentConfig.from_dict(ref.to_dict())
+    got = ExperimentConfig.from_dict(ref.to_dict())
+    assert got.to_dict() == ref.to_dict() and getattr(got.network, option) == getattr(
+        ref.network, option) != getattr(ExperimentConfig().network, option)
+    assert JExperimentConfig.from_dict(json.loads(json.dumps(got.to_dict()))).to_dict() \
+        == ref.to_dict()
     t_checkpoint.save_checkpoint(tmp_path / "c", {"params": {"w": np.zeros(2, np.float32)}},
                                  ref.to_dict(), epoch=0)
-    with pytest.raises(NotImplementedError, match=option):
-        t_checkpoint.load_checkpoint(tmp_path / "c")
+    assert t_checkpoint.load_checkpoint(tmp_path / "c")[1] == got
+    small = ["network.model_channels=16", "network.num_res_blocks=[1,1]",
+             "network.channel_mult=[1,2]", "network.attention_resolutions=[-1]"]
+    if option == "one_skip_per_reso":
+        small.append("network.new_upsample_method=true")
+    jb = j_build_model(j_load_config("lidc128", "unet16", "softmax", "none",
+                                     overrides=[override] + small))
+    tb = build_model(load_config("lidc128", "unet16", "softmax", "none",
+                                 overrides=[override] + small), device="cpu")
+    x = np.random.default_rng(9).standard_normal((2, 16, 16, 3)).astype(np.float32)
+    logits, ref_logits = forward_pair(jb.module, tb.module, x)
+    np.testing.assert_allclose(logits, ref_logits, atol=1e-5, rtol=1e-4)
 
 
 def full_state(cfg, seed: int = 0):

@@ -43,6 +43,7 @@ from diffuncertainty_tpu_torch.models.unet import ChannelDropout, DiffUnet
 from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
 from diffuncertainty_tpu_torch.sampling import tta as t_tta
 from diffuncertainty_tpu_torch.tools.bench_assets import swag_draw_members
+from test_torch_port_member_fold import family_models, run_both  # noqa: F401
 from test_torch_port_model import _as_plain, jax_mask_interceptor, mask_for
 from test_torch_port_slice import TTA, small_pair
 from test_torch_port_ssn import SMALL_SSN, jax_ssn_eps
@@ -292,7 +293,15 @@ def test_each_member_takes_fresh_tta_and_dropout_draws_from_one_generator(monkey
     assert float(maps["EU"].mean()) > 1e-4
 
 
-def test_sampler_refuses_a_missing_or_misshapen_stack_and_unported_options():
+def test_sampler_refuses_a_missing_or_misshapen_stack_and_unported_options(monkeypatch,
+                                                                          family_models):
+    """A missing, misshapen or misplaced stack and an unknown mode raise; the
+    modes that raised before they were ported (``same_dropout``,
+    ``member_fold``, an integer ``member_chunk``, None with
+    ``params_stack``, ``flat_fold=False``) each give the JAX sampler's stack
+    of the same members and draws, with the JAX grouping of the same mode
+    (softmax + TTA, dropout live, every draw injected on both sides;
+    ``test_torch_port_member_fold.run_both``)."""
     _, tb, params = small_pair(rate=0.2)
     stack = flax_to_torch_stacked(noisy_stack(params, 3))
     spec = t_sampler_mod.SamplerSpec(n_pred=1, n_members=3, member_mode="params_stack")
@@ -306,17 +315,11 @@ def test_sampler_refuses_a_missing_or_misshapen_stack_and_unported_options():
     with pytest.raises(KeyError, match="missing"):
         t_sampler_mod.make_sampler(tb, spec, members={k: v for k, v in stack.items()
                                                       if k != "input_conv.bias"})
-    for field, value, name in (("same_dropout", True, "same_dropout"),
-                               ("member_fold", True, "member_fold"),
-                               ("member_chunk", 2, "integer member_chunk"),
-                               ("member_chunk", 1, "integer member_chunk"),
-                               ("member_chunk", None, "vmapped members"),
-                               ("flat_fold", False, "flat_fold=False")):
-        with pytest.raises(NotImplementedError, match=name):
-            t_sampler_mod.make_sampler(tb, dataclasses.replace(spec, **{field: value}),
-                                       members=stack)
     with pytest.raises(ValueError, match="unknown member_mode"):
         t_sampler_mod.make_sampler(tb, dataclasses.replace(spec, member_mode="vmap"))
+    for field, value in (("same_dropout", True), ("member_fold", True), ("member_chunk", 2),
+                         ("member_chunk", 1), ("member_chunk", None), ("flat_fold", False)):
+        run_both(monkeypatch, family_models, "softmax", {field: value})
 
 
 @pytest.mark.parametrize("eu_method", ["ensemble", "swag", "swag_diag"])

@@ -433,8 +433,13 @@ def test_the_job_runs_on_the_card_by_default_and_never_falls_back(softmax_pair, 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         UncertaintyInference([dst], InferenceConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        UncertaintyInference([dst], InferenceConfig(member_chunk=1, device="cpu"))
+    # member_chunk is ported: an int runs, a bad one raises; the mesh still raises
+    assert UncertaintyInference([dst], InferenceConfig(member_chunk=1, device="cpu")
+                                ).spec.member_chunk == 1
+    with pytest.raises(ValueError, match="member_chunk"):
+        UncertaintyInference([dst], InferenceConfig(member_chunk=0, device="cpu"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        UncertaintyInference([dst], InferenceConfig(mesh_shape=(2, 1), device="cpu"))
 
 
 @pytest.mark.parametrize("binary", [True, False])

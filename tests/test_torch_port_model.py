@@ -84,8 +84,8 @@ def test_config_constants_match_jax_load_config(precision):
             assert _as_plain(ours) == _as_plain(theirs), f"{path}.{f.name}"
             n_fields += 1
     assert n_fields == 72  # every field the port keeps was compared
-    with pytest.raises(NotImplementedError):
-        tconfig.load_config(network="unet64")
+    with pytest.raises(NotImplementedError):  # every JAX group is ported: an unknown one
+        tconfig.load_config(network="unet1024")
 
 
 def test_dropout_spec_copy_matches_jax():

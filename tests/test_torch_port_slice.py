@@ -197,7 +197,8 @@ def test_no_forbidden_imports_or_library_kernels_in_the_port():
     port = REPO / "diffuncertainty_tpu_torch"
     assert {port / "train" / "losses.py", port / "train" / "loop.py",
             port / "models" / "diffusion.py", port / "models" / "prob_unet.py",
-            port / "core" / "specs.py", port / "tools" / "train_recipe.py"} <= set(files)
+            port / "core" / "specs.py", port / "tools" / "train_recipe.py",
+            port / "ops" / "member_fold.py"} <= set(files)
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             assert not bad_import.match(line), f"{path}:{n}: {line}"
@@ -211,8 +212,9 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
     import chip_smoke
 
     assert chip_smoke.parse_paths([]) == chip_smoke.PATHS == (
-        "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "hrnet", "multiclass", "infer",
-        "train", "train_diffusion", "train_ssn", "train_prob_unet")
+        "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "ensemble_folded", "unet256",
+        "hrnet", "multiclass", "infer", "train", "train_diffusion", "train_ssn",
+        "train_prob_unet")
     assert chip_smoke.parse_paths(["--paths", "multiclass,hrnet"]) == ("hrnet", "multiclass")
     assert chip_smoke.parse_paths(["--paths", "infer,softmax"]) == ("softmax", "infer")
     assert chip_smoke.parse_paths(["--paths", "train,hrnet"]) == ("hrnet", "train")
@@ -222,6 +224,11 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
     # the families' training paths read no file: they ride either group
     assert chip_smoke.parse_paths(["--paths", "train_prob_unet,hrnet,train_diffusion"]) == (
         "hrnet", "train_diffusion", "train_prob_unet")
+    # the folded ensemble reads the SWAG asset; unet256 seeds its weights and reads none
+    assert chip_smoke.PATH_ASSETS["ensemble_folded"] == chip_smoke.PATH_ASSETS["ensemble"]
+    assert chip_smoke.PATH_ASSETS["unet256"] is None
+    assert chip_smoke.parse_paths(["--paths", "unet256,ensemble_folded,softmax"]) == (
+        "softmax", "ensemble_folded", "unet256")
     for model in ("diffusion", "ssn", "prob_unet"):
         assert chip_smoke.PATH_ASSETS[f"train_{model}"] is None
         assert set(chip_smoke.TRAIN_FAMILIES) == {"diffusion", "ssn", "prob_unet"}
@@ -242,3 +249,23 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):
                              capture_output=True, text=True, timeout=300, env=env)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_device_time_is_the_union_of_kernel_intervals():
+    """``profile_main_path.device_ms``: kernels overlapping on two streams
+    count once in ``busy`` and in full in ``sum``; user annotations and
+    host events are left out."""
+    import types
+
+    from diffuncertainty_tpu_torch.tools.profile_main_path import device_ms
+
+    def event(start, end, stream, annotation=False, device=torch.autograd.DeviceType.CUDA):
+        return types.SimpleNamespace(time_range=types.SimpleNamespace(start=start, end=end),
+                                     device_resource_id=stream, device_type=device,
+                                     is_user_annotation=annotation)
+
+    trace = [event(0, 1000, 7), event(500, 1500, 14), event(2000, 2500, 7),
+             event(0, 3000, 7, annotation=True),
+             event(0, 9000, 0, device=torch.autograd.DeviceType.CPU)]
+    prof = types.SimpleNamespace(events=lambda: trace)
+    assert device_ms(prof, 2) == {"busy": 1.0, "sum": 1.25, "streams": 2}
