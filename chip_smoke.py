@@ -1,11 +1,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,train,train_diffusion,train_ssn,train_prob_unet]
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,train,train_diffusion,train_ssn,train_prob_unet,train_hrnet,train_subensemble,train_multiclass,train_swag,train_ensemble]
 
 With no argument every path runs; ``--paths`` picks a comma-separated group
 of them (each needs its file under ``assets/``: a missing one is an error;
-``train`` reads only ``ensemble16_quality.json``, the ``train_*`` family
-paths and ``unet256`` read none).
+``train`` reads only ``ensemble16_quality.json``, ``train_subensemble`` only
+``bench_unet16_toy128.npz``, the other ``train_*`` paths and ``unet256``
+read none). Each training phase first runs its timed in-process part
+(kernel checks, the counted and timed steps), one after another with
+nothing else on the card; then the training paths' runs through their
+entry points start (``tools/train_recipe.py::Runs``, four at once), and
+each phase's untimed rest (its run's losses, its checkpoint served) waits
+for its own run.
 The kernel build, the kernels' checks at the softmax path's shapes and at
 every other head width, and the checks at every shape of the chosen paths
 always run.
@@ -139,6 +145,31 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    beta rising), its loss falling; its checkpoint's EMA weights in the
    family's serving sampler (110 / 560, 11 / 58, 16 / 81 launches, no
    twin) and in the inference job as a subprocess over the 256 images;
+13a. ``trainer.remat`` (the ``train`` path): the remat forward and backward
+   counted (each kernel's forward twice, 22 / 112, the VJPs once), its
+   gradients against the stored forward's on the same generator state (fp32
+   to 1e-6 of the largest gradient, bf16 to STEP_GRAD_TOL), peak memory with
+   and without;
+13b. the HRNet's training (``train_hrnet``, hrnet-s, MC-dropout): one counted
+   bf16 step (neither kernel, no twin), the bf16 and fp32 steps' every leaf
+   against a float64 step with the same draws at the trained asset
+   (``HRNET_FP32_TOL``, ``HRNET_BF16_COS``), the stem's running statistics after a
+   step by flax's rule, a remat step leaving the statistics as they are
+   without it, the step's split; a 4-epoch run and its checkpoint (EMA
+   weights and the run's statistics) in the HRNet serving path;
+13c. the sub-ensemble mask trainer (``train_subensemble``) over the frozen
+   softmax asset: one counted step (10 members, 110 / 560 launches and VJPs,
+   no twin), a short run (``SUBENSEMBLE``) with its loss falling, the hard
+   masks' mean IoU below 1 and the expected fill within
+   ``SUBENSEMBLE_FILL_BAND`` of the target, the members folded in the sampler (their new shapes against the
+   twins, 11 / 56 launches, EU > 0);
+13d. the multiclass recipe's trainer (``train_multiclass``, gta-toy, switched
+   masks): the step's split and checks, a 6-epoch run, its checkpoint
+   through the multiclass path (88 / 448) and ``tools/multiclass_quality.py``;
+   the SWAG-diag recipe's (``train_swag``): the counted step, a 4-epoch run
+   collecting 4 snapshots, 16 members from its moments folded in the
+   ensemble path; the deep ensemble's (``train_ensemble``): its first two
+   seeds for 3 epochs each, their raw weights stacked and folded with TTA;
 14. toy-128 quality of the softmax bf16 and fp32 paths, of the diffusion
    bf16 path and of the SSN, prob-U-Net, ensemble and HRNet bf16 paths, and
    the multiclass quality (macro Dice, GED, NCC of TU and AU against the
@@ -159,12 +190,14 @@ import argparse
 import contextlib
 import functools
 import json
+import math
 import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+from collections.abc import Generator
 from pathlib import Path
 
 T0 = time.perf_counter()
@@ -187,7 +220,12 @@ PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
                # the JAX members' quality record its bands come from
                "train": ENSEMBLE16_QUALITY,
                # train from scratch and read no file of the repo's assets
-               "train_diffusion": None, "train_ssn": None, "train_prob_unet": None}
+               "train_diffusion": None, "train_ssn": None, "train_prob_unet": None,
+               # trains from scratch; its gradients are checked at the trained asset
+               "train_hrnet": ASSET_HRNET,
+               # learns masks over the frozen softmax asset
+               "train_subensemble": ASSET,
+               "train_multiclass": None, "train_swag": None, "train_ensemble": None}
 PATHS = tuple(PATH_ASSETS)
 
 # kernel vs its twin: |kernel - twin| <= ATOL + RTOL*|twin| elementwise.
@@ -300,6 +338,50 @@ TRAIN_FAMILIES = {
     "prob_unet": {"epochs": 6, "extra": ["trainer.val_every_n_epochs=3"], "step": (21, 106),
                   "step_vjp": (21, 105), "serve": GENERATIVE16_LAUNCHES["prob_unet"]},
 }
+# The training paths of the HRNet, the multiclass recipe, SWAG-diag and the
+# deep ensemble: the run of each through its entry point (tools/train_recipe.py's
+# recipe cut to a few epochs; the ensemble's first two seeds), ENTRY_JOBS at
+# once once every timed phase is done.
+ENTRY_JOBS = 4
+NEW_TRAIN_RUNS = {
+    "train_hrnet": {"recipe": "hrnet", "epochs": 4, "extra": ["trainer.val_every_n_epochs=2"]},
+    "train_multiclass": {"epochs": 6, "extra": []},
+    "train_swag": {"recipe": "swag", "epochs": 4, "extra": []},
+    "train_ensemble": {"recipe": "ensemble", "epochs": 3, "extra": [], "seeds": (2024, 2061)},
+}
+# The HRNet's bf16 and fp32 training steps against a float64 step with the same
+# draws, at the trained hrnet-s asset (leaves whose float64 gradient is below
+# 1e-6 of the largest left out: a bias before a train-mode BatchNorm has an
+# exact gradient of 0). fp32: each leaf's relative L2 error to 0.02 (on the
+# CPU, 16 test images through the same weights, fp32's is 0.0094 at most).
+# bf16 rounds every conv and BatchNorm output (2^-8 relative) and the 126
+# train-mode BatchNorms divide by statistics of those values: on the card its
+# gradient sits at a cosine of 0.957 from float64's, each leaf up to 0.495
+# off (median 0.114; three runs, 0.490-0.495). Held to a cosine of 0.8, each
+# leaf to 0.75 (a leaf whose gradient is dropped reads 1.0, a flipped one
+# 2.0) and each leaf's own cosine to 0.5 (dropped: 0; flipped: -1)
+HRNET_FP32_TOL, HRNET_BF16_COS, HRNET_BF16_LEAF, HRNET_BF16_LEAF_COS = 0.02, 0.8, 0.75, 0.5
+# The mask trainer's smoke run over the softmax asset: 10 masks, a constant
+# temperature (so that the falling loss shows the masks learning, not the
+# annealing), the target fill that zero logits give (0.5 x 0.5), and how far
+# from it the expected fill the size penalty acts on may end (the hard masks'
+# fill is printed). ``normalize`` off: with the keep-ratio rescale the soft
+# masks' level no longer reaches the task loss (the rescale divides it out),
+# so in a short run the diversity and size terms, whose small gradients Adam
+# turns into full steps, drive whole layers' logits (the two-channel head's
+# among them) below 0 and the hard members predict nothing (EU 0 on the card
+# and the CPU). Without it the task holds the kept channels up (the head's
+# logits +0.35, EU 0.046 on the CPU), and the diversity term at its default
+# 1.0 pulls the expected fill to 0.18, under the target the size penalty only
+# bounds from above: 0.1 leaves the task and the penalty to set it
+SUBENSEMBLE = dict(num_masks=10, steps=8, learning_rate=0.05, temp_start=1.0, temp_end=1.0,
+                   target_fraction=0.25, diversity_coeff=0.1, normalize=False, seed=0)
+SUBENSEMBLE_FILL_BAND = 0.1
+# the same run with the JAX defaults for the two, driven untimed and not held:
+# tests/test_torch_port_subensemble_train.py runs it on a small net through both
+# trainers (float64), which end with the same hard masks (fill 0.028 against
+# the target 0.25: the diversity term drives the logits below 0 in JAX too)
+SUBENSEMBLE_DEFAULTS = {**SUBENSEMBLE, "normalize": True, "diversity_coeff": 1.0}
 # the folded ensemble: per strategy, the sampler's member fields and the
 # launches of one call (attention, GroupNorm)
 FOLD_STRATEGIES = {"folded": (dict(member_chunk=None, member_fold=True), (11, 56)),
@@ -1618,10 +1700,12 @@ def null_gradient_leaves(trainer, state, batch) -> set[str]:
 
 def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked: set,
                      want: tuple = (11, 56), want_vjp: tuple | None = None,
-                     label: str = "train step", runs: int = 10) -> dict:
+                     label: str = "train step", runs: int = 10,
+                     compare_twins: bool = True) -> dict:
     """One full-model bf16 step at batch 16: launches (``want``: attention,
     GroupNorm) and VJPs (``want_vjp``, the launches by default) counted,
-    every leaf's gradient against the twins-forced step, and the step's
+    every leaf's gradient against the twins-forced step (unless
+    ``compare_twins`` is off: a network without the kernels), and the step's
     split (median of ``runs`` steps after 2) and busy share (over ``runs``
     steps)."""
     import torch
@@ -1669,24 +1753,26 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
     if not shapes <= attn_checked or not set(norm_seen) <= norm_checked:
         raise AssertionError(f"{label}: unchecked attention shapes {shapes - attn_checked} or "
                              f"norm sites {set(norm_seen) - norm_checked}")
-    names = list(state.params)
-    null = null_gradient_leaves(trainer, state, batches[1])
-    for name, gi in zip(names, g):
-        if not torch.isfinite(gi).all() or not (name in null or gi.abs().max().item() > 0):
-            raise AssertionError(f"{label}: the gradient of {name} is not finite or is 0")
-    with twins_forced():
-        loss_t, g_t = grads(7)
-    rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
-           for n, a, b in zip(names, g, g_t) if n not in null}
-    worst = max(rel, key=rel.get)
-    log(f"{label}: loss {loss.item():.6f} (twins forced {loss_t.item():.6f}); gradient rel "
-        f"L2 error per leaf through the kernels vs twins forced: max {rel[worst]:.3e} at "
-        f"{worst}, median {statistics.median(rel.values()):.3e} over {len(rel)} leaves "
-        f"({len(null)} zero-gradient leaves left out: {sorted(null)})")
-    if rel[worst] > STEP_GRAD_TOL:
-        raise AssertionError(f"{label}: {worst} gradient rel error {rel[worst]:.3e} > "
-                             f"{STEP_GRAD_TOL}")
-    del g_t, loss_t
+    rel, worst = {None: 0.0}, None
+    if compare_twins:
+        names = list(state.params)
+        null = null_gradient_leaves(trainer, state, batches[1])
+        for name, gi in zip(names, g):
+            if not torch.isfinite(gi).all() or not (name in null or gi.abs().max().item() > 0):
+                raise AssertionError(f"{label}: the gradient of {name} is not finite or is 0")
+        with twins_forced():
+            loss_t, g_t = grads(7)
+        rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+               for n, a, b in zip(names, g, g_t) if n not in null}
+        worst = max(rel, key=rel.get)
+        log(f"{label}: loss {loss.item():.6f} (twins forced {loss_t.item():.6f}); gradient rel "
+            f"L2 error per leaf through the kernels vs twins forced: max {rel[worst]:.3e} at "
+            f"{worst}, median {statistics.median(rel.values()):.3e} over {len(rel)} leaves "
+            f"({len(null)} zero-gradient leaves left out: {sorted(null)})")
+        if rel[worst] > STEP_GRAD_TOL:
+            raise AssertionError(f"{label}: {worst} gradient rel error {rel[worst]:.3e} > "
+                                 f"{STEP_GRAD_TOL}")
+        del g_t, loss_t
 
     # the step's split (CUDA events, median of 10): forward (augment, forward,
     # loss), backward with the two twin VJPs apart, optimizer + EMA
@@ -1766,18 +1852,18 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
     return {"launches": counts, "max_leaf_rel_err": rel[worst], "split": split}
 
 
-def phase_train(smi: str, norm_site_list) -> dict:
+def phase_train(smi: str, norm_site_list, runs) -> Generator[None, None, dict]:
     """The trainer: each kernel's backward at the training shapes, one
-    counted full-model step, then the recipe through the user's entry point
-    as a subprocess, the quality of its EMA weights, and the inference job
-    on its checkpoint."""
+    counted full-model step and the remat step, then the recipe through the
+    user's entry point (an entry-point run), the quality of its EMA weights,
+    and the inference job on its checkpoint."""
     import ast
-    import tempfile
 
     import numpy as np
     import torch
 
     from diffuncertainty_tpu_torch.core.checkpoint import load_checkpoint
+    from diffuncertainty_tpu_torch.core.config import apply_overrides
     from diffuncertainty_tpu_torch.core.params import flax_to_torch
     from diffuncertainty_tpu_torch.models.factory import build_model
     from diffuncertainty_tpu_torch.sampling.sampler import SamplerSpec, make_sampler
@@ -1785,81 +1871,77 @@ def phase_train(smi: str, norm_site_list) -> dict:
     from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
     from diffuncertainty_tpu_torch.train.loop import Trainer
 
-    attn_cases, norm_cases = vjp_cases(norm_site_list)
-    attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
-    norm_checked = {(tuple(c["shape"]), c["dtype"], c["act"]) for c in norm_cases}
+    attn_cases, norm_cases, attn_checked, norm_checked = unet16_train_checks(norm_site_list)
     data_dir = toy128_dataset(HW).base_dir
     out = {"attention_vjp": attn_cases, "group_norm_vjp": norm_cases}
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg, _ = parse_args(train_tokens(data_dir, tmp))
-        trainer = Trainer(cfg, device="cuda", workdir=Path(tmp) / "probe")
-        train_loader, _, _ = build_loaders(cfg)
-        batches = list(train_loader)[:2]
-        out["step"] = phase_train_step(smi, trainer, batches, attn_checked, norm_checked)
-        del trainer, batches
-        torch.cuda.empty_cache()
+    tmp = runs.dir("train")
+    cfg, _ = parse_args(train_tokens(data_dir, tmp))
+    trainer = Trainer(cfg, device="cuda", workdir=runs.dir("train_probe"))
+    train_loader, _, _ = build_loaders(cfg)
+    batches = list(train_loader)[:2]
+    out["step"] = phase_train_step(smi, trainer, batches, attn_checked, norm_checked)
+    del trainer
+    torch.cuda.empty_cache()
+    out["remat"] = phase_remat_step(smi, apply_overrides(cfg, [
+        f"save_dir={runs.dir('train_remat')}"]), batches)
+    del batches
+    torch.cuda.empty_cache()
+    yield  # the rest is not timed: it waits for the entry-point run
 
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.train",
-                              *train_tokens(data_dir, tmp)], cwd=REPO, capture_output=True,
-                             text=True, timeout=900)
-        wall = time.perf_counter() - t0
-        if run.returncode != 0:
-            raise AssertionError(f"the trainer exited {run.returncode}:\n{run.stdout[-2000:]}\n"
-                                 f"{run.stderr[-4000:]}")
-        (steps_line,) = [ln for ln in run.stdout.splitlines() if ln.startswith("steps ")]
-        workdir = Path(tmp) / cfg.auto_exp_name / "version_0"
-        records = [json.loads(ln) for ln in (workdir / "metrics.jsonl").read_text().splitlines()]
-        losses = [r["train_loss"] for r in records if "train_loss" in r]
-        tail = float(np.mean(losses[-10:]))
-        log(f"train recipe: exit 0 in {wall:.1f}s (process included) on {smi}: {steps_line}; "
-            f"{len(losses)} epochs, train_loss epoch 0 {losses[0]:.4f}, mean of the last 10 "
-            f"{tail:.4f}; validation {[r for r in records if 'val_dice' in r][-1:]}")
-        if len(losses) != TRAIN_EPOCHS or not tail < 0.5 * losses[0]:
-            raise AssertionError(f"train recipe: {len(losses)} epoch records, the last 10 "
-                                 f"epochs' loss {tail:.4f} vs epoch 0's {losses[0]:.4f}")
-        step_ms, img_s = map(float, re.search(r"median step ([0-9.]+) ms \(([0-9.]+) img/s",
-                                              steps_line).groups())
-        out["recipe"] = {"wall_s": wall, "median_step_ms": step_ms, "img_per_s": img_s,
-                         "first_loss": losses[0], "last10_loss": tail}
+    wall, text = run_output(runs, "train")
+    (steps_line,) = [ln for ln in text.splitlines() if ln.startswith("steps ")]
+    workdir = Path(tmp) / cfg.auto_exp_name / "version_0"
+    records = [json.loads(ln) for ln in (workdir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    tail = float(np.mean(losses[-10:]))
+    log(f"train recipe: exit 0 in {wall:.1f}s (process included, {BESIDE}) on "
+        f"{smi}: {steps_line}; "
+        f"{len(losses)} epochs, train_loss epoch 0 {losses[0]:.4f}, mean of the last 10 "
+        f"{tail:.4f}; validation {[r for r in records if 'val_dice' in r][-1:]}")
+    if len(losses) != TRAIN_EPOCHS or not tail < 0.5 * losses[0]:
+        raise AssertionError(f"train recipe: {len(losses)} epoch records, the last 10 "
+                             f"epochs' loss {tail:.4f} vs epoch 0's {losses[0]:.4f}")
+    step_ms, img_s = map(float, re.search(r"median step ([0-9.]+) ms \(([0-9.]+) img/s",
+                                          steps_line).groups())
+    out["recipe"] = {"wall_s": wall, "median_step_ms": step_ms, "img_per_s": img_s,
+                     "first_loss": losses[0], "last10_loss": tail}
 
-        # the EMA weights of the last checkpoint, one member, no TTA
-        ckpt = workdir / "checkpoints" / "last"
-        saved, ckpt_cfg, meta = load_checkpoint(ckpt)
-        built = build_model(ckpt_cfg, device="cuda")
-        built.module.load_state_dict(flax_to_torch(saved["ema_params"]))
-        sampler = make_sampler(built, SamplerSpec(n_pred=1, n_members=1, member_mode="single"))
-        q32 = toy128_quality_eval(built, sampler, ckpt_cfg.data, batch=BATCH, hw=HW,
-                                  device="cuda", num_images=32)
-        q = toy128_quality_eval(built, sampler, ckpt_cfg.data, batch=BATCH, hw=HW, device="cuda")
-        log(f"train recipe quality (EMA weights of epoch {meta['epoch']}, one member, no TTA): "
-            f"first 32 test images {q32} (bands {TRAIN_BANDS}); all 256 {q}")
-        for metric, (lo, hi) in TRAIN_BANDS.items():
-            if not lo <= q32[metric] <= hi:
-                raise AssertionError(f"trained {metric} {q32[metric]:.5f} on the first 32 images "
-                                     f"outside [{lo}, {hi}]")
-        out["quality_32"], out["quality"] = q32, q
+    # the EMA weights of the last checkpoint, one member, no TTA
+    ckpt = workdir / "checkpoints" / "last"
+    saved, ckpt_cfg, meta = load_checkpoint(ckpt)
+    built = build_model(ckpt_cfg, device="cuda")
+    built.module.load_state_dict(flax_to_torch(saved["ema_params"]))
+    sampler = make_sampler(built, SamplerSpec(n_pred=1, n_members=1, member_mode="single"))
+    q32 = toy128_quality_eval(built, sampler, ckpt_cfg.data, batch=BATCH, hw=HW,
+                              device="cuda", num_images=32)
+    q = toy128_quality_eval(built, sampler, ckpt_cfg.data, batch=BATCH, hw=HW, device="cuda")
+    log(f"train recipe quality (EMA weights of epoch {meta['epoch']}, one member, no TTA): "
+        f"first 32 test images {q32} (bands {TRAIN_BANDS}); all 256 {q}")
+    for metric, (lo, hi) in TRAIN_BANDS.items():
+        if not lo <= q32[metric] <= hi:
+            raise AssertionError(f"trained {metric} {q32[metric]:.5f} on the first 32 images "
+                                 f"outside [{lo}, {hi}]")
+    out["quality_32"], out["quality"] = q32, q
 
-        argv = ["--checkpoint_paths", str(ckpt), "--test_split", "id", "--n_pred", "1",
-                "--n_models", "1", "--ema_mode", "true", "--test_batch_size", str(BATCH),
-                "--metrics_only", "--save_dir", str(Path(tmp) / "results")]
-        job = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.infer", *argv],
-                             cwd=REPO, capture_output=True, text=True, timeout=600)
-        if job.returncode != 0:
-            raise AssertionError(f"the inference job on the trained checkpoint exited "
-                                 f"{job.returncode}:\n{job.stdout[-2000:]}\n{job.stderr[-4000:]}")
-        (summary,) = [ast.literal_eval(ln) for ln in job.stdout.splitlines()
-                      if ln.startswith("{'split'")]
-        metrics = json.loads((Path(summary["out_dir"]) / "metrics.json").read_text())
-        job_dice = float(np.mean([r["metrics"]["dice"] for r in metrics.values()]))
-        log(f"infer job on the trained checkpoint: {summary}; mean Dice {job_dice:.6f} vs "
-            f"{q['dice']:.6f} in process")
-        if len(metrics) != 256 or abs(job_dice - q["dice"]) > 1e-4:
-            raise AssertionError(f"infer job Dice {job_dice:.6f} over {len(metrics)} images != "
-                                 f"{q['dice']:.6f} to 1e-4")
-        out["infer_dice"] = job_dice
+    argv = ["--checkpoint_paths", str(ckpt), "--test_split", "id", "--n_pred", "1",
+            "--n_models", "1", "--ema_mode", "true", "--test_batch_size", str(BATCH),
+            "--metrics_only", "--save_dir", str(Path(tmp) / "results")]
+    job = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.infer", *argv],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    if job.returncode != 0:
+        raise AssertionError(f"the inference job on the trained checkpoint exited "
+                             f"{job.returncode}:\n{job.stdout[-2000:]}\n{job.stderr[-4000:]}")
+    (summary,) = [ast.literal_eval(ln) for ln in job.stdout.splitlines()
+                  if ln.startswith("{'split'")]
+    metrics = json.loads((Path(summary["out_dir"]) / "metrics.json").read_text())
+    job_dice = float(np.mean([r["metrics"]["dice"] for r in metrics.values()]))
+    log(f"infer job on the trained checkpoint: {summary}; mean Dice {job_dice:.6f} vs "
+        f"{q['dice']:.6f} in process")
+    if len(metrics) != 256 or abs(job_dice - q["dice"]) > 1e-4:
+        raise AssertionError(f"infer job Dice {job_dice:.6f} over {len(metrics)} images != "
+                             f"{q['dice']:.6f} to 1e-4")
+    out["infer_dice"] = job_dice
     return out
-
 
 
 def training_sites(trainer, batch) -> tuple[dict, list]:
@@ -1909,14 +1991,13 @@ def counted_grads(trainer, state, batch, seed: int) -> dict:
     return counts
 
 
-def phase_train_family(smi: str, model: str) -> dict:
+def phase_train_family(smi: str, model: str, runs) -> Generator[None, None, dict]:
     """One family's training (``TRAIN_FAMILIES``): each kernel's backward at
     its training shapes, one counted bf16 step at batch 16 (the SSN's also
     in its mean-only phase), a short run through the entry point as a
-    subprocess, and its checkpoint in the family's serving sampler (launches
-    counted) and in the inference job."""
+    subprocess (an entry-point run), and its checkpoint in the family's serving
+    sampler (launches counted) and in the inference job."""
     import ast
-    import tempfile
 
     import numpy as np
     import torch
@@ -1930,103 +2011,729 @@ def phase_train_family(smi: str, model: str) -> dict:
     label = f"train_{model}"
     data_dir = toy128_dataset(HW).base_dir
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tokens = recipe_tokens(data_dir, tmp, model=model, epochs=fam["epochs"]) + fam["extra"]
-        cfg, _ = parse_args(tokens)
-        trainer = Trainer(cfg, device="cuda", workdir=Path(tmp) / "probe")
-        full_epoch = cfg.model.ssn_pretrain_epochs  # 0 but for the SSN
-        trainer.set_epoch(full_epoch)
-        train_loader, _, _ = build_loaders(cfg)
-        batches = list(train_loader)[:2]
-        trainer.init_state()
-        attn_sites, norm_sites = training_sites(trainer, batches[0])
-        attn_cases, norm_cases = vjp_cases(norm_sites, attn_sites)
-        out["attention_vjp"], out["group_norm_vjp"] = attn_cases, norm_cases
-        attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
-        norm_checked = {(tuple(c["shape"]), c["dtype"], c["act"]) for c in norm_cases}
-        out["step"] = phase_train_step(smi, trainer, batches, attn_checked, norm_checked,
-                                       want=fam["step"], want_vjp=fam.get("step_vjp"),
-                                       label=f"{label} step", runs=5)
-        if "mean_only_step" in fam:  # the pretraining epochs skip the factor head
-            trainer.set_epoch(0)
-            counts = counted_grads(trainer, trainer.fresh_state(), batches[1], 11)
-            n_attn, n_norm = fam["mean_only_step"]
-            want = {"qkv_attention": n_attn, "group_norm_act": n_norm,
-                    "qkv_attention_vjp": n_attn, "group_norm_act_vjp": n_norm}
-            log(f"{label} mean-only step: launches and VJPs {counts} (expected {want})")
-            if counts != want:
-                raise AssertionError(f"{label} mean-only step: {counts} != {want}")
-            out["mean_only_launches"] = counts
-        del trainer, batches
-        torch.cuda.empty_cache()
+    tmp = runs.dir(label)
+    tokens = recipe_tokens(data_dir, tmp, model=model, epochs=fam["epochs"]) + fam["extra"]
+    cfg, _ = parse_args(tokens)
+    trainer = Trainer(cfg, device="cuda", workdir=runs.dir(f"{label}_probe"))
+    full_epoch = cfg.model.ssn_pretrain_epochs  # 0 but for the SSN
+    trainer.set_epoch(full_epoch)
+    train_loader, _, _ = build_loaders(cfg)
+    batches = list(train_loader)[:2]
+    trainer.init_state()
+    attn_sites, norm_sites = training_sites(trainer, batches[0])
+    attn_cases, norm_cases = vjp_cases(norm_sites, attn_sites)
+    out["attention_vjp"], out["group_norm_vjp"] = attn_cases, norm_cases
+    attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
+    norm_checked = {(tuple(c["shape"]), c["dtype"], c["act"]) for c in norm_cases}
+    out["step"] = phase_train_step(smi, trainer, batches, attn_checked, norm_checked,
+                                   want=fam["step"], want_vjp=fam.get("step_vjp"),
+                                   label=f"{label} step", runs=5)
+    if "mean_only_step" in fam:  # the pretraining epochs skip the factor head
+        trainer.set_epoch(0)
+        counts = counted_grads(trainer, trainer.fresh_state(), batches[1], 11)
+        n_attn, n_norm = fam["mean_only_step"]
+        want = {"qkv_attention": n_attn, "group_norm_act": n_norm,
+                "qkv_attention_vjp": n_attn, "group_norm_act_vjp": n_norm}
+        log(f"{label} mean-only step: launches and VJPs {counts} (expected {want})")
+        if counts != want:
+            raise AssertionError(f"{label} mean-only step: {counts} != {want}")
+        out["mean_only_launches"] = counts
+    del trainer, batches
+    torch.cuda.empty_cache()
+    yield  # the rest is not timed: it waits for the entry-point run
 
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.train", *tokens],
-                             cwd=REPO, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if run.returncode != 0:
-            raise AssertionError(f"{label}: the trainer exited {run.returncode}:\n"
-                                 f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
-        (steps_line,) = [ln for ln in run.stdout.splitlines() if ln.startswith("steps ")]
-        workdir = Path(tmp) / cfg.auto_exp_name / "version_0"
-        records = [json.loads(ln) for ln in (workdir / "metrics.jsonl").read_text().splitlines()]
-        losses = [r["train_loss"] for r in records]
-        vals = [r for r in records if "val_dice" in r]
-        log(f"{label} run: exit 0 in {wall:.1f}s (process included) on {smi}: {steps_line}; "
-            f"train_loss by epoch {[round(x, 5) for x in losses]}; validation {vals}")
-        if (len(losses) != fam["epochs"] or not np.isfinite(losses).all()
-                or not losses[-1] < losses[0]):
-            raise AssertionError(f"{label} run: losses {losses} not {fam['epochs']} finite and "
-                                 f"falling")
-        if model == "ssn":
-            failed = [r["train_cov_failed"] for r in records]
-            log(f"{label} run: cov_failed by epoch {failed} (the factor head from epoch "
-                f"{cfg.model.ssn_pretrain_epochs} on)")
-            out["cov_failed"] = failed
-        if model == "prob_unet":
-            betas = [r["beta"] for r in records]
-            log(f"{label} run: beta by epoch {betas}")
-            if not all(a < b for a, b in zip(betas, betas[1:])):
-                raise AssertionError(f"{label} run: beta {betas} is not rising")
-            out["beta"] = betas
-        if model == "diffusion" and len(vals) != fam["epochs"] // 2:
-            raise AssertionError(f"{label} run: {len(vals)} validations (DDPM), expected "
-                                 f"{fam['epochs'] // 2}")
-        out["run"] = {"wall_s": wall, "steps_line": steps_line, "losses": losses}
+    wall, text = run_output(runs, label)
+    (steps_line,) = [ln for ln in text.splitlines() if ln.startswith("steps ")]
+    workdir = Path(tmp) / cfg.auto_exp_name / "version_0"
+    records = [json.loads(ln) for ln in (workdir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train_loss"] for r in records]
+    vals = [r for r in records if "val_dice" in r]
+    log(f"{label} run: exit 0 in {wall:.1f}s (process included, {BESIDE}) on "
+        f"{smi}: {steps_line}; "
+        f"train_loss by epoch {[round(x, 5) for x in losses]}; validation {vals}")
+    if (len(losses) != fam["epochs"] or not np.isfinite(losses).all()
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"{label} run: losses {losses} not {fam['epochs']} finite and "
+                             f"falling")
+    if model == "ssn":
+        failed = [r["train_cov_failed"] for r in records]
+        log(f"{label} run: cov_failed by epoch {failed} (the factor head from epoch "
+            f"{cfg.model.ssn_pretrain_epochs} on)")
+        out["cov_failed"] = failed
+    if model == "prob_unet":
+        betas = [r["beta"] for r in records]
+        log(f"{label} run: beta by epoch {betas}")
+        if not all(a < b for a, b in zip(betas, betas[1:])):
+            raise AssertionError(f"{label} run: beta {betas} is not rising")
+        out["beta"] = betas
+    if model == "diffusion" and len(vals) != fam["epochs"] // 2:
+        raise AssertionError(f"{label} run: {len(vals)} validations (DDPM), expected "
+                             f"{fam['epochs'] // 2}")
+    out["run"] = {"wall_s": wall, "steps_line": steps_line, "losses": losses}
 
-        # the checkpoint's EMA weights in the family's serving sampler
-        ckpt = workdir / "checkpoints" / "last"
-        built, sampler, ckpt_cfg = load_trained(ckpt)
-        images = test_images(ckpt_cfg)
-        stack, launches, _, _, _, _ = counted_call(built, sampler, images, 0)
-        n_attn, n_norm = fam["serve"]
-        check_launches(f"{label} checkpoint in the serving sampler", launches,
-                       {"qkv_attention": n_attn, "group_norm_act": n_norm})
-        check_stack(f"{label} checkpoint in the serving sampler", stack)
-        out["serve_launches"] = launches
-        del built, sampler, stack
+    # the checkpoint's EMA weights in the family's serving sampler
+    ckpt = workdir / "checkpoints" / "last"
+    built, sampler, ckpt_cfg = load_trained(ckpt)
+    images = test_images(ckpt_cfg)
+    stack, launches, _, _, _, _ = counted_call(built, sampler, images, 0)
+    n_attn, n_norm = fam["serve"]
+    check_launches(f"{label} checkpoint in the serving sampler", launches,
+                   {"qkv_attention": n_attn, "group_norm_act": n_norm})
+    check_stack(f"{label} checkpoint in the serving sampler", stack)
+    out["serve_launches"] = launches
+    del built, sampler, stack
 
-        argv = ["--checkpoint_paths", str(ckpt), "--test_split", "id", "--n_pred",
-                str(SAMPLES), "--n_models", "1", "--ema_mode", "true", "--test_batch_size",
-                str(BATCH), "--metrics_only", "--save_dir", str(Path(tmp) / "results")]
-        if model == "diffusion":
-            argv += ["--diffusion-sampler", "ddim", "--diffusion-num-steps", str(DDIM_STEPS)]
-        job = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.infer", *argv],
-                             cwd=REPO, capture_output=True, text=True, timeout=600)
-        if job.returncode != 0:
-            raise AssertionError(f"{label}: the inference job exited {job.returncode}:\n"
-                                 f"{job.stdout[-2000:]}\n{job.stderr[-4000:]}")
-        (summary,) = [ast.literal_eval(ln) for ln in job.stdout.splitlines()
-                      if ln.startswith("{'split'")]
-        metrics = json.loads((Path(summary["out_dir"]) / "metrics.json").read_text())
-        dice = [r["metrics"]["dice"] for r in metrics.values()]
-        log(f"{label}: infer job on its checkpoint: {summary}; mean Dice {np.mean(dice):.5f}")
-        if len(dice) != 256 or not all(0.0 <= d <= 1.0 for d in dice):
-            raise AssertionError(f"{label}: infer job gave {len(dice)} records")
-        out["infer"] = {"images_per_sec": summary.get("images_per_sec"),
-                        "mean_dice": float(np.mean(dice))}
+    argv = ["--checkpoint_paths", str(ckpt), "--test_split", "id", "--n_pred",
+            str(SAMPLES), "--n_models", "1", "--ema_mode", "true", "--test_batch_size",
+            str(BATCH), "--metrics_only", "--save_dir", str(Path(tmp) / "results")]
+    if model == "diffusion":
+        argv += ["--diffusion-sampler", "ddim", "--diffusion-num-steps", str(DDIM_STEPS)]
+    job = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.infer", *argv],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    if job.returncode != 0:
+        raise AssertionError(f"{label}: the inference job exited {job.returncode}:\n"
+                             f"{job.stdout[-2000:]}\n{job.stderr[-4000:]}")
+    (summary,) = [ast.literal_eval(ln) for ln in job.stdout.splitlines()
+                  if ln.startswith("{'split'")]
+    metrics = json.loads((Path(summary["out_dir"]) / "metrics.json").read_text())
+    dice = [r["metrics"]["dice"] for r in metrics.values()]
+    log(f"{label}: infer job on its checkpoint: {summary}; mean Dice {np.mean(dice):.5f}")
+    if len(dice) != 256 or not all(0.0 <= d <= 1.0 for d in dice):
+        raise AssertionError(f"{label}: infer job gave {len(dice)} records")
+    out["infer"] = {"images_per_sec": summary.get("images_per_sec"),
+                    "mean_dice": float(np.mean(dice))}
     torch.cuda.empty_cache()
     return out
+
+
+# how the entry-point runs' walls and steps were taken: not a time to compare
+BESIDE = f"up to {ENTRY_JOBS} runs at once"
+
+
+def run_output(runs, name: str) -> tuple[float, str]:
+    """(wall seconds, output) of a finished entry-point run; raises if it failed."""
+    run = runs.wait(name)
+    return run["wall_s"], run["output"]
+
+
+def steps_line(label: str, text: str) -> str:
+    lines = [ln for ln in text.splitlines() if ln.startswith("steps ")]
+    if len(lines) != 1:
+        raise AssertionError(f"{label}: no closing steps line in its output:\n{text[-2000:]}")
+    return lines[0]
+
+
+def run_records(workdir: Path) -> list[dict]:
+    return [json.loads(ln) for ln in (workdir / "metrics.jsonl").read_text().splitlines()]
+
+
+def register_entry_runs(runs, paths) -> None:
+    """The chosen training paths' entry-point runs (``TRAIN_FAMILIES``,
+    ``NEW_TRAIN_RUNS`` and the train path's recipe)."""
+    from diffuncertainty_tpu_torch.tools.multiclass_quality import (default_data_dir,
+                                                                    gta_toy_frames)
+    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset
+    from diffuncertainty_tpu_torch.tools.train_recipe import multiclass_tokens, recipe_tokens
+
+    data_dir = toy128_dataset(HW).base_dir
+    train = [sys.executable, "-m", "diffuncertainty_tpu_torch.train"]
+    if "train" in paths:
+        runs.add("train", train + train_tokens(data_dir, runs.dir("train")), 900)
+    for path, spec in NEW_TRAIN_RUNS.items():
+        if path not in paths:
+            continue
+        if path == "train_multiclass":
+            gta_toy_frames(MC_FRAMES, MC_SIZE, MC_WINDOW, MC_SEED)  # the data tree
+            runs.add(path, [sys.executable, "-m", "diffuncertainty_tpu_torch.tools.train_recipe",
+                            "--multiclass-run", *multiclass_tokens(
+                                default_data_dir(), runs.dir(path), spec["epochs"]),
+                            *spec["extra"]], 600)
+            continue
+        for i, seed in enumerate(spec.get("seeds", (None,))):
+            name = path if seed is None else f"{path}_{i}"
+            runs.add(name, train + recipe_tokens(data_dir, runs.dir(name), model=spec["recipe"],
+                                                 seed=seed, epochs=spec["epochs"])
+                     + spec["extra"], 600)
+    for model, fam in TRAIN_FAMILIES.items():
+        if f"train_{model}" in paths:
+            tokens = recipe_tokens(data_dir, runs.dir(f"train_{model}"), model=model,
+                                   epochs=fam["epochs"]) + fam["extra"]
+            runs.add(f"train_{model}", train + tokens, 600)
+
+
+def trained_run(runs, name: str, epochs: int) -> tuple[Path, dict]:
+    """The checkpoint directory of a finished run and its summary (wall,
+    steps line, losses by epoch); the loss must fall and stay finite."""
+    import numpy as np
+
+    wall, text = run_output(runs, name)
+    line = steps_line(name, text)
+    (workdir,) = [p for p in runs.dir(name).glob("*/version_0") if p.is_dir()]
+    records = run_records(workdir)
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    log(f"{name} run: exit 0 in {wall:.1f}s (process included, {BESIDE}): {line}; "
+        f"train_loss by epoch {[round(x, 5) for x in losses]}; validation "
+        f"{[r for r in records if 'val_dice' in r]}")
+    if len(losses) != epochs or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} run: losses {losses} not {epochs} finite and falling")
+    return workdir / "checkpoints" / "last", {"wall_s": wall, "steps_line": line,
+                                              "losses": losses}
+
+
+_TRAIN_CHECKS: dict = {}
+
+
+def unet16_train_checks(norm_site_list) -> tuple[list, list, set, set]:
+    """Each kernel's backward at unet16's training shapes (16 rows), computed
+    once for every training path that runs them: (attention cases, norm
+    cases, attention shapes checked, norm sites checked)."""
+    if not _TRAIN_CHECKS:
+        attn_cases, norm_cases = vjp_cases(norm_site_list)
+        _TRAIN_CHECKS["v"] = (attn_cases, norm_cases,
+                              {(c["B"], c["T"], c["C"]) for c in attn_cases},
+                              {(tuple(c["shape"]), c["dtype"], c["act"]) for c in norm_cases})
+    return _TRAIN_CHECKS["v"]
+
+
+def grad_rel_errors(names, got, ref, floor: float = 1e-8) -> dict:
+    """Relative L2 error per leaf, leaves whose reference gradient is below
+    ``floor`` of the largest leaf's norm left out (float rounding only)."""
+    norms = {n: r.float().norm().item() for n, r in zip(names, ref)}
+    top = max(norms.values())
+    return {n: ((g.float() - r.float()).norm() / r.float().norm()).item()
+            for n, g, r in zip(names, got, ref) if norms[n] > floor * top}
+
+
+def phase_remat_step(smi: str, cfg, batches) -> dict:
+    """``trainer.remat`` on the train path's step (from step 2): the counted
+    remat forward and backward (each kernel's forward twice: the stored
+    forward and the recompute; VJPs once), its gradients against the
+    non-remat step's on the same generator state (fp32 to 1e-6 of the
+    largest gradient, bf16 to STEP_GRAD_TOL), and the peak memory of a
+    forward and backward with and without remat."""
+    import torch
+
+    from diffuncertainty_tpu_torch.core.config import apply_overrides
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    out = {}
+    for precision in ("bf16", "fp32"):
+        pcfg = apply_overrides(cfg, [f"trainer.precision={precision}"])
+        plain = Trainer(pcfg, device="cuda", workdir=Path(cfg.save_dir) / f"plain_{precision}")
+        remat = Trainer(apply_overrides(pcfg, ["trainer.remat=true"]), device="cuda",
+                        workdir=Path(cfg.save_dir) / f"remat_{precision}")
+        state = plain.init_state()
+        for i in range(2):
+            state, _ = plain.train_step(state, batches[i], plain.epoch_generator(0))
+        remat.built.module.load_state_dict(plain.built.module.state_dict())
+        names = list(state.params)
+
+        def grads(trainer, seed=7):
+            gen = torch.Generator("cuda").manual_seed(seed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _ = trainer.forward_loss(batches[1], gen)
+            g = trainer.gradients(trainer.fresh_state(), loss)
+            torch.cuda.synchronize()
+            return loss.item(), g, torch.cuda.max_memory_allocated() / 2**30
+
+        if precision == "bf16":
+            grads(remat)  # warm
+            with counting_twins() as twins:
+                ca.reset_launch_count()
+                gn.reset_launch_count()
+                grads(remat)
+                counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
+                          "qkv_attention_vjp": ca.vjp_count(),
+                          "group_norm_act_vjp": gn.vjp_count()}
+            want = {"qkv_attention": 22, "group_norm_act": 112, "qkv_attention_vjp": 11,
+                    "group_norm_act_vjp": 56}
+            log(f"train remat step: launches and VJPs {counts} (expected {want}: the forward "
+                f"and its recompute), twin forwards {twins}")
+            if counts != want or any(twins.values()):
+                raise AssertionError(f"train remat step: {counts} != {want} or twins ran {twins}")
+            out["launches"] = counts
+        loss, g, peak = grads(plain)
+        r_loss, r_g, r_peak = grads(remat)
+        if precision == "fp32":
+            top = max(x.abs().max().item() for x in g)
+            worst = max((a - b).abs().max().item() for a, b in zip(r_g, g))
+            log(f"train remat step fp32: loss {r_loss:.7f} vs {loss:.7f}; max |g_remat - g| "
+                f"{worst:.3e} ({worst / top:.3e} of the largest gradient)")
+            if worst > 1e-6 * top or abs(r_loss - loss) > 1e-6 * abs(loss):
+                raise AssertionError(f"remat fp32 gradients differ: {worst:.3e} of {top:.3e}")
+            out["fp32_max_rel"] = worst / top
+        else:
+            rel = grad_rel_errors(names, r_g, g)
+            worst = max(rel, key=rel.get)
+            log(f"train remat step bf16 on {smi}: loss {r_loss:.6f} vs {loss:.6f}; gradient rel "
+                f"L2 per leaf max {rel[worst]:.3e} at {worst} ({len(rel)} leaves); peak memory "
+                f"of a forward and backward {r_peak:.3f} GiB with remat, {peak:.3f} GiB without")
+            if rel[worst] > STEP_GRAD_TOL:
+                raise AssertionError(f"remat bf16 gradient {worst} rel error {rel[worst]:.3e}")
+            out.update(bf16_max_rel=rel[worst], peak_gib_remat=r_peak, peak_gib_plain=peak)
+        del plain, remat, state, g, r_g
+        torch.cuda.empty_cache()
+    return out
+
+
+def hrnet_bn_inputs(module, box: list):
+    """A hook recording the first BatchNorm's input (the stem's) of each forward."""
+    return module.stem_bn1.register_forward_pre_hook(
+        lambda mod, args: box.append(args[0].detach().clone()))
+
+
+def phase_train_hrnet(smi: str, runs) -> Generator[None, None, dict]:
+    """The HRNet's training: one counted bf16 step at batch 16 (no kernel,
+    no twin), every leaf's gradient against the fp32 step with the same
+    draws, the running statistics after a step by flax's rule (0.9 running +
+    0.1 the batch's float32 biased statistics), a remat step leaving them
+    identical, the step's split; then the short run through the entry point
+    and its checkpoint (EMA weights and the run's statistics) in the HRNet
+    serving path."""
+    import copy
+
+    import torch
+
+    from diffuncertainty_tpu_torch.core.config import apply_overrides
+    from diffuncertainty_tpu_torch.core.params import load_into
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+    from diffuncertainty_tpu_torch.sampling.sampler import SamplerSpec, make_sampler
+    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset, toy128_quality_eval
+    from diffuncertainty_tpu_torch.tools.train_recipe import TTA, load_trained, recipe_tokens
+    from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    spec = NEW_TRAIN_RUNS["train_hrnet"]
+    tmp = runs.dir("train_hrnet_probe")
+    cfg, _ = parse_args(recipe_tokens(toy128_dataset(HW).base_dir, tmp, model="hrnet",
+                                      epochs=spec["epochs"]))
+    trainer = Trainer(cfg, device="cuda", workdir=tmp / "bf16")
+    batches = list(build_loaders(cfg)[0])[:2]
+    state = trainer.init_state()
+    module = trainer.built.module
+    out = {}
+
+    def grads(tr, seed=7):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        loss, aux = tr.forward_loss(batches[0], gen)
+        return loss, tr.gradients(tr.fresh_state(), loss), aux
+
+    grads(trainer)  # warm
+    torch.cuda.synchronize()
+    with counting_twins() as twins:
+        ca.reset_launch_count()
+        gn.reset_launch_count()
+        loss, g, _ = grads(trainer)
+        torch.cuda.synchronize()
+        counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
+                  "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
+    log(f"train_hrnet step: launches and VJPs {counts} (the HRNet has neither kernel), twin "
+        f"forwards {twins}")
+    if any(counts.values()) or any(twins.values()):
+        raise AssertionError(f"train_hrnet step launched {counts} or twins {twins}")
+    out["launches"] = {k: v for k, v in counts.items() if not k.endswith("_vjp")}
+    # every leaf of the bf16 and the fp32 step against a float64 step, the
+    # same draws, at the trained asset's weights and statistics
+    steps = {}
+    for precision, dtype in (("bf16", None), ("fp32", None), ("fp64", torch.float64)):
+        tr = Trainer(apply_overrides(cfg, [f"trainer.precision="
+                                           f"{'fp32' if dtype else precision}"]),
+                     device="cuda", workdir=tmp / precision)
+        load_into(tr.built.module, ASSET_HRNET)
+        if dtype is not None:
+            tr.built.module.double()
+            tr.built.module.dtype = dtype
+        loss_p, g_p, _ = grads(tr)
+        steps[precision] = (loss_p.item(), g_p)
+        del tr
+    names = list(state.params)
+    g64 = steps["fp64"][1]
+    top = max(x.norm().item() for x in g64)
+    keep = [i for i, x in enumerate(g64) if x.norm().item() > 1e-6 * top]
+    stats_g = {}
+    for precision in ("bf16", "fp32"):
+        gp = steps[precision][1]
+        per = [((gp[i].double() - g64[i]).norm() / g64[i].norm()).item() for i in keep]
+        # each leaf's own cosine (0 for a leaf whose gradient is all zeros)
+        cos = [(gp[i].double().reshape(-1) @ g64[i].reshape(-1)
+                / (gp[i].double().norm() * g64[i].norm()).clamp(min=1e-300)).item() for i in keep]
+        a = torch.cat([gp[i].double().reshape(-1) for i in keep])
+        b = torch.cat([g64[i].reshape(-1) for i in keep])
+        stats_g[precision] = {"loss": steps[precision][0],
+                              "cos": (a @ b / a.norm() / b.norm()).item(),
+                              "median_rel": statistics.median(per), "max_rel": max(per),
+                              "worst": names[keep[per.index(max(per))]], "min_leaf_cos": min(cos),
+                              "worst_cos": names[keep[cos.index(min(cos))]],
+                              "finite": all(torch.isfinite(x).all().item() for x in gp)}
+    log(f"train_hrnet step gradients at the trained weights against a float64 step (same "
+        f"draws; {len(keep)} of {len(names)} leaves, the rest below 1e-6 of the largest: "
+        f"biases before a train-mode BatchNorm): float64 loss {steps['fp64'][0]:.6f}; "
+        f"{stats_g}")
+    b16, f32 = stats_g["bf16"], stats_g["fp32"]
+    if not (f32["finite"] and b16["finite"] and f32["max_rel"] <= HRNET_FP32_TOL
+            and b16["cos"] >= HRNET_BF16_COS and b16["max_rel"] <= HRNET_BF16_LEAF
+            and b16["min_leaf_cos"] >= HRNET_BF16_LEAF_COS):
+        raise AssertionError(f"train_hrnet gradients: {stats_g} (fp32 per leaf <= "
+                             f"{HRNET_FP32_TOL}; bf16 cosine >= {HRNET_BF16_COS}, per leaf <= "
+                             f"{HRNET_BF16_LEAF} and each leaf's cosine >= {HRNET_BF16_LEAF_COS})")
+    out["gradients_vs_fp64"] = stats_g
+    del steps, g64
+    # the statistics after one step by flax's rule, and a remat step the same
+    tremat = Trainer(apply_overrides(cfg, ["trainer.remat=true"]), device="cuda",
+                     workdir=tmp / "remat")
+    tremat.built.module.load_state_dict(module.state_dict())
+    before = {k: v.clone() for k, v in state.model_state.items()}
+    box: list = []
+    hook = hrnet_bn_inputs(module, box)
+    state, _ = trainer.train_step(state, batches[0], torch.Generator("cuda").manual_seed(7))
+    hook.remove()
+    x = box[0].float()
+    mean = x.mean(dim=(0, 2, 3))
+    var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    for k, batch_v in (("stem_bn1.running_mean", mean), ("stem_bn1.running_var", var)):
+        want = 0.9 * before[k] + 0.1 * batch_v
+        err = (state.model_state[k] - want).abs().max().item()
+        if err > 1e-5 * max(1.0, want.abs().max().item()):
+            raise AssertionError(f"train_hrnet {k} after a step {err:.3e} from flax's rule")
+    moved = sum(not torch.equal(before[k], v) for k, v in state.model_state.items())
+    rstate = tremat.fresh_state()
+    tremat.train_step(rstate, batches[0], torch.Generator("cuda").manual_seed(7))
+    diff = max((a - b).abs().max().item() for a, b in zip(
+        rstate.model_state.values(), state.model_state.values()))
+    log(f"train_hrnet statistics: {moved} of {len(before)} buffers moved by 0.9 running + 0.1 "
+        f"the batch's (stem checked to 1e-5); after a remat step max |d| {diff:.3e}")
+    if moved != len(before) or diff > 1e-6:
+        raise AssertionError(f"train_hrnet statistics: {moved} moved, remat differs by {diff}")
+    del tremat, rstate
+    # the step's split, busy share and peak memory
+    out["step"] = phase_train_step(smi, trainer, batches, set(), set(),
+                                   want=(0, 0), label="train_hrnet step", runs=5,
+                                   compare_twins=False)
+    del trainer, state
+    torch.cuda.empty_cache()
+    yield  # the rest is not timed: it waits for the entry-point run
+
+    ckpt, out["run"] = trained_run(runs, "train_hrnet", spec["epochs"])
+    built, _, ckpt_cfg = load_trained(ckpt)
+    saved_stats = copy.deepcopy({k: v for k, v in built.module.state_dict().items()
+                                 if "running" in k})
+    sampler = make_sampler(built, SamplerSpec(n_pred=1, n_members=MEMBERS, tta=True,
+                                              tta_config=TTA, member_mode="dropout"))
+    images = test_images(ckpt_cfg)
+    stack, launches, _, _, _, _ = counted_call(built, sampler, images, 0)
+    check_launches("train_hrnet checkpoint in the hrnet path", launches,
+                   {"qkv_attention": 0, "group_norm_act": 0})
+    check_stack("train_hrnet checkpoint in the hrnet path", stack)
+    out["serve_eu"] = mean_eu("train_hrnet checkpoint in the hrnet path", stack)
+    if not all(torch.equal(v, built.module.state_dict()[k]) for k, v in saved_stats.items()):
+        raise AssertionError("serving moved the HRNet's statistics")
+    out["quality_32"] = toy128_quality_eval(built, sampler, ckpt_cfg.data, batch=BATCH, hw=HW,
+                                            device="cuda", num_images=32)
+    log(f"train_hrnet checkpoint quality ({spec['epochs']} epochs, 16 members x TTA, first 32 "
+        f"test images): {out['quality_32']}")
+    del built, sampler, stack
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_stack(label: str, cfg, built, sampler, attn_checked, norm_checked, want, seed):
+    """A member-stack sampler: its new kernel shapes against the twins, the
+    counted call (launches ``want``), the stack and its EU, and quality on
+    the first 32 test images."""
+    from diffuncertainty_tpu_torch.tools.quality import toy128_quality_eval
+
+    images = test_images(cfg)
+    attn_cases, norm_cases = check_sites(sampler, images, attn_checked, norm_checked, seed)
+    stack, launches, _, _, _, _ = counted_call(built, sampler, images, 0)
+    check_launches(f"{label} (blocks {sampler.blocks})", launches,
+                   {"qkv_attention": want[0], "group_norm_act": want[1]})
+    check_stack(label, stack)
+    eu = mean_eu(label, stack)
+    q = toy128_quality_eval(built, sampler, cfg.data, batch=BATCH, hw=HW,
+                            device="cuda", num_images=32)
+    log(f"{label} quality (first 32 test images): {q}")
+    return {"launches": launches, "mean_eu": eu, "quality_32": q, "blocks": sampler.blocks,
+            "attn_cases": attn_cases, "norm_cases": norm_cases}
+
+
+def phase_train_subensemble(smi: str, norm_site_list, seen_attn: set,
+                            seen_norm: set) -> Generator[None, None, dict]:
+    """The sub-ensemble mask trainer over the frozen softmax asset
+    (``bench_unet16_toy128.npz``, unet16 bf16, no dropout): each kernel's
+    backward at its 16-row member forwards, one counted step (the members'
+    forwards and VJPs through both kernels, no twin), a short run with the
+    loss falling, the masks' hard IoU below 1 and expected fill near the
+    target, and the materialized members folded in the sampler with EU > 0."""
+    import torch
+
+    from diffuncertainty_tpu_torch.core.config import load_config
+    from diffuncertainty_tpu_torch.core.params import load_into
+    from diffuncertainty_tpu_torch.data.augment import normalize_batch
+    from diffuncertainty_tpu_torch.data.dataset import MultiRaterDataset
+    from diffuncertainty_tpu_torch.data.loader import BatchLoader
+    from diffuncertainty_tpu_torch.models import subensemble as se
+    from diffuncertainty_tpu_torch.models.factory import build_model
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+    from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
+    from diffuncertainty_tpu_torch.sampling.sampler import SamplerSpec, make_sampler
+    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset
+    from diffuncertainty_tpu_torch.tools.train_recipe import TTA
+    from diffuncertainty_tpu_torch.train import subensemble_trainer as st
+
+    unet16_train_checks(norm_site_list)
+    cfg = load_config(data="lidc128", network="unet16", model="softmax", eu_method="none",
+                      precision="bf16")
+    built = build_model(cfg, device="cuda")
+    load_into(built.module, ASSET)
+    state = dict(built.module.state_dict())
+    toy = toy128_dataset(HW).base_dir
+    ds = MultiRaterDataset(toy / "splits" / "default" / "firstCycle" / "splits.pkl", toy,
+                           split="train", return_all_raters=False)
+    aug = cfg.data.augmentations
+    batches = [{"image": normalize_batch(torch.from_numpy(b["image"]).cuda(), aug.mean, aug.std),
+                "seg": torch.from_numpy(b["seg"]).cuda()}
+               for _, b in zip(range(2), BatchLoader(ds, BATCH, shuffle=True, seed=0))]
+    scfg = st.SubensembleConfig(**SUBENSEMBLE)
+    torch.cuda.synchronize()
+    with counting_twins() as twins:
+        ca.reset_launch_count()
+        gn.reset_launch_count()
+        st.train_subensemble_masks(built, state, batches,
+                                   st.SubensembleConfig(**{**SUBENSEMBLE, "steps": 1}))
+        torch.cuda.synchronize()
+        counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
+                  "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
+    m = scfg.num_masks
+    want = {"qkv_attention": 11 * m, "group_norm_act": 56 * m, "qkv_attention_vjp": 11 * m,
+            "group_norm_act_vjp": 56 * m}
+    log(f"train_subensemble step ({m} members one after another): launches and VJPs {counts} "
+        f"(expected {want}), twin forwards {twins}")
+    if counts != want or any(twins.values()):
+        raise AssertionError(f"train_subensemble step: {counts} != {want} or twins {twins}")
+    history: list = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = st.train_subensemble_masks(built, state, batches, scfg, history=history)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = se.compute_mask_stats(masks)
+    log(f"train_subensemble run on {smi}: {scfg.steps} steps in {wall:.1f}s "
+        f"({wall / scfg.steps * 1e3:.1f} ms a step, {m} members); loss by step "
+        f"{[round(h['loss'], 4) for h in history]}, iou {[round(h['iou'], 4) for h in history]}, "
+        f"size {[round(h['size'], 4) for h in history]}; hard masks: mean fill "
+        f"{stats['mean_fill_fraction']:.4f} (target {scfg.target_fraction}), mean pairwise IoU "
+        f"{stats['mean_pairwise_iou']:.4f}, fill per member "
+        f"{[round(f, 4) for f in stats['fill_fraction_per_member']]}")
+    # the fill the size penalty acts on: per layer and member the expected
+    # share of kept weights, mean(sigmoid(2 l_out)) * mean(sigmoid(2 l_in))
+    fill = float(torch.stack([(torch.sigmoid(2 * d["out"]).mean(1)
+                               * torch.sigmoid(2 * d["in"]).mean(1)).mean()
+                              for d in masks.values()]).mean())
+    log(f"train_subensemble: expected fill {fill:.4f} (target {scfg.target_fraction}, band "
+        f"{SUBENSEMBLE_FILL_BAND})")
+    if not (history[-1]["loss"] < history[0]["loss"] and stats["mean_pairwise_iou"] < 1.0
+            and abs(fill - scfg.target_fraction) < SUBENSEMBLE_FILL_BAND):
+        raise AssertionError(f"train_subensemble: loss not falling, IoU "
+                             f"{stats['mean_pairwise_iou']}"
+                             f" or expected fill {fill} not near the target")
+    yield  # the rest is not timed: it runs beside the entry-point runs
+    members = st.materialize_for_inference(state, masks, m, rows_only=scfg.rows_only,
+                                           normalize=scfg.normalize)
+    sampler = make_sampler(built, SamplerSpec(n_pred=1, n_members=m, tta=True, tta_config=TTA,
+                                              member_mode="params_stack"), members=members)
+    served = serve_stack("train_subensemble members folded", cfg, built, sampler, seen_attn,
+                         seen_norm, (11, 56), seed=1500)
+    del sampler, members
+    # the JAX defaults (normalize, diversity 1.0) over the same steps:
+    # tests/test_torch_port_subensemble_train.py holds the port's hard masks and
+    # EU there to the JAX trainer's; here what they give on unet16
+    dcfg = st.SubensembleConfig(**SUBENSEMBLE_DEFAULTS)
+    dhistory: list = []
+    dmasks = st.train_subensemble_masks(built, state, batches, dcfg, history=dhistory)
+    dstats = se.compute_mask_stats(dmasks)
+    dmembers = st.materialize_for_inference(state, dmasks, m, normalize=True)
+    images = test_images(cfg)
+    dstack = make_sampler(built, SamplerSpec(n_pred=1, n_members=m, member_mode="params_stack"),
+                          members=dmembers)(images, torch.Generator("cuda").manual_seed(0))
+    check_stack("train_subensemble with the JAX defaults", dstack)
+    deu = uncertainty_heatmaps(dstack.group_means.float(), sample_axis=0,
+                               class_axis=-1)["EU"].mean().item()
+    head = dmasks["out_conv"]["out"] if "out_conv" in dmasks else None
+    log(f"train_subensemble with the JAX defaults (normalize, diversity 1.0; not timed): loss "
+        f"by step {[round(h['loss'], 4) for h in dhistory]}; hard masks: mean fill "
+        f"{dstats['mean_fill_fraction']:.4f}, mean pairwise IoU "
+        f"{dstats['mean_pairwise_iou']:.4f}; members' mean EU {deu:.4e}"
+        + ("" if head is None else f"; the head's out-channel logits {head.tolist()}"))
+    if not all(math.isfinite(h["loss"]) for h in dhistory):
+        raise AssertionError(f"train_subensemble with the JAX defaults: losses {dhistory}")
+    del built, dmembers, dstack, state, batches
+    torch.cuda.empty_cache()
+    return {"launches": {k: v for k, v in counts.items() if not k.endswith("_vjp")},
+            "run": {"steps": scfg.steps, "wall_s": wall, "ms_per_step": wall / scfg.steps * 1e3,
+                    "loss": [h["loss"] for h in history]},
+            "mask_stats": {k: stats[k] for k in ("mean_fill_fraction", "mean_pairwise_iou")},
+            "serve": served,
+            "jax_defaults": {"loss": [h["loss"] for h in dhistory], "mean_eu": deu,
+                             **{k: dstats[k] for k in ("mean_fill_fraction",
+                                                        "mean_pairwise_iou")}}}
+
+
+def phase_train_multiclass(smi: str, runs, norm_site_list, attn_checked168: set,
+                           norm_checked168: set) -> Generator[None, None, dict]:
+    """The multiclass recipe's trainer (gta-toy, switched single masks, 24
+    classes): one counted bf16 step at batch 16 with the split, then the short
+    run and its checkpoint through the multiclass path (8 members of 168
+    rows, launches counted) and ``tools/multiclass_quality.py``."""
+    import torch
+
+    from diffuncertainty_tpu_torch.data.augment import normalize_batch
+    from diffuncertainty_tpu_torch.data.cityscapes import CityscapesDataset
+    from diffuncertainty_tpu_torch.data.loader import BatchLoader
+    from diffuncertainty_tpu_torch.tools.multiclass_quality import (
+        default_data_dir, gta_toy_frames, gta_toy_quality_eval, member_sliding_window_fn)
+    from diffuncertainty_tpu_torch.tools.train_recipe import load_trained, multiclass_tokens
+    from diffuncertainty_tpu_torch.train.cli import parse_args
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    attn_cases, norm_cases, attn_checked, norm_checked = unet16_train_checks(norm_site_list)
+    spec = NEW_TRAIN_RUNS["train_multiclass"]
+    data_dir = default_data_dir()
+    cfg, _ = parse_args(multiclass_tokens(data_dir, runs.dir("train_multiclass_probe"),
+                                          spec["epochs"]))
+    trainer = Trainer(cfg, device="cuda", workdir=runs.dir("train_multiclass_probe") / "w")
+    ds = CityscapesDataset(data_dir / "splits" / "default" / "firstCycle" / "splits.pkl",
+                           data_dir, split="train", return_all_raters=False)
+    batches = list(BatchLoader(ds, BATCH, shuffle=True, drop_last=True))[:2]
+    out = {"step": phase_train_step(smi, trainer, batches, attn_checked, norm_checked,
+                                    label="train_multiclass step", runs=5)}
+    del trainer, batches
+    torch.cuda.empty_cache()
+    yield  # the rest is not timed: it waits for the entry-point run
+    ckpt, out["run"] = trained_run(runs, "train_multiclass", spec["epochs"])
+    built, _, ckpt_cfg = load_trained(ckpt)
+    frames, _ = gta_toy_frames(MC_FRAMES, MC_SIZE, MC_WINDOW, MC_SEED)
+    aug = ckpt_cfg.data.augmentations
+    x = normalize_batch(torch.from_numpy(frames).cuda(), aug.mean, aug.std)
+    fn = member_sliding_window_fn(built.module, window=MC_WINDOW, stride=MC_STRIDE,
+                                  members=MC_MEMBERS)
+    _, launches, _, _, attn_seen, norm_seen = counted_call(built, fn, x, MC_SEED)
+    check_launches("train_multiclass checkpoint in the multiclass path", launches,
+                   {"qkv_attention": MC_MEMBERS * 11, "group_norm_act": MC_MEMBERS * 56})
+    if ({(b, hh * ww, c) for b, hh, ww, c in attn_seen} != attn_checked168
+            or set(norm_seen) != norm_checked168):
+        raise AssertionError("train_multiclass serving shapes were not checked")
+    q = gta_toy_quality_eval(built, ckpt_cfg.data, frames=MC_FRAMES, frame_size=MC_SIZE,
+                             window=MC_WINDOW, stride=MC_STRIDE, members=MC_MEMBERS, seed=MC_SEED,
+                             timing_reps=1, device="cuda")
+    log(f"train_multiclass checkpoint ({spec['epochs']} epochs) in tools/multiclass_quality.py: "
+        f"{q}")
+    out.update(serve_launches=launches, quality=q)
+    del built, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_swag(smi: str, runs, norm_site_list, seen_attn: set,
+                     seen_norm: set) -> Generator[None, None, dict]:
+    """The SWAG-diag recipe's trainer: one counted step (the softmax step),
+    the short run collecting a snapshot each epoch, its moments as the asset
+    stores them, 16 members drawn from them (generator seed 42) in the
+    ensemble path, folded."""
+    import torch
+
+    from diffuncertainty_tpu_torch.core.checkpoint import load_checkpoint
+    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset
+    from diffuncertainty_tpu_torch.tools.train_recipe import (ensemble_path, recipe_tokens,
+                                                              swag_members)
+    from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    attn_cases, norm_cases, attn_checked, norm_checked = unet16_train_checks(norm_site_list)
+    spec = NEW_TRAIN_RUNS["train_swag"]
+    cfg, _ = parse_args(recipe_tokens(toy128_dataset(HW).base_dir, runs.dir("train_swag_probe"),
+                                      model="swag", epochs=spec["epochs"]))
+    trainer = Trainer(cfg, device="cuda", workdir=runs.dir("train_swag_probe") / "w")
+    batches = list(build_loaders(cfg)[0])[:2]
+    trainer.init_state()
+    state = trainer.fresh_state()
+    counts = counted_grads(trainer, state, batches[1], 11)
+    log(f"train_swag step: launches and VJPs {counts}")
+    if counts != {"qkv_attention": 11, "group_norm_act": 56, "qkv_attention_vjp": 11,
+                  "group_norm_act_vjp": 56}:
+        raise AssertionError(f"train_swag step: {counts}")
+    del trainer, state, batches
+    yield  # the rest waits for the entry-point run
+    ckpt, run = trained_run(runs, "train_swag", spec["epochs"])
+    saved, _, _ = load_checkpoint(ckpt)
+    n = int(saved["swag_state"]["n_models"])
+    log(f"train_swag run: {n} snapshots collected")
+    if n != spec["epochs"]:
+        raise AssertionError(f"train_swag collected {n} snapshots in {spec['epochs']} epochs")
+    cfg_e, built, sampler = ensemble_path(swag_members(ckpt))
+    served = serve_stack("train_swag members folded", cfg_e, built, sampler, seen_attn,
+                         seen_norm, (11, 56), seed=1600)
+    del built, sampler
+    torch.cuda.empty_cache()
+    return {"launches": {k: v for k, v in counts.items() if not k.endswith("_vjp")},
+            "run": run, "snapshots": n, "serve": served}
+
+
+def phase_train_ensemble(smi: str, runs, norm_site_list, seen_attn: set,
+                         seen_norm: set) -> Generator[None, None, dict]:
+    """The 16-member recipe cut to its first seeds: one counted member step,
+    the members' short runs (entry-point runs), their raw weights
+    stacked in the member config's sampler with TTA, folded."""
+    import torch
+
+    from diffuncertainty_tpu_torch.core.checkpoint import load_checkpoint
+    from diffuncertainty_tpu_torch.core.params import flax_to_torch, stack_states
+    from diffuncertainty_tpu_torch.models.factory import build_model
+    from diffuncertainty_tpu_torch.sampling.sampler import SamplerSpec, make_sampler
+    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset
+    from diffuncertainty_tpu_torch.tools.train_recipe import TTA, recipe_tokens
+    from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    unet16_train_checks(norm_site_list)
+    spec = NEW_TRAIN_RUNS["train_ensemble"]
+    seeds = spec["seeds"]
+    cfg, _ = parse_args(recipe_tokens(toy128_dataset(HW).base_dir, runs.dir("train_ens_probe"),
+                                      model="ensemble", seed=seeds[-1], epochs=spec["epochs"]))
+    trainer = Trainer(cfg, device="cuda", workdir=runs.dir("train_ens_probe") / "w")
+    batches = list(build_loaders(cfg)[0])[:2]
+    trainer.init_state()
+    counts = counted_grads(trainer, trainer.fresh_state(), batches[1], 13)
+    log(f"train_ensemble member step (seed {seeds[-1]}): launches and VJPs {counts}")
+    if counts != {"qkv_attention": 11, "group_norm_act": 56, "qkv_attention_vjp": 11,
+                  "group_norm_act_vjp": 56}:
+        raise AssertionError(f"train_ensemble step: {counts}")
+    del trainer, batches
+    yield  # the rest waits for the entry-point runs
+    ckpts, run = [], {}
+    for i in range(len(seeds)):
+        ckpt, run[f"seed{seeds[i]}"] = trained_run(runs, f"train_ensemble_{i}", spec["epochs"])
+        ckpts.append(ckpt)
+    _, mcfg, _ = load_checkpoint(ckpts[0])
+    built = build_model(mcfg, device="cuda")
+    # the raw weights: after 24 steps the EMA (decay 0.999) is still about the
+    # flax init, whose zero head predicts 0.5 everywhere (the recipe serves the EMA)
+    stack = stack_states([flax_to_torch(load_checkpoint(c)[0]["params"]) for c in ckpts],
+                         built.module)
+    n = len(seeds)
+    sampler = make_sampler(built, SamplerSpec(n_pred=1, n_members=n, tta=True, tta_config=TTA,
+                                              member_mode="params_stack"),
+                           members={k: v.cuda() for k, v in stack.items()})
+    served = serve_stack(f"train_ensemble {n} members folded", mcfg, built, sampler, seen_attn,
+                         seen_norm, (11, 56), seed=1700)
+    del built, sampler
+    torch.cuda.empty_cache()
+    return {"launches": {k: v for k, v in counts.items() if not k.endswith("_vjp")},
+            "run": run, "serve": served}
 
 
 def phase_multiclass_quality() -> dict:
@@ -2086,6 +2793,65 @@ def phase_quality(paths):
     return results
 
 
+def training_phases(smi, paths, runs, norm_site_list, launches_by_path, seen_attn, seen_norm,
+                    attn_checked168, norm_checked168):
+    """The chosen training paths. Each phase is a generator: its timed part
+    runs up to its ``yield``, the phases' timed parts one after another with
+    nothing else on the card; then the entry-point runs start (``runs``,
+    ``ENTRY_JOBS`` at once, the train path's recipe, the longest, first) and
+    each phase's rest waits for its own run. Each adds its launches per
+    step to ``launches_by_path`` (the train path also its remat step's)."""
+    phases = {
+        "train_hrnet": lambda: phase_train_hrnet(smi, runs),
+        "train_subensemble": lambda: phase_train_subensemble(smi, norm_site_list, seen_attn,
+                                                             seen_norm),
+        "train_multiclass": lambda: phase_train_multiclass(smi, runs, norm_site_list,
+                                                           attn_checked168, norm_checked168),
+        "train_swag": lambda: phase_train_swag(smi, runs, norm_site_list, seen_attn, seen_norm),
+        "train_ensemble": lambda: phase_train_ensemble(smi, runs, norm_site_list, seen_attn,
+                                                       seen_norm),
+        **{f"train_{model}": functools.partial(phase_train_family, smi, model, runs)
+           for model in TRAIN_FAMILIES},
+        "train": lambda: phase_train(smi, norm_site_list, runs)}
+    started = {}
+    for path, phase in phases.items():
+        if path in paths:
+            started[path] = phase()
+            next(started[path])
+    if started:
+        log(f"timed training phases done; the entry-point runs start ({ENTRY_JOBS} at once)")
+        runs.start()
+    stats = {}
+    for path, gen in started.items():
+        try:
+            next(gen)
+            raise AssertionError(f"{path}: the phase yields more than once")
+        except StopIteration as done:
+            stats[path] = done.value
+
+    def step_launches(counts):
+        return {k: v for k, v in counts.items() if not k.endswith("_vjp")}
+
+    new_stats = {p: st for p, st in stats.items() if p in phases and p != "train"
+                 and p[len("train_"):] not in TRAIN_FAMILIES}
+    family_stats = {p[len("train_"):]: st for p, st in stats.items()
+                    if p[len("train_"):] in TRAIN_FAMILIES}
+    new_attn, new_norm = [], []
+    for path, st in new_stats.items():
+        counts = st["launches"] if "launches" in st else st["step"]["launches"]
+        launches_by_path[path] = step_launches(counts)
+        served = st.get("serve", {})
+        new_attn += served.get("attn_cases", [])
+        new_norm += served.get("norm_cases", [])
+    for model, st in family_stats.items():
+        launches_by_path[f"train_{model}"] = step_launches(st["step"]["launches"])
+    train_stats = stats.get("train")
+    if train_stats is not None:
+        launches_by_path["train"] = step_launches(train_stats["step"]["launches"])
+        launches_by_path["train_remat"] = step_launches(train_stats["remat"]["launches"])
+    return train_stats, family_stats, new_stats, new_attn, new_norm
+
+
 def parse_paths(argv) -> tuple[str, ...]:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--paths", default=",".join(PATHS),
@@ -2123,9 +2889,10 @@ def main(argv=None) -> int:
                     if any(p in paths for p in rows16)]
     attn_checked16 = {(c["B"], c["T"], c["C"]) for c in attn_cases16}
     mc_rows = multiclass_rows()
+    multiclass = any(p in paths for p in ("multiclass", "train_multiclass"))
     attn_cases168 = [attention_case(mc_rows, t, c, 4, seed=700 + i)
                      for i, (t, (_, c)) in enumerate(UNET16_ATTENTION.items())
-                     if "multiclass" in paths]
+                     if multiclass]
     attn_checked168 = {(c["B"], c["T"], c["C"]) for c in attn_cases168}
     width_cases = attention_width_cases()
 
@@ -2151,7 +2918,7 @@ def main(argv=None) -> int:
             for dt in dtypes:
                 key = ((n_rows,) + shape, dt, act)
                 norm_cases[key] = group_norm_case(key[0], dt, act, seed=10 + len(norm_cases))
-    if "multiclass" in paths:
+    if multiclass:
         for shape, dt, act in distinct(sites["softmax"]):
             key = ((mc_rows,) + shape, dt, act)
             norm_cases[key] = group_norm_case(key[0], dt, act, seed=10 + len(norm_cases))
@@ -2205,17 +2972,25 @@ def main(argv=None) -> int:
          frames_s) = phase_multiclass(attn_checked168, norm_checked168)
     if "infer" in paths:
         launches_by_path["infer"], infer_stats = phase_infer(smi, attn_checked, norm_checked)
-    if "train" in paths:
-        train_stats = phase_train(smi, sites["softmax"])
-        launches_by_path["train"] = {k: v for k, v in train_stats["step"]["launches"].items()
-                                     if not k.endswith("_vjp")}
-    family_stats = {}
-    for model in TRAIN_FAMILIES:
-        if f"train_{model}" in paths:
-            family_stats[model] = phase_train_family(smi, model)
-            launches_by_path[f"train_{model}"] = {
-                k: v for k, v in family_stats[model]["step"]["launches"].items()
-                if not k.endswith("_vjp")}
+    runs = None
+    if any(p.startswith("train") for p in paths):
+        import tempfile
+
+        from diffuncertainty_tpu_torch.tools.train_recipe import Runs
+
+        # queued now; they start once the training phases' timed parts are done
+        runs = Runs(Path(tempfile.mkdtemp(prefix="chip_smoke_runs_")), ENTRY_JOBS)
+        register_entry_runs(runs, paths)
+    try:
+        (train_stats, family_stats, new_stats, new_attn, new_norm) = training_phases(
+            smi, paths, runs, sites["softmax"], launches_by_path, seen_attn, seen_norm,
+            attn_checked168, norm_checked168)
+    finally:
+        if runs is not None:
+            runs.stop()
+            shutil.rmtree(runs.base, ignore_errors=True)
+    new_attn_cases += new_attn
+    new_norm_cases += new_norm
     quality = phase_quality(paths)
     if "multiclass" in paths:
         quality["multiclass_bf16"] = phase_multiclass_quality()
@@ -2365,9 +3140,12 @@ def main(argv=None) -> int:
     if "infer" in paths:
         extra += f"; infer job {infer_stats}"
     if "train" in paths:
-        extra += (f"; train step {train_stats['step']['split']}, recipe "
-                  f"{train_stats['recipe']}, trained quality on 32 images "
+        extra += (f"; train step {train_stats['step']['split']}, remat {train_stats['remat']}, "
+                  f"recipe {train_stats['recipe']}, trained quality on 32 images "
                   f"{train_stats['quality_32']}, on 256 {train_stats['quality']}")
+    for path, st in new_stats.items():
+        extra += f"; {path} " + json.dumps({k: v for k, v in st.items() if k not in (
+            "attn_cases", "norm_cases")}, default=str)
     for model, st in family_stats.items():
         extra += (f"; train_{model} step {st['step']['split']}, run {st['run']['wall_s']:.1f}s, "
                   f"serving launches {st['serve_launches']}, infer {st['infer']}")

@@ -64,7 +64,10 @@ class MultiRaterDataset:
 
     def __init__(self, splits_path: str | Path, base_dir: str | Path, split: str = "id",
                  num_raters: int | None = None, *, data_fold_id: int = 0,
-                 return_all_raters: bool = True, single_rater: bool = False):
+                 return_all_raters: bool = True, single_rater: bool = False,
+                 rater_pattern: str | None = None, dataset_label: str | None = None):
+        """``rater_pattern`` and ``dataset_label`` override the fold's
+        ``_meta`` (the JAX dataset's arguments of those names)."""
         self.split = split
         self.single_rater = bool(single_rater)
         self.base_dir = Path(base_dir)
@@ -74,7 +77,8 @@ class MultiRaterDataset:
             raise ValueError(f"fold {data_fold_id} not in splits ({len(folds)} folds)")
         fold = folds[data_fold_id]
         meta = fold.get("_meta", {})
-        rater_pattern = meta.get("rater_pattern") or "{base_id}_{rater:02d}_mask.npy"
+        rater_pattern = (rater_pattern or meta.get("rater_pattern")
+                         or "{base_id}_{rater:02d}_mask.npy")
         if split not in fold:
             available = sorted(k for k in fold if not k.startswith("_"))
             raise ValueError(f"Unknown split '{split}'. Available: {available}")
@@ -84,7 +88,7 @@ class MultiRaterDataset:
         self.sample_datasets: list[str] = []
         subject_ids = list(np.asarray(fold[split]).tolist())
         if "combined" in str(meta.get("schema") or "").lower():
-            self.dataset_label = str(meta.get("dataset_name") or "combined")
+            self.dataset_label = str(dataset_label or meta.get("dataset_name") or "combined")
             configs = meta.get("dataset_configs", {})
             if not configs:
                 raise ValueError("combined split needs _meta.dataset_configs")
@@ -97,7 +101,8 @@ class MultiRaterDataset:
                 counts.append(n_r)
             self.num_raters = max(counts) if counts else (num_raters or 0)
             return
-        self.dataset_label = str(meta.get("dataset_name") or self.base_dir.name)
+        self.dataset_label = str(dataset_label or meta.get("dataset_name")
+                                 or self.base_dir.name)
         self.num_raters = (num_raters or meta.get("num_raters")
                            or infer_num_raters(self.dataset_label))
         if self.num_raters is None:

@@ -84,6 +84,9 @@ class UnetOutput:
     ssn_mean: torch.Tensor | None = None  # (B, N) flattened logits, N = H*W*out_channels
     ssn_cov_diag: torch.Tensor | None = None  # (B, N)
     ssn_cov_factor: torch.Tensor | None = None  # (B, N, rank)
+    # the HRNet's train mode: its BatchNorms' running statistics after the
+    # batch, by state_dict name (``models/hrnet.py``)
+    batch_stats: dict[str, torch.Tensor] | None = None
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator,
@@ -101,13 +104,18 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator,
 
 
 def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Re-initialize ``module``'s DiffUnet leaves in place as the JAX model's
-    ``init`` does: conv and dense kernels ``lecun_normal`` (zero where the
+    """Re-initialize ``module``'s leaves in place as the JAX model's ``init``
+    does. DiffUnet: conv and dense kernels ``lecun_normal`` (zero where the
     JAX model zero-initializes: every ResBlock ``out_conv``, every attention
     ``proj_out``, the output and SSN heads; ``kaiming_normal``, twice the
     variance, for the prob-U-Net's latent heads), biases 0 (normal with std
-    1e-2 for the latent heads), GroupNorm scale 1 and bias 0. Leaves are
-    drawn from ``generator`` in module order."""
+    1e-2 for the latent heads), GroupNorm scale 1 and bias 0. HRNet
+    (``models/hrnet.py``): every conv kernel ``lecun_normal`` (flax's
+    ``nn.Conv`` and the JAX ``MemberConv`` default), the head convs' biases
+    0, BatchNorm scale 1 and bias 0, running mean 0 and variance 1. Leaves
+    are drawn from ``generator`` in module order."""
+    from . import hrnet  # imports this module
+
     for m in module.modules():
         if isinstance(m, (Conv, Dense)):
             with torch.no_grad():
@@ -124,6 +132,17 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             with torch.no_grad():
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+        elif isinstance(m, hrnet.Conv):
+            lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            if m.bias is not None:
+                with torch.no_grad():
+                    m.bias.zero_()
+        elif isinstance(m, hrnet.BatchNorm):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
     return module
 
 

@@ -104,6 +104,19 @@ def build_loaders(cfg: ExperimentConfig):
     return train_loader, val_loader, train_eval_loader
 
 
+def step_report(trainer: Trainer) -> str:
+    """The closing line: steps, median step (host wall), img/s and, on the
+    card, peak memory."""
+    ms = float(np.median(trainer.step_seconds)) * 1e3
+    line = (f"steps {len(trainer.step_seconds)}, median step {ms:.3f} ms "
+            f"({trainer.cfg.data.batch_size / ms * 1e3:.2f} img/s)")
+    if trainer.device.type == "cuda":
+        import torch
+
+        line += f", peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+    return line
+
+
 def main(argv: list[str] | None = None) -> Trainer:
     cfg, special = parse_args(argv if argv is not None else sys.argv[1:])
     print(f"Experiment: {cfg.auto_exp_name} (seed {cfg.seed}) on {special['device']}", flush=True)
@@ -127,8 +140,6 @@ def main(argv: list[str] | None = None) -> Trainer:
     trainer.fit(train_loader, val_loader, train_eval_loader=train_eval_loader,
                 resume_state=resume_state, start_epoch=start_epoch)
     if trainer.step_seconds:
-        ms = float(np.median(trainer.step_seconds)) * 1e3
-        print(f"steps {len(trainer.step_seconds)}, median step {ms:.3f} ms "
-              f"({cfg.data.batch_size / ms * 1e3:.2f} img/s)", flush=True)
+        print(step_report(trainer), flush=True)
     print(f"Done. Checkpoints at {trainer.workdir / 'checkpoints'}", flush=True)
     return trainer

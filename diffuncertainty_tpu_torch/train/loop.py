@@ -1,6 +1,7 @@
 """Training loop (port of ``diffuncertainty_tpu/train/loop.py``): the step,
 EMA, SWAG collection, validation and checkpoints, for the softmax,
-diffusion, SSN and prob-U-Net families on the DiffUnet.
+diffusion, SSN and prob-U-Net families on the DiffUnet and the softmax and
+SSN families on the HRNet.
 
 - One step: the augmentation (single-rater targets) or the normalization
   (multi-rater targets), the forward and the loss, the gradients of every
@@ -10,6 +11,24 @@ diffusion, SSN and prob-U-Net families on the DiffUnet.
   ``weight_decay``, the learning rate of the step's count under the none,
   linear or cosine schedule over optimizer steps), then the EMA lerp with the
   first-step copy. ``grad_norm`` in the step's aux is the norm before the clip.
+- The HRNet's BatchNorm statistics (``TrainState.model_state``, the
+  module's running_mean/running_var buffers by state_dict name): the loss
+  runs the network in train mode and returns the running statistics after
+  the batch, which the step writes into the buffers once the optimizer has
+  run, as the JAX step replaces ``model_state`` with flax's updated
+  ``batch_stats``. The EMA covers the parameters only; the ``last``
+  checkpoint, the scheduled snapshots and the EMA weights all carry the raw
+  run's statistics beside them (``batch_stats``, as the JAX trainer merges
+  them). Validation's loss runs in train mode on the batch's statistics and
+  drops their update; its prediction uses the running statistics.
+- ``trainer.remat``: the loss's forward (not the input pipeline) runs under
+  ``torch.utils.checkpoint`` (non-reentrant), as the JAX step wraps its loss
+  in ``jax.checkpoint``; the recompute in the backward starts from the
+  explicit generator's state at the forward's start and puts the generator
+  back as it found it (:func:`generator_replay`), so it redraws the same
+  dropout masks, rater, diffusion times and noise, SSN draws and prob-U-Net
+  latents, and the gradients equal the stored forward's. The recompute
+  launches both kernels' forwards a second time.
 - SWAG snapshots at epoch end, on the reference schedule (``start =
   (max_epochs - 1) - freq * (K - 1)``, every ``freq``).
 - ``last`` full checkpoints and scheduled weight snapshots (EMA-only when
@@ -39,13 +58,16 @@ from a generator seeded ``seed + 1000 + epoch``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import time
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..core.checkpoint import save_checkpoint, scheduled_epochs
 from ..core.config import ExperimentConfig
@@ -76,29 +98,65 @@ class TrainState(NamedTuple):
     params: State  # the module's own float32 parameters, by state_dict name
     opt_state: AdamState
     ema_params: State | None  # None when EMA is off
+    # the HRNet's BatchNorm statistics: the module's buffers by state_dict
+    # name (None for the DiffUnet families)
+    model_state: State | None = None
+
+
+def generator_replay(generator: torch.Generator):
+    """``context_fn`` of ``torch.utils.checkpoint``: no context around the
+    forward, and around the recompute one that starts ``generator`` where
+    the forward started it and leaves it as it found it."""
+    start = generator.get_state()
+
+    @contextlib.contextmanager
+    def recompute():
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            yield
+        finally:
+            generator.set_state(now)
+
+    return contextlib.nullcontext(), recompute()
+
+
+@torch.no_grad()
+def adam_(params: list[torch.Tensor], grads: list[torch.Tensor], mu: list[torch.Tensor],
+          nu: list[torch.Tensor], count: int, lr: float, weight_decay: float = 0.0) -> None:
+    """optax's adam (adamw with ``weight_decay``) update number ``count``
+    (from 1), in place on the parameters and the moments; the bias
+    corrections in the parameters' float type, as optax takes them."""
+    torch._foreach_mul_(mu, B1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - B1)
+    torch._foreach_mul_(nu, B2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - B2)
+    ft = np.float64 if params[0].dtype == torch.float64 else np.float32
+    mu_hat = torch._foreach_div(mu, float(ft(1) - ft(B1) ** count))
+    denom = torch._foreach_div(nu, float(ft(1) - ft(B2) ** count))
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, EPS)
+    updates = torch._foreach_div(mu_hat, denom)
+    if weight_decay:
+        torch._foreach_add_(updates, params, alpha=weight_decay)
+    torch._foreach_add_(params, updates, alpha=-lr)
 
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, workdir: str | Path | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", built: BuiltModel | None = None):
+        """``built``: the model to train (by default ``build_model(cfg)`` on
+        ``device``), as the JAX trainer takes one."""
         tr = cfg.trainer
-        if tr.remat:
-            raise NotImplementedError(
-                "trainer.remat: torch.utils.checkpoint restores only the default generators, so "
-                "a recompute would redraw the MC-dropout masks from the explicit generator; "
-                "generator-safe recompute is ROADMAP Queue 1 item 5")
         if tr.mesh_shape is not None and int(np.prod(tr.mesh_shape)) > 1:
             raise NotImplementedError(f"trainer.mesh_shape={tuple(tr.mesh_shape)}: multi-device "
                                       f"training is ROADMAP Queue 1 item 6")
-        if cfg.eu_method.name == "subensemble":
-            raise NotImplementedError("the sub-ensemble trainer is not ported (ROADMAP Queue 1 "
-                                      "item 5)")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer: CUDA requested but torch.cuda.is_available() is False; "
                                "pass device='cpu' to train on the CPU")
-        self.built: BuiltModel = build_model(cfg, device=self.device)
+        self.built: BuiltModel = built or build_model(cfg, device=self.device)
         # by ssn_mean_only (only the SSN's pretraining epochs take True)
         self._loss_fns = {mean_only: make_loss_fn(
             self.built, ignore_index=cfg.data.ignore_index,
@@ -136,21 +194,27 @@ class Trainer:
         """The flax initialization of the family's module (from a CPU
         generator seeded ``cfg.seed`` unless one is given; the diffusion
         DiffUnet takes ``num_classes`` + image channels, the prob-U-Net's
-        posterior the image and its one-hot target), zero moments, the EMA a
-        copy of the weights."""
+        posterior the image and its one-hot target; the HRNet's statistics
+        mean 0 and variance 1), zero moments, the EMA a copy of the weights."""
         module = self.built.module
         flax_init_(module, generator or torch.Generator().manual_seed(self.cfg.seed))
         return self.fresh_state()
 
     def fresh_state(self) -> TrainState:
-        """The module's current weights with a fresh optimizer (step 0), the
-        EMA a copy of them, fresh SWAG moments."""
+        """The module's current weights (and BatchNorm statistics) with a
+        fresh optimizer (step 0), the EMA a copy of them, fresh SWAG moments."""
         params = dict(self.built.module.named_parameters())
         zeros = {k: torch.zeros_like(p) for k, p in params.items()}
         ema = {k: p.detach().clone() for k, p in params.items()} if self.track_ema else None
         self._init_swag(params)
         return TrainState(0, params, AdamState(0, zeros, {k: v.clone() for k, v in zeros.items()}),
-                          ema)
+                          ema, self._model_state())
+
+    def _model_state(self) -> State | None:
+        """The HRNet's BatchNorm buffers (the module's own tensors)."""
+        if not self.built.has_batch_stats:
+            return None
+        return dict(self.built.module.named_buffers())
 
     def _init_swag(self, params: State) -> None:
         if self.swag_enabled:
@@ -160,18 +224,22 @@ class Trainer:
 
     def restore_state(self, saved: dict) -> TrainState:
         """The state of a ``last`` checkpoint (numpy leaves in the flax
-        layout): weights, AdamW moments and count, step, EMA, SWAG moments."""
+        layout): weights and BatchNorm statistics, AdamW moments and count,
+        step, EMA, SWAG moments."""
         dev = self.device
         module = self.built.module
         module.load_state_dict(flax_to_torch(saved["params"]), strict=True)
         params = dict(module.named_parameters())
 
-        def on_device(tree):
-            return {k: v.to(dev) for k, v in flax_to_torch(tree).items()}
+        def on_device(tree):  # in each parameter's dtype
+            return {k: v.to(dev, params[k].dtype if k in params else v.dtype)
+                    for k, v in flax_to_torch(tree).items()}
 
         opt = saved["opt_state"]
         opt_state = AdamState(int(opt["count"]), on_device(opt["mu"]), on_device(opt["nu"]))
-        ema = on_device(saved["ema_params"]) if self.track_ema and "ema_params" in saved else None
+        ema = None
+        if self.track_ema and "ema_params" in saved:  # the parameters, not the statistics
+            ema = {k: v for k, v in on_device(saved["ema_params"]).items() if k in params}
         if self.track_ema and ema is None:
             ema = {k: p.detach().clone() for k, p in params.items()}
         sw = saved.get("swag_state")
@@ -182,7 +250,7 @@ class Trainer:
                 int(sw["n_models"]), on_device(sw["mean"]), on_device(sw["sq_mean"]),
                 {k: v.to(dev) for k, v in flax_to_torch_stacked(sw["dev"]).items()}
                 if "dev" in sw else None)
-        return TrainState(int(saved["step"]), params, opt_state, ema)
+        return TrainState(int(saved["step"]), params, opt_state, ema, self._model_state())
 
     # ---- the epoch's schedule ------------------------------------------
 
@@ -224,10 +292,20 @@ class Trainer:
         loss, aux = self.forward_loss(batch, generator)
         grads = self.gradients(state, loss)
         state, grad_norm = self.apply_gradients(state, grads)
+        self.commit_model_state(state, aux.pop("model_state", None))
         return state, {**{k: v.detach() for k, v in aux.items()}, "grad_norm": grad_norm}
 
+    @staticmethod
+    @torch.no_grad()
+    def commit_model_state(state: TrainState, update: State | None) -> None:
+        """Write the step's BatchNorm statistics into the module's buffers."""
+        if update is not None:
+            for k, v in update.items():
+                state.model_state[k].copy_(v)
+
     def forward_loss(self, batch: dict, generator: torch.Generator):
-        """The step's input pipeline, forward and loss: (loss, aux)."""
+        """The step's input pipeline, forward and loss: (loss, aux); with
+        ``trainer.remat`` the loss's forward is recomputed in the backward."""
         dev = self.device
         images = torch.as_tensor(batch["image"]).to(dev)
         seg = torch.as_tensor(batch["seg"]).to(dev)
@@ -235,8 +313,12 @@ class Trainer:
             images, seg = augment_batch(self.aug_cfg, generator, images, seg)
         else:  # multi-rater targets: normalize only
             images = normalize_batch(images, self.aug_cfg.mean, self.aug_cfg.std)
-        return self.loss_fn(self.built.module, {"image": images, "seg": seg}, generator,
-                            self.sched)
+        args = (self.built.module, {"image": images, "seg": seg}, generator, self.sched)
+        if not self.cfg.trainer.remat:
+            return self.loss_fn(*args)
+        return torch.utils.checkpoint.checkpoint(
+            self.loss_fn, *args, use_reentrant=False,
+            context_fn=functools.partial(generator_replay, generator))
 
     def gradients(self, state: TrainState, loss: torch.Tensor) -> list[torch.Tensor]:
         """d(loss)/d(every parameter), in ``state.params`` order (zeros for
@@ -260,8 +342,8 @@ class Trainer:
                 torch._foreach_mul_(ema, w)
                 torch._foreach_add_(ema, params, alpha=1.0 - w)
         opt = state.opt_state
-        return TrainState(state.step + 1, state.params, opt._replace(count=opt.count + 1),
-                          state.ema_params), grad_norm
+        return state._replace(step=state.step + 1, opt_state=opt._replace(count=opt.count + 1)
+                              ), grad_norm
 
     @torch.no_grad()
     def _adamw(self, state: TrainState, names: list[str], params: list[torch.Tensor],
@@ -273,22 +355,9 @@ class Trainer:
         factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
         torch._foreach_mul_(grads, factor)
         opt = state.opt_state
-        count = opt.count + 1
-        mu = [opt.mu[k] for k in names]
-        nu = [opt.nu[k] for k in names]
-        torch._foreach_mul_(mu, B1)
-        torch._foreach_add_(mu, grads, alpha=1.0 - B1)
-        torch._foreach_mul_(nu, B2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - B2)
-        mu_hat = torch._foreach_div(mu, float(np.float32(1) - np.float32(B1) ** count))
-        denom = torch._foreach_div(nu, float(np.float32(1) - np.float32(B2) ** count))
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, EPS)
-        updates = torch._foreach_div(mu_hat, denom)
-        wd = float(self.cfg.trainer.weight_decay)
-        if wd:
-            torch._foreach_add_(updates, params, alpha=wd)
-        torch._foreach_add_(params, updates, alpha=-self.learning_rate(opt.count))
+        adam_(params, grads, [opt.mu[k] for k in names], [opt.nu[k] for k in names],
+              opt.count + 1, self.learning_rate(opt.count),
+              float(self.cfg.trainer.weight_decay))
         return norm
 
     def epoch_generator(self, epoch: int) -> torch.Generator:
@@ -334,11 +403,13 @@ class Trainer:
         """``val_loss`` (the full loss with the epoch's schedule), ``val_dice``
         (of the argmax of one mean prediction, the mean over raters) and, for
         binary multi-rater targets, ``val_ged``. With ``use_ema``, a copy of
-        the module holding the EMA weights predicts."""
+        the module holding the EMA weights (and the run's BatchNorm
+        statistics) predicts. The HRNet's loss runs in train mode and its
+        statistics' update is dropped; its prediction uses the running ones."""
         module = self.built.module
         if use_ema and state.ema_params is not None:
             module = copy.deepcopy(module)
-            module.load_state_dict(state.ema_params)
+            module.load_state_dict({**state.ema_params, **(state.model_state or {})})
         loss_fn, sched = self._loss_fns[False], self.sched_for_epoch(epoch)
         dev = self.device
         num_classes = self.built.num_classes
@@ -436,14 +507,16 @@ class Trainer:
         return self.workdir / "checkpoints"
 
     def full_state_dict(self, state: TrainState) -> dict:
-        """The ``last`` checkpoint's state, in the JAX trainer's key layout."""
+        """The ``last`` checkpoint's state, in the JAX trainer's key layout
+        (``params`` and ``ema_params`` with the run's ``batch_stats``)."""
         opt = state.opt_state
-        d = {"params": torch_to_flax(state.params),
+        ms = state.model_state or {}
+        d = {"params": torch_to_flax({**state.params, **ms}),
              "opt_state": {"count": np.asarray(opt.count, np.int32),
                            "mu": torch_to_flax(opt.mu), "nu": torch_to_flax(opt.nu)},
              "step": np.asarray(state.step, np.int32)}
         if state.ema_params is not None:
-            d["ema_params"] = torch_to_flax(state.ema_params)
+            d["ema_params"] = torch_to_flax({**state.ema_params, **ms})
         if self.swag_state is not None:
             sw = self.swag_state
             d["swag_state"] = {"n_models": np.asarray(sw.n_models, np.int32),
@@ -458,12 +531,13 @@ class Trainer:
                         epoch=epoch, kind="full")
 
     def _save_scheduled(self, state: TrainState, epoch: int) -> None:
+        ms = state.model_state or {}
         if self.cfg.ema.only_save_ema and state.ema_params is not None:
-            payload, kind = {"ema_params": torch_to_flax(state.ema_params)}, "ema_only"
+            payload, kind = {"ema_params": torch_to_flax({**state.ema_params, **ms})}, "ema_only"
         else:
-            payload, kind = {"params": torch_to_flax(state.params)}, "weights"
+            payload, kind = {"params": torch_to_flax({**state.params, **ms})}, "weights"
             if state.ema_params is not None:
-                payload["ema_params"] = torch_to_flax(state.ema_params)
+                payload["ema_params"] = torch_to_flax({**state.ema_params, **ms})
         save_checkpoint(self._ckpt_dir() / f"epoch_{epoch:06d}", payload, self.cfg, epoch=epoch,
                         kind=kind)
 

@@ -17,8 +17,11 @@ drawn by :func:`draw_rater`.
   ``regularizer_coeff`` times the squared L2 norm of the ``prior``,
   ``posterior`` and ``fcomb`` parameters.
 
-The HRNet's ``batch_stats`` updates are not ported: ``make_loss_fn`` raises
-for the HRNet.
+The HRNet (softmax and SSN; the factory refuses the other families) runs
+its forward in train mode: every BatchNorm normalizes by the batch's
+statistics, and ``aux["model_state"]`` holds the running statistics after
+the batch (``models/hrnet.py``), which the trainer commits after the step,
+as the JAX losses return flax's updated ``batch_stats``.
 """
 
 from __future__ import annotations
@@ -69,34 +72,39 @@ def make_loss_fn(built: BuiltModel, *, ignore_index: int = -1, n_aleatoric_sampl
     module of its architecture; every draw (dropout masks, the rater, the
     family's own) comes from ``generator``. ``sched`` holds the epoch's
     ``beta`` (prob-U-Net; the spec's ``beta`` when absent)."""
-    if built.backbone == "hrnet":
-        raise NotImplementedError("training the HRNet (its batch_stats updates) is not ported "
-                                  "(ROADMAP Queue 1 item 5, fourth)")
     au = built.au_type
     num_classes = built.num_classes
     # the reference's convention: ignore_index 0 means "no ignore" (and the
     # softmax family adds Dice)
     use_ignore = ignore_index != 0
     ce_ignore = ignore_index if use_ignore else None
+    # the HRNet trains on batch statistics (flax's train=True)
+    train_kw = {"train": True} if built.backbone == "hrnet" else {}
+
+    def with_stats(aux: dict, out) -> dict:
+        if out.batch_stats is not None:
+            aux["model_state"] = out.batch_stats
+        return aux
 
     if au == "softmax":
 
         def loss_fn(module, batch: dict, generator: torch.Generator, sched=None):
-            logits = module(batch["image"], generator).logits
+            out = module(batch["image"], generator, **train_kw)
+            logits = out.logits
             target = select_random_rater(batch["seg"], generator)
             if use_ignore:
                 loss = masked_ce(logits, target, ignore_index)
             else:
                 loss = (soft_dice_loss(torch.softmax(logits, dim=-1), target)
                         + masked_ce(logits, target, None))
-            return loss, {"loss": loss}
+            return loss, with_stats({"loss": loss}, out)
 
     elif au == "ssn":
         s = n_aleatoric_samples
 
         def loss_fn(module, batch: dict, generator: torch.Generator, sched=None):
             target = select_random_rater(batch["seg"], generator)
-            out = module(batch["image"], generator, mean_only=ssn_mean_only)
+            out = module(batch["image"], generator, mean_only=ssn_mean_only, **train_kw)
             dist = ssn_lib.build_distribution(out.ssn_mean, out.ssn_cov_diag, out.ssn_cov_factor)
             b, h, w, c = out.logits.shape
             logp = F.log_softmax(ssn_lib.sample_n(dist, generator, s).reshape(s, b, h, w, c),
@@ -107,7 +115,8 @@ def make_loss_fn(built: BuiltModel, *, ignore_index: int = -1, n_aleatoric_sampl
                 picked = picked * (target != ce_ignore).to(picked.dtype)[None]
             per_sample_logprob = picked.sum(dim=(2, 3))  # (S, B)
             loss = -(torch.logsumexp(per_sample_logprob, dim=0) - math.log(s)).mean()
-            return loss, {"loss": loss, "cov_failed": dist.cov_failed.float().mean()}
+            return loss, with_stats({"loss": loss, "cov_failed": dist.cov_failed.float().mean()},
+                                    out)
 
     elif au == "diffusion":
 

@@ -421,8 +421,14 @@ def test_same_dropout_reuses_one_draw_per_member_across_rounds_and_steps(monkeyp
 
 def test_same_dropout_on_the_hrnet_reuses_each_members_final_dropout_draw():
     """The HRNet's elementwise final dropout under ``same_dropout``: with
-    identity TTA a member's rounds are equal, its members differ."""
-    tb = build_model(load_config(network="hrnet-s", eu_method="dropout"), device="cpu")
+    identity TTA a member's rounds are equal, its members differ. The
+    weights come from a seeded generator: drawn from the global one, they
+    depended on the tests that ran before in the same process, and some
+    draws saturate this untrained network's softmax (1 and 1e-26), where no
+    member can differ."""
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        tb = build_model(load_config(network="hrnet-s", eu_method="dropout"), device="cpu")
     identity = t_tta.TTAConfig(hflip_p=0.0, rotation_limit=0.0, scale_limit=(0.0, 0.0))
     fn = t_sampler_mod.make_sampler(tb, t_sampler_mod.SamplerSpec(
         n_pred=2, n_members=2, member_mode="dropout", tta=True, tta_config=identity,

@@ -214,7 +214,8 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
     assert chip_smoke.parse_paths([]) == chip_smoke.PATHS == (
         "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "ensemble_folded", "unet256",
         "hrnet", "multiclass", "infer", "train", "train_diffusion", "train_ssn",
-        "train_prob_unet")
+        "train_prob_unet", "train_hrnet", "train_subensemble", "train_multiclass", "train_swag",
+        "train_ensemble")
     assert chip_smoke.parse_paths(["--paths", "multiclass,hrnet"]) == ("hrnet", "multiclass")
     assert chip_smoke.parse_paths(["--paths", "infer,softmax"]) == ("softmax", "infer")
     assert chip_smoke.parse_paths(["--paths", "train,hrnet"]) == ("hrnet", "train")
@@ -229,9 +230,15 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
     assert chip_smoke.PATH_ASSETS["unet256"] is None
     assert chip_smoke.parse_paths(["--paths", "unet256,ensemble_folded,softmax"]) == (
         "softmax", "ensemble_folded", "unet256")
-    for model in ("diffusion", "ssn", "prob_unet"):
+    for model in ("diffusion", "ssn", "prob_unet", "multiclass", "swag", "ensemble"):
         assert chip_smoke.PATH_ASSETS[f"train_{model}"] is None
         assert set(chip_smoke.TRAIN_FAMILIES) == {"diffusion", "ssn", "prob_unet"}
+    # the mask trainer learns masks over the softmax asset, and the HRNet's
+    # gradients are checked at the trained HRNet: each rides with its asset
+    assert chip_smoke.PATH_ASSETS["train_subensemble"] == chip_smoke.PATH_ASSETS["softmax"]
+    assert chip_smoke.PATH_ASSETS["train_hrnet"] == chip_smoke.PATH_ASSETS["hrnet"]
+    assert set(chip_smoke.NEW_TRAIN_RUNS) == {"train_hrnet", "train_multiclass", "train_swag",
+                                              "train_ensemble"}
     for bad in ("hrnet,resnet", ","):
         with pytest.raises(SystemExit):
             chip_smoke.parse_paths(["--paths", bad])

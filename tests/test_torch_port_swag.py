@@ -298,3 +298,40 @@ def test_swag_asset_reader_keeps_meta_out_and_widens_std_exactly():
         assert v.dtype == torch.float32 and v.shape == own[k].shape
         assert moments.mean[k].dtype == torch.float32
     assert min(v.min().item() for v in moments.std.values()) >= 0.0
+
+
+def test_swag_moments_of_a_run_and_their_members_match_the_jax_recipe(monkeypatch):
+    """A SWAG-diag run's moments turned into the asset's (``train_swag`` of
+    the JAX tool: mean float32, std float16 from float64 moments) by
+    ``tools/bench_assets.py::swag_moments``, then 3 members drawn from them
+    (``swag_draw_members``) with JAX's normals: equal to the JAX recipe's."""
+    from diffuncertainty_tpu_torch.tools.bench_assets import swag_moments
+
+    js, ts = both_states(diag_only=True)
+    mean64 = jax.tree.map(lambda m: np.asarray(m, np.float64), js.mean)
+    sq64 = jax.tree.map(lambda s: np.asarray(s, np.float64), js.sq_mean)
+    std = jax.tree.map(lambda m, s: np.sqrt(np.maximum(s - m * m, 0.0)).astype(np.float16),
+                       mean64, sq64)
+    mean = jax.tree.map(lambda m: m.astype(np.float32), mean64)
+    got_mean, got_std = swag_moments(ts.mean, ts.sq_mean)
+    ref_std = flax_to_torch(jax.tree.map(lambda a: a.astype(np.float32), std))
+    assert set(got_std) == set(ref_std) and any(v.any() for v in ref_std.values())
+    for k, v in ref_std.items():
+        # the same float64 moments rounded to float16 on both sides
+        np.testing.assert_array_equal(got_std[k].numpy(), v.numpy(), err_msg=k)
+        np.testing.assert_allclose(got_mean[k].numpy(), flax_to_torch(mean)[k].numpy(), **TOL)
+    key, m = jax.random.key(42), 3
+    ref = flax_to_torch_stacked(jax.tree.map(np.asarray, j_swag_draw_members(
+        {"mean": mean, "std": std}, key, m)))
+    paths_leaves, treedef = jax.tree_util.tree_flatten_with_path(mean)
+    normals = []
+    for mk in jax.random.split(key, m):
+        eps = [np.asarray(jax.random.normal(k, leaf.shape, jnp.float32))
+               for k, (_, leaf) in zip(jax.random.split(mk, len(paths_leaves)), paths_leaves)]
+        eps_port = flax_to_torch(jax.tree.unflatten(treedef, eps))
+        normals += [eps_port[k] for k in got_mean]
+    queue, _ = inject(monkeypatch, normals)
+    got = swag_draw_members(got_mean, got_std, torch.Generator(), m)
+    assert not queue and set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), **TOL, err_msg=k)

@@ -21,7 +21,9 @@ with ``flax_to_torch``. Cases:
 - (h) the flax initializers over a full unet16: the same zero leaves as
   JAX's ``init``, every other leaf's std within 10% of JAX's;
 - (i) the command line's ``parse_args`` equal to JAX's;
-- (j) a port-trained checkpoint read by the port's inference job on the CPU.
+- (j) a port-trained checkpoint read by the port's inference job on the CPU;
+- (k) the street-scene dataset (``data/cityscapes.py``) and its loader equal
+  to JAX's, and one multiclass step (24 classes, switched masks) to 1e-5.
 
 Whole runs of ``fit`` are in ``test_torch_port_train_fit.py``.
 """
@@ -445,22 +447,94 @@ def test_parse_args_matches_jax(monkeypatch):
 
 
 def test_the_trainer_refuses_what_is_not_ported_and_a_missing_card(toy_dir, tmp_path):
-    for extra, eu, match in ((["trainer.remat=true"], "none", "generator"),
-                             (["trainer.mesh_shape=[2,1]"], "none", "item 6"),
-                             (["eu_method.name=subensemble"], "none", "sub-ensemble")):
-        tcfg, _ = t_cli.parse_args(tokens(toy_dir, tmp_path, *extra, eu=eu) + ["device=cpu"])
-        with pytest.raises(NotImplementedError, match=match):
-            TTrainer(tcfg, device="cpu", workdir=tmp_path / "w")
-    # the HRNet's batch_stats updates are the one family left (ROADMAP Queue 1 item 5)
-    hrnet = ["network=hrnet-s" if t == "network=unet16" else t
-             for t in tokens(toy_dir, tmp_path) if not t.startswith("network.")]
-    tcfg, _ = t_cli.parse_args(hrnet + ["device=cpu"])
-    with pytest.raises(NotImplementedError, match="batch_stats"):
+    """Multi-device training (ROADMAP Queue 1 item 6) and a missing card.
+    ``trainer.remat``, ``eu_method.name=subensemble`` and the HRNet train
+    now (``test_torch_port_remat.py``, ``test_torch_port_subensemble_train.py``,
+    ``test_torch_port_train_hrnet.py``)."""
+    tcfg, _ = t_cli.parse_args(tokens(toy_dir, tmp_path, "trainer.mesh_shape=[2,1]")
+                               + ["device=cpu"])
+    with pytest.raises(NotImplementedError, match="item 6"):
         TTrainer(tcfg, device="cpu", workdir=tmp_path / "w")
     if not torch.cuda.is_available():
         tcfg, _ = t_cli.parse_args(tokens(toy_dir, tmp_path))
         with pytest.raises(RuntimeError, match="CUDA"):
             TTrainer(tcfg, workdir=tmp_path / "w")
+
+
+# ---- (k) the street-scene data and one multiclass step --------------------------
+
+@pytest.fixture(scope="module")
+def gta_dir(tmp_path_factory):
+    from diffuncertainty_tpu.data.gta_toy import generate_gta_toy
+
+    return generate_gta_toy(tmp_path_factory.mktemp("gta"), num_train=8, num_val=2, num_test=2,
+                            train_size=(32, 32), test_size=(32, 64), seed=3)
+
+
+def test_cityscapes_dataset_loads_like_jax(gta_dir):
+    """``data/cityscapes.py``: switched single masks for training (the
+    loader's generator), stable switched references for evaluation, the
+    shuffled loader's batches: all equal to the JAX dataset's."""
+    from diffuncertainty_tpu.data.cityscapes import CityscapesDataset as JCity
+    from diffuncertainty_tpu_torch.data.cityscapes import CityscapesDataset as TCity
+
+    sp = gta_dir / "splits" / "default" / "firstCycle" / "splits.pkl"
+    for split, all_raters in (("train", False), ("id", True)):
+        jd, td = JCity(sp, gta_dir, split=split, return_all_raters=all_raters), TCity(
+            sp, gta_dir, split=split, return_all_raters=all_raters)
+        assert len(jd) == len(td) > 0 and td.dataset_label == jd.dataset_label == "cityscapes"
+        for i in range(len(jd)):
+            j, t = jd.load(i, np.random.default_rng(i)), td.load(i, np.random.default_rng(i))
+            assert j.keys() == t.keys()
+            np.testing.assert_array_equal(t["image"], j["image"])
+            np.testing.assert_array_equal(t["seg"], j["seg"])
+            assert t["seg"].dtype == np.int32 and t["seg"].ndim == (3 if all_raters else 2)
+    refs = TCity(sp, gta_dir, split="id").load(0)["seg"]
+    assert refs.shape[0] == 4 and len({r.tobytes() for r in refs}) > 1  # switched references
+    jl = JLoader(JCity(sp, gta_dir, return_all_raters=False), 4, shuffle=True, seed=2,
+                 use_native=False)
+    tl = TLoader(TCity(sp, gta_dir, return_all_raters=False), 4, shuffle=True, seed=2)
+    for _ in range(2):
+        assert_same_batches(list(jl), list(tl))
+
+
+def test_one_multiclass_training_step_matches_jax(gta_dir, tmp_path):
+    """unet16's small net with 24 classes on a batch of switched gta-toy
+    masks (the multiclass recipe's data), one step of the gta_toy config
+    (ignore_index -1: masked cross entropy): loss, ``grad_norm``, parameters,
+    moments and EMA to 1e-5."""
+    from diffuncertainty_tpu_torch.data.cityscapes import CityscapesDataset as TCity
+
+    gta = ["data=gta_toy", f"data.data_input_dir={gta_dir}", "data.batch_size=4"]
+    toks = [t for t in tokens(gta_dir, tmp_path) if not t.startswith(("data=", "data."))]
+    jcfg, _ = j_cli.parse_args(gta + [t.replace(str(tmp_path), str(tmp_path / "j"))
+                                      for t in toks])
+    tcfg, _ = t_cli.parse_args(gta + toks + ["device=cpu"])
+    assert tcfg.data.num_classes == 24 and tcfg.network.out_channels == 24
+    jt = JTrainer(jcfg, workdir=tmp_path / "jw")
+    params = noisy(jax_init(jcfg))
+    state = jax_state(jt, params)
+    tt = TTrainer(tcfg, workdir=tmp_path / "tw", device="cpu")
+    tt.built.module.load_state_dict(flax_to_torch(params))
+    tstate = tt.fresh_state()
+    flat = track_flat(tt)
+    sp = gta_dir / "splits" / "default" / "firstCycle" / "splits.pkl"
+    batch = next(iter(TLoader(TCity(sp, gta_dir, return_all_raters=False), 4, shuffle=True)))
+    assert len(np.unique(batch["seg"])) > 2
+    state, aux = jt._get_step(False)(state, {k: jnp.asarray(batch[k]) for k in ("image", "seg")},
+                                     jax.random.key(0), {})
+    tstate, taux = tt.train_step(tstate, batch, torch.Generator())
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(taux[k]), float(aux[k]), atol=STEP_TOL, rtol=STEP_TOL,
+                                   err_msg=k)
+    adam = jax_adam(state.opt_state)
+    for what, got, ref in (("mu", tstate.opt_state.mu, adam.mu),
+                           ("nu", tstate.opt_state.nu, adam.nu)):
+        assert_state_close(got, flax_to_torch(jax.tree.map(np.asarray, ref)), STEP_TOL, what)
+    for what, got, ref in (("params", tstate.params, state.params),
+                           ("ema", tstate.ema_params, state.ema_params)):
+        assert_state_close(got, flax_to_torch(jax.tree.map(np.asarray, ref)), STEP_TOL, what,
+                           flat, 2 * 0.003)
 
 
 # ---- (j) a port-trained checkpoint in the port's inference job ------------------
