@@ -1,11 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,train,train_diffusion,train_ssn,train_prob_unet,train_hrnet,train_subensemble,train_multiclass,train_swag,train_ensemble]
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,eval,train,train_diffusion,train_ssn,train_prob_unet,train_hrnet,train_subensemble,train_multiclass,train_swag,train_ensemble]
 
 With no argument every path runs; ``--paths`` picks a comma-separated group
 of them (each needs its file under ``assets/``: a missing one is an error;
-``train`` reads only ``ensemble16_quality.json``, ``train_subensemble`` only
-``bench_unet16_toy128.npz``, the other ``train_*`` paths and ``unet256``
+``train`` reads only ``ensemble16_quality.json``, ``train_subensemble`` and
+``eval`` only ``bench_unet16_toy128.npz``, the other ``train_*`` paths and ``unet256``
 read none). Each training phase first runs its timed in-process part
 (kernel checks, the counted and timed steps), one after another with
 nothing else on the card; then the training paths' runs through their
@@ -110,6 +110,20 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    GroupNorm, no twin); the job's img/s, writes included, in the new process
    and in process once warm, with and without the writes, and the device
    time of one batch;
+11a. the evaluation (the ``eval`` path, the job a ValUES user runs): the same
+   checkpoint through ``python -m diffuncertainty_tpu_torch.infer ...
+   --include_eval`` as a subprocess over the toy-128 ``val``, ``id``,
+   ``ood_noise`` and ``ood_blur`` splits (16 + 256 + 16 + 16 images), one
+   in-process batch of the job with the launches counted (11 / 56, no
+   twin), then ``python -m diffuncertainty_tpu_torch.evaln.experiments
+   --config`` (a JSON config: the version, the paired splits, ``val`` for
+   the Platt fit, the dataset) with every task but the cleanups; every task
+   file present, the ``id`` split's TU image-level AURC equal to
+   ``metrics/aurc.py::aurc`` of 1 - Dice against -mean TU from the tree's
+   own ``metrics.json`` and TIFFs (to 1e-9) and inside the softmax bf16
+   band, every AUROC, detection rate and calibration error finite in
+   [0, 1], every NCC in [-1, 1], the Platt parameters finite; the walls of
+   the job and of the evaluation;
 12. the trainer (``python -m diffuncertainty_tpu_torch.train``, the user's
    entry point): each kernel's backward (its autograd Function: the kernel
    forward, the twin's VJP) against fp32 autograd of the twin on the same
@@ -216,6 +230,8 @@ PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
                # seeded random weights: reads no file of the repo's assets
                "unet256": None, "hrnet": ASSET_HRNET,
                "multiclass": ASSET_MULTICLASS, "infer": ASSET,
+               # evaluates the job's tree of the softmax asset
+               "eval": ASSET,
                # trains from scratch on the generated toy-128 data: reads only
                # the JAX members' quality record its bands come from
                "train": ENSEMBLE16_QUALITY,
@@ -1404,48 +1420,93 @@ def phase_multiclass(attn_checked: set, norm_checked: set):
     return launches, attn_calls, norm_seen, MC_FRAMES / ms * 1e3
 
 
+def softmax_job_checkpoint(tmp: Path):
+    """A port checkpoint of the softmax asset (bf16, MC-dropout) whose config
+    names the toy-128 data directory, written under ``tmp``; and the toy
+    ``id`` dataset."""
+    from diffuncertainty_tpu_torch.core.checkpoint import save_checkpoint
+    from diffuncertainty_tpu_torch.core.config import load_config
+    from diffuncertainty_tpu_torch.core.params import load_params_npz
+    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset
+
+    ds = toy128_dataset(HW)
+    cfg = load_config(data="lidc128", network="unet16", model="softmax", eu_method="dropout",
+                      precision="bf16", overrides={"data": {
+                          "data_input_dir": str(ds.base_dir), "split_name": "default"}})
+    ckpt = save_checkpoint(tmp / "v0" / "checkpoints" / "last",
+                           {"params": load_params_npz(ASSET)}, cfg, epoch=0)
+    return ckpt, ds
+
+
+def run_infer_job(label: str, argv: list[str], timeout: int = 600) -> tuple[list[dict], float]:
+    """``python -m diffuncertainty_tpu_torch.infer`` as a subprocess, which
+    must exit 0: its summary per split and its wall, the process included."""
+    import ast
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.infer", *argv],
+                         cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"{label}: the inference job exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    summaries = [ast.literal_eval(line) for line in out.stdout.splitlines()
+                 if line.startswith("{'split'")]
+    log(f"{label}: exit 0 in {wall:.1f}s (process included): {summaries}")
+    return summaries, wall
+
+
+def counted_job_batch(label: str, job, seed: int, attn_checked: set, norm_checked: set):
+    """One batch of the job's ``id`` split through its sampler and batch
+    metrics with the launches counted around it (11 / 56, no twin), every
+    shape it gives the kernels checked before; returns the launches, the
+    batch function and its images."""
+    import torch
+
+    from diffuncertainty_tpu_torch.data.loader import BatchLoader
+
+    batch = next(iter(BatchLoader(job._dataset("id"), BATCH, drop_last=False)))
+    images = job.normalize(batch["image"])
+    gt = torch.from_numpy(batch["seg"]).cuda()
+    num_raters = torch.from_numpy(batch["num_raters"]).cuda()
+
+    def job_batch(x, generator):
+        stack = job._sample_stack(x, generator)
+        return stack, job.metrics_fn(stack, gt, num_raters)
+
+    (stack, _), launches, _, _, attn_seen, norm_seen = counted_call(
+        job.built, job_batch, images, seed)
+    check_launches(label, launches, {"qkv_attention": 11, "group_norm_act": 56})
+    shapes = {(b, hh * ww, c) for b, hh, ww, c in attn_seen}
+    if not shapes <= attn_checked or not set(norm_seen) <= norm_checked:
+        raise AssertionError(f"{label}: unchecked attention shapes {shapes - attn_checked} "
+                             f"or norm sites {set(norm_seen) - norm_checked}")
+    check_stack(label, stack)
+    return launches, job_batch, images
+
+
 def phase_infer(smi: str, attn_checked: set, norm_checked: set):
     """The inference job on a port checkpoint of the softmax path: the
     user's entry point as a subprocess over the toy-128 ``id`` split, its
     results tree and quality, then one batch of the same job in process
     with the launch counts read around it."""
-    import ast
     import tempfile
 
     import numpy as np
     import torch
 
-    from diffuncertainty_tpu_torch.core.checkpoint import save_checkpoint
-    from diffuncertainty_tpu_torch.core.config import load_config
-    from diffuncertainty_tpu_torch.core.params import load_params_npz
-    from diffuncertainty_tpu_torch.data.loader import BatchLoader
     from diffuncertainty_tpu_torch.infer.image_io import read_tiff
     from diffuncertainty_tpu_torch.infer.runner import InferenceConfig, UncertaintyInference
     from diffuncertainty_tpu_torch.metrics.aurc import aurc
-    from diffuncertainty_tpu_torch.tools.quality import toy128_dataset
 
-    ds = toy128_dataset(HW)
-    n_images = len(ds)
-    cfg = load_config(data="lidc128", network="unet16", model="softmax", eu_method="dropout",
-                      precision="bf16", overrides={"data": {
-                          "data_input_dir": str(ds.base_dir), "split_name": "default"}})
     seed = 777
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = save_checkpoint(Path(tmp) / "v0" / "checkpoints" / "last",
-                               {"params": load_params_npz(ASSET)}, cfg, epoch=0)
+        ckpt, ds = softmax_job_checkpoint(Path(tmp))
+        n_images = len(ds)
         argv = ["--checkpoint_paths", str(ckpt), "--test_split", "id", "--n_pred", "1",
                 "--n_models", str(MEMBERS), "--tta", "--test_batch_size", str(BATCH),
                 "--seed", str(seed), "--save_dir", str(Path(tmp) / "results")]
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.infer", *argv],
-                             cwd=REPO, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        if out.returncode != 0:
-            raise AssertionError(f"the inference job exited {out.returncode}:\n"
-                                 f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
-        (summary,) = [ast.literal_eval(line) for line in out.stdout.splitlines()
-                      if line.startswith("{'split'")]
-        log(f"infer job: exit 0 in {wall:.1f}s (process included): {summary}")
+        (summary,), _ = run_infer_job("infer job", argv)
         out_dir = Path(summary["out_dir"])
         metrics = json.loads((out_dir / "metrics.json").read_text())
         likelihood = json.loads((out_dir / "likelihood.json").read_text())
@@ -1486,23 +1547,8 @@ def phase_infer(smi: str, attn_checked: set, norm_checked: set):
         icfg = InferenceConfig(n_pred=1, n_models=MEMBERS, tta=True, batch_size=BATCH,
                                seed=seed, save_dir=str(Path(tmp) / "results"))
         job = UncertaintyInference([ckpt], icfg)
-    batch = next(iter(BatchLoader(job._dataset("id"), BATCH, drop_last=False)))
-    images = job.normalize(batch["image"])
-    gt = torch.from_numpy(batch["seg"]).cuda()
-    num_raters = torch.from_numpy(batch["num_raters"]).cuda()
-
-    def job_batch(x, generator):
-        stack = job._sample_stack(x, generator)
-        return stack, job.metrics_fn(stack, gt, num_raters)
-
-    (stack, _), launches, _, _, attn_seen, norm_seen = counted_call(
-        job.built, job_batch, images, seed)
-    check_launches("infer path", launches, {"qkv_attention": 11, "group_norm_act": 56})
-    shapes = {(b, hh * ww, c) for b, hh, ww, c in attn_seen}
-    if not shapes <= attn_checked or not set(norm_seen) <= norm_checked:
-        raise AssertionError(f"infer path: unchecked attention shapes {shapes - attn_checked} "
-                             f"or norm sites {set(norm_seen) - norm_checked}")
-    check_stack("infer path", stack)
+    launches, job_batch, images = counted_job_batch("infer path", job, seed, attn_checked,
+                                                    norm_checked)
     times = []
     for i in range(5):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1527,6 +1573,167 @@ def phase_infer(smi: str, attn_checked: set, norm_checked: set):
         f"loading, copies and writes")
     return launches, {"images_per_sec": summary["images_per_sec"], **warm,
                       "batch_ms": batch_ms, **quality}
+
+
+EVAL_SPLITS = ("val", "id", "ood_noise", "ood_blur")
+EVAL_PAIRS = (("id", "ood_noise"), ("id", "ood_blur"))
+# every task of the evaluation matrix but the two cleanups
+EVAL_TASKS = ("threshold", "area", "aggregation", "ood_detection", "failure_detection",
+              "ambiguity_modeling", "calibration")
+
+
+def evaluate_job_tree(version_dir: Path, splits_path: Path, data_dir: Path,
+                      pred_model: str = "softmax") -> tuple[dict, float]:
+    """``python -m diffuncertainty_tpu_torch.evaln.experiments --config`` with
+    a JSON config over one version of the job's results tree (``val``
+    fitting the Platt parameters, both OoD shifts paired with ``id``), which
+    must exit 0; then the checks: every task file there, the ``id`` split's
+    TU image-level AURC equal to ``metrics/aurc.py::aurc`` of 1 - Dice
+    against -mean TU from the tree's own ``metrics.json`` and TIFFs (1e-9),
+    every AUROC, detection rate and calibration error finite in [0, 1],
+    every NCC finite in [-1, 1], the Platt parameters finite. Returns the
+    headline numbers and the command's wall."""
+    import numpy as np
+
+    from diffuncertainty_tpu_torch.infer.image_io import read_tiff
+    from diffuncertainty_tpu_torch.metrics.aurc import aurc
+
+    config = {"base_path": str(version_dir.parents[3]),
+              "experiments": [{"iter_params": {"pred_model": [pred_model]},
+                               "exp_name": version_dir.parents[2].name,
+                               "naming_scheme_version": f"{version_dir.parent.name}/"
+                                                        f"{version_dir.name}",
+                               "n_pred": int(version_dir.parents[1].name[len("test_results"):])}],
+              "tasks": list(EVAL_TASKS), "paired_splits": [list(p) for p in EVAL_PAIRS],
+              "calibration_val_split": "val",
+              "dataset": {"splits_path": str(splits_path), "data_input_dir": str(data_dir)}}
+    cfg_path = version_dir.parents[3] / "eval_config.json"
+    cfg_path.write_text(json.dumps(config, indent=2))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "diffuncertainty_tpu_torch.evaln.experiments",
+                          "--config", str(cfg_path)],
+                         cwd=REPO, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the evaluation matrix exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    want = [version_dir / n for n in ("quantile_analysis.json", "threshold_analysis.json",
+                                      "ood_detection.json", "platt_scale_params.json")]
+    for split in EVAL_SPLITS:
+        want += [version_dir / split / n for n in (
+            "area.json", "aggregated_TU.json", "aggregated_AU.json", "aggregated_EU.json",
+            "failure_detection.json", "ambiguity_modeling.json")]
+        if split != "val":  # the Platt split is not calibrated against itself
+            want.append(version_dir / split / "calibration.json")
+    missing = [str(p.relative_to(version_dir)) for p in want if not p.is_file()]
+    if missing:
+        raise AssertionError(f"evaluation: task files missing: {missing}")
+
+    def read(*parts):
+        return json.loads(version_dir.joinpath(*parts).read_text())
+
+    def check_range(name, value, lo=0.0, hi=1.0):
+        if not (math.isfinite(value) and lo <= value <= hi):
+            raise AssertionError(f"evaluation: {name} = {value} not finite in [{lo}, {hi}]")
+
+    # the failure task against the AURC of the tree's own records
+    metrics = read("id", "metrics.json")
+    dices, tu_means = [], []
+    for image_id in sorted(metrics):
+        dices.append(metrics[image_id]["metrics"]["dice"])
+        tu = read_tiff(version_dir / "id" / "TU" / f"{image_id}.tif")
+        tu_means.append(float(np.sum(tu) / tu.size))
+    direct = float(aurc(1.0 - np.asarray(dices), -np.asarray(tu_means)))
+    failure = read("id", "failure_detection.json")["mean"]
+    task_aurc = failure["TU"]["image_level"]["metrics"]["aurc"]
+    if abs(task_aurc - direct) > 1e-9:
+        raise AssertionError(f"evaluation: failure_detection's TU image-level AURC {task_aurc} "
+                             f"!= {direct} from metrics.json and the TIFFs")
+    ood = read("ood_detection.json")
+    numbers = {"aurc": task_aurc,
+               "eaurc": failure["TU"]["image_level"]["metrics"]["eaurc"], "auroc": {}}
+    for id_split, ood_split in EVAL_PAIRS:
+        per_unc = ood[f"{id_split}&{ood_split}"]["mean"]
+        for unc, aggs in per_unc.items():
+            for agg, rec in aggs.items():
+                for key, value in rec["metrics"].items():
+                    check_range(f"{ood_split} {unc} {agg} {key}", value)
+            numbers["auroc"][f"{ood_split} {unc}"] = {
+                agg: per_unc[unc][agg]["metrics"]["auroc"]
+                for agg in ("image_level", "patch_level")}
+    for unc, ab in read("platt_scale_params.json").items():
+        if not all(math.isfinite(v) for v in ab.values()):
+            raise AssertionError(f"evaluation: Platt parameters of {unc} not finite: {ab}")
+    numbers["gece"], numbers["ncc"] = {}, {}
+    for split in EVAL_SPLITS:
+        for unc, rec in read(split, "ambiguity_modeling.json")["mean"].items():
+            check_range(f"{split} {unc} ncc", rec["metrics"]["ncc"], -1.0, 1.0)
+        numbers["ncc"][split] = {unc: rec["metrics"]["ncc"] for unc, rec in
+                                 read(split, "ambiguity_modeling.json")["mean"].items()}
+        if split == "val":
+            continue
+        calib = read(split, "calibration.json")
+        for image_id, per_unc in calib.items():
+            for unc, rec in per_unc.items():
+                for key, value in rec["metrics"].items():
+                    check_range(f"{split} {image_id} {unc} {key}", value)
+        numbers["gece"][split] = {unc: rec["metrics"]["gece"]
+                                  for unc, rec in calib["mean"].items()}
+    return numbers, wall
+
+
+def phase_eval(smi: str, attn_checked: set, norm_checked: set):
+    """The job a ValUES user runs: the inference job with ``--include_eval``
+    over the toy-128 val, id and OoD splits on a port checkpoint of the
+    softmax asset (a subprocess), the same job's launches counted around one
+    in-process batch, then the evaluation matrix's command line over the tree
+    it wrote, every task but the cleanups."""
+    import tempfile
+
+    from diffuncertainty_tpu_torch.infer.runner import InferenceConfig, UncertaintyInference
+
+    seed = 777
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, ds = softmax_job_checkpoint(Path(tmp))
+        argv = ["--checkpoint_paths", str(ckpt), "--test_split", *EVAL_SPLITS, "--n_pred", "1",
+                "--n_models", str(MEMBERS), "--tta", "--test_batch_size", str(BATCH),
+                "--seed", str(seed), "--save_dir", str(Path(tmp) / "results"), "--include_eval"]
+        summaries, job_wall = run_infer_job("eval job", argv, timeout=900)
+        counts = {s["split"]: s["n_images"] for s in summaries}
+        expected = {split: len(ds) if split == "id" else 16 for split in EVAL_SPLITS}
+        if counts != expected:
+            raise AssertionError(f"eval job: images per split {counts}, expected {expected}")
+        version_dir = Path(summaries[0]["out_dir"]).parent
+        # the job's own --include_eval chain wrote these before the matrix runs
+        chain = [version_dir / "threshold_analysis.json"] + [
+            version_dir / split / name for split in EVAL_SPLITS
+            for name in ("area.json", "aggregated_TU.json", "failure_detection.json",
+                         "ambiguity_modeling.json")]
+        if not all(p.is_file() for p in chain):
+            raise AssertionError("eval job: --include_eval did not write its chain's files")
+        splits_path = ds.base_dir / "splits" / "default" / "firstCycle" / "splits.pkl"
+        numbers, eval_wall = evaluate_job_tree(version_dir, splits_path, ds.base_dir)
+        job = UncertaintyInference([ckpt], InferenceConfig(
+            n_pred=1, n_models=MEMBERS, tta=True, batch_size=BATCH, seed=seed,
+            save_dir=str(Path(tmp) / "results")))
+    launches, _, _ = counted_job_batch("eval path", job, seed, attn_checked, norm_checked)
+    ref = PARITY["bf16"]["aurc"]
+    if abs(numbers["aurc"] - ref) > BANDS["aurc"]:
+        raise AssertionError(f"evaluation: AURC {numbers['aurc']:.5f} outside {ref} +- "
+                             f"{BANDS['aurc']}")
+    infer_s = sum(s["seconds"] for s in summaries)
+    for shift_unc, per_agg in numbers["auroc"].items():
+        log(f"eval AUROC {shift_unc}: image_level {per_agg['image_level']:.5f}, patch_level "
+            f"{per_agg['patch_level']:.5f}")
+    log(f"eval id split TU image_level: AURC {numbers['aurc']:.6f} (band {ref} +- "
+        f"{BANDS['aurc']}), E-AURC {numbers['eaurc']:.6f}; gECE {numbers['gece']}; "
+        f"NCC {numbers['ncc']}")
+    log(f"eval on {smi}: the job with --include_eval {job_wall:.1f}s over "
+        f"{sum(counts.values())} images (process included; its splits' inference "
+        f"{infer_s:.1f}s, the rest the default chain and start-up), the evaluation matrix's "
+        f"command line {eval_wall:.1f}s (host)")
+    return launches, {"job_wall_s": job_wall, "job_inference_s": infer_s,
+                      "eval_wall_s": eval_wall, **numbers}
 
 
 def train_tokens(data_dir, save_dir) -> list[str]:
@@ -2972,6 +3179,8 @@ def main(argv=None) -> int:
          frames_s) = phase_multiclass(attn_checked168, norm_checked168)
     if "infer" in paths:
         launches_by_path["infer"], infer_stats = phase_infer(smi, attn_checked, norm_checked)
+    if "eval" in paths:
+        launches_by_path["eval"], eval_stats = phase_eval(smi, attn_checked, norm_checked)
     runs = None
     if any(p.startswith("train") for p in paths):
         import tempfile
@@ -3139,6 +3348,8 @@ def main(argv=None) -> int:
         extra += f"; multiclass path {frames_s:.3f} frames/s"
     if "infer" in paths:
         extra += f"; infer job {infer_stats}"
+    if "eval" in paths:
+        extra += "; eval " + json.dumps(eval_stats)
     if "train" in paths:
         extra += (f"; train step {train_stats['step']['split']}, remat {train_stats['remat']}, "
                   f"recipe {train_stats['recipe']}, trained quality on 32 images "

@@ -10,8 +10,10 @@ Slices ported so far: the unet16 MC-dropout + TTA softmax uncertainty path
 metrics and the toy-128 quality eval), the unet16 diffusion, SSN and
 prob-U-Net paths, stacked members (SWAG, ensembles, sub-ensembles), the
 HRNet backbone and the multiclass full-frame sliding-window family, the
-inference job (``python -m diffuncertainty_tpu_torch.infer``) and the
-trainer of the softmax family (``python -m diffuncertainty_tpu_torch.train``).
+inference job (``python -m diffuncertainty_tpu_torch.infer``), the
+trainer of every family (``python -m diffuncertainty_tpu_torch.train``) and
+the evaluation stack (``evaln``: the downstream tasks over the job's results
+tree, ``python -m diffuncertainty_tpu_torch.evaln.experiments``).
 Both TPU kernels of the JAX package run as hand-written CUDA kernels: the
 fused-qkv attention and the GroupNorm+activation, each differentiable
 through an autograd Function whose backward is its plain twin's VJP.

@@ -9,10 +9,12 @@ JAX checkpoint).
     python -m diffuncertainty_tpu_torch.infer \\
         --checkpoint_paths saves/exp/v0/checkpoints/last \\
         --test_split id ood_noise --n_pred 10 --n_models 10 --tta [--device cpu]
-        [--member_chunk auto|none|N] [--same_dropout]
+        [--member_chunk auto|none|N] [--same_dropout] [--include_eval]
 
 Runs on the card unless ``--device cpu`` is given. Prints one summary dict
-per split (images, seconds, images_per_sec, out_dir).
+per split (images, seconds, images_per_sec, out_dir). ``--include_eval``
+then runs ``evaln/runner.py::run_default_evaluation`` over each split of the
+job (on the host).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", default=None)
     p.add_argument("--version", default=None)
     p.add_argument("--include_eval", action="store_true",
-                   help="run the evaluation task runner after testing (not ported)")
+                   help="run the default evaluation chain over each split after testing")
     p.add_argument("--mesh_shape", type=int, nargs=2, default=None, metavar=("DATA", "MEMBER"),
                    help="(data, member) device mesh; the port takes only 1 1")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -101,10 +103,6 @@ def _auto_version(group: list[Path]) -> str:
 
 def main(argv=None) -> list[dict]:
     args = build_parser().parse_args(argv)
-    if args.include_eval:
-        raise NotImplementedError(
-            "--include_eval: the evaluation runner (evaln/runner.py, aggregation.py, "
-            "dataloader.py) is not ported; it is ROADMAP Queue 1 item 7")
     summaries = []
     for job in prepare_jobs(args):
         icfg = InferenceConfig(
@@ -126,4 +124,9 @@ def main(argv=None) -> list[dict]:
             summary["use_ema"] = job["use_ema"]
             print(summary, flush=True)
             summaries.append(summary)
+        if args.include_eval:
+            from ..evaln.runner import run_default_evaluation
+
+            for split in job["splits"]:
+                run_default_evaluation(runner.split_dir(split), runner.cfg)
     return summaries

@@ -177,6 +177,22 @@ def assert_same_tree(j_dir: Path, t_dir: Path) -> None:
             np.testing.assert_array_equal(np.asarray(Image.open(t_dir / rel)), ref)
 
 
+def assert_json_close(got, ref, where: str) -> None:
+    """Same keys in the same order, numbers to ATOL."""
+    if isinstance(ref, dict):
+        assert list(got) == list(ref), where
+        for k in ref:
+            assert_json_close(got[k], ref[k], f"{where}/{k}")
+    elif isinstance(ref, list):
+        assert len(got) == len(ref), where
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert_json_close(g, r, f"{where}[{i}]")
+    elif isinstance(ref, float):
+        np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0, err_msg=where)
+    else:
+        assert got == ref, where
+
+
 @pytest.fixture
 def inject_draws(monkeypatch):
     """The same dropout masks and TTA matrices on both sides."""
@@ -415,14 +431,29 @@ def test_h_cli_jobs_and_the_cli_run_equal_jax(softmax_pair, tmp_path, monkeypatc
     argv = ["--checkpoint_paths", None, "--n_pred", "1", "--n_models", "1", "--test_batch_size",
             str(BATCH), "--seed", "3"]
     argv[1] = str(src)
-    j_cli.main(argv + ["--save_dir", str(tmp_path / "jax"), "--mesh_shape", "1", "1"])
+    j_cli.main(argv + ["--save_dir", str(tmp_path / "jax"), "--mesh_shape", "1", "1",
+                       "--include_eval"])
     argv[1] = str(dst)
-    (summary,) = t_cli.main(argv + ["--save_dir", str(tmp_path / "port"), "--device", "cpu"])
+    (summary,) = t_cli.main(argv + ["--save_dir", str(tmp_path / "port"), "--device", "cpu",
+                                    "--include_eval"])
     assert summary["n_images"] == N_TEST and summary["version"] == "v0"
     rel = Path(summary["out_dir"]).relative_to(tmp_path / "port")
     assert_same_tree(tmp_path / "jax" / rel, tmp_path / "port" / rel)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        t_cli.main(argv + ["--include_eval", "--device", "cpu"])
+    # --include_eval: the default chain's files, in the split and (the
+    # thresholds) in the version directory, equal to the heatmaps' tolerance
+    version = rel.parent
+    evaluated = sorted(p.relative_to(tmp_path / "jax" / version)
+                       for p in (tmp_path / "jax" / version).rglob("*.json")
+                       if p.name not in ("metrics.json", "likelihood.json"))
+    assert [p.as_posix() for p in evaluated] == [
+        "id/aggregated_pred_entropy.json", "id/ambiguity_modeling.json", "id/area.json",
+        "id/failure_detection.json", "quantile_analysis.json", "threshold_analysis.json"]
+    assert sorted(p.relative_to(tmp_path / "port" / version)
+                  for p in (tmp_path / "port" / version).rglob("*.json")
+                  if p.name not in ("metrics.json", "likelihood.json")) == evaluated
+    for name in evaluated:
+        assert_json_close(*(json.loads((tmp_path / side / version / name).read_text())
+                            for side in ("port", "jax")), str(name))
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         t_cli.main(argv + ["--mesh_shape", "2", "1", "--device", "cpu"])
 

@@ -156,13 +156,15 @@ def test_quality_eval_matches_jax_with_a_deterministic_sampler():
 
 
 def test_port_imports_without_jax_yaml_or_the_jax_package():
-    """Every module of the port, ``chip_smoke``, the job's ``--help`` and the
-    trainer's with JAX, optax, flax, YAML, tensorboardX, PIL, orbax,
-    tensorstore and the JAX package blocked."""
+    """Every module of the port, ``chip_smoke``, the job's, the trainer's and
+    the evaluation matrix's ``--help`` with JAX, optax, flax, YAML,
+    tensorboardX, PIL, orbax, tensorstore, scikit-learn, pandas, matplotlib
+    and the JAX package blocked."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'tensorboardX', 'cv2',\n"
-        "             'diffuncertainty_tpu', 'PIL', 'orbax', 'tensorstore'):\n"
+        "             'diffuncertainty_tpu', 'PIL', 'orbax', 'tensorstore', 'sklearn',\n"
+        "             'pandas', 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         "import importlib, pkgutil, runpy\n"
         "import diffuncertainty_tpu_torch as pkg\n"
@@ -172,7 +174,7 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "print(len(mods))\n"
-        "for entry in ('infer', 'train'):\n"
+        "for entry in ('infer', 'train', 'evaln.experiments'):\n"
         "    sys.argv = [entry, '--help']\n"
         "    try:\n"
         "        runpy.run_module('diffuncertainty_tpu_torch.' + entry, run_name='__main__')\n"
@@ -187,18 +189,20 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
     usage = "\n".join(usage)
     assert "--checkpoint_paths" in usage and "--device" in usage
     assert "python -m diffuncertainty_tpu_torch.train" in usage and "device=cpu" in usage
+    assert "--preflight-only" in usage and "--report" in usage
 
 
 def test_no_forbidden_imports_or_library_kernels_in_the_port():
     bad_import = re.compile(
         r"^\s*(import|from)\s+(jax|yaml|PIL|orbax|tensorstore|optax|flax|tensorboardX"
-        r"|diffuncertainty_tpu\b)")
+        r"|sklearn|pandas|matplotlib|diffuncertainty_tpu\b)")
     files = sorted((REPO / "diffuncertainty_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     port = REPO / "diffuncertainty_tpu_torch"
     assert {port / "train" / "losses.py", port / "train" / "loop.py",
             port / "models" / "diffusion.py", port / "models" / "prob_unet.py",
             port / "core" / "specs.py", port / "tools" / "train_recipe.py",
-            port / "ops" / "member_fold.py"} <= set(files)
+            port / "ops" / "member_fold.py", port / "evaln" / "experiments.py",
+            port / "evaln" / "tasks.py", port / "evaln" / "dataloader.py"} <= set(files)
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             assert not bad_import.match(line), f"{path}:{n}: {line}"
@@ -213,13 +217,16 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
 
     assert chip_smoke.parse_paths([]) == chip_smoke.PATHS == (
         "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "ensemble_folded", "unet256",
-        "hrnet", "multiclass", "infer", "train", "train_diffusion", "train_ssn",
+        "hrnet", "multiclass", "infer", "eval", "train", "train_diffusion", "train_ssn",
         "train_prob_unet", "train_hrnet", "train_subensemble", "train_multiclass", "train_swag",
         "train_ensemble")
     assert chip_smoke.parse_paths(["--paths", "multiclass,hrnet"]) == ("hrnet", "multiclass")
     assert chip_smoke.parse_paths(["--paths", "infer,softmax"]) == ("softmax", "infer")
     assert chip_smoke.parse_paths(["--paths", "train,hrnet"]) == ("hrnet", "train")
     assert chip_smoke.PATH_ASSETS["infer"] == chip_smoke.PATH_ASSETS["softmax"]
+    # the evaluation runs on the job's tree of the softmax asset: it rides with infer
+    assert chip_smoke.PATH_ASSETS["eval"] == chip_smoke.PATH_ASSETS["softmax"]
+    assert chip_smoke.parse_paths(["--paths", "eval,infer"]) == ("infer", "eval")
     # the train path trains from scratch: its one file is the JAX members' quality record
     assert chip_smoke.PATH_ASSETS["train"].name == "ensemble16_quality.json"
     # the families' training paths read no file: they ride either group
