@@ -1,16 +1,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,eval,train,train_diffusion,train_ssn,train_prob_unet,train_hrnet,train_subensemble,train_multiclass,train_swag,train_ensemble]
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,eval,study,train,train_diffusion,train_ssn,train_prob_unet,train_hrnet,train_subensemble,train_multiclass,train_swag,train_ensemble]
 
 With no argument every path runs; ``--paths`` picks a comma-separated group
 of them (each needs its file under ``assets/``: a missing one is an error;
 ``train`` reads only ``ensemble16_quality.json``, ``train_subensemble`` and
-``eval`` only ``bench_unet16_toy128.npz``, the other ``train_*`` paths and ``unet256``
-read none). Each training phase first runs its timed in-process part
-(kernel checks, the counted and timed steps), one after another with
-nothing else on the card; then the training paths' runs through their
-entry points start (``tools/train_recipe.py::Runs``, four at once), and
-each phase's untimed rest (its run's losses, its checkpoint served) waits
+``eval`` only ``bench_unet16_toy128.npz``, the other ``train_*`` paths, ``study``
+and ``unet256`` read none). Each training phase (and the study's) first runs
+its timed in-process part (kernel checks, the counted and timed steps), one
+after another with nothing else on the card; then the training paths' and
+the study's runs through their entry points start
+(``tools/train_recipe.py::Runs``, four at once), and each phase's untimed
+rest (its run's losses, its checkpoint served, the study's report) waits
 for its own run.
 The kernel build, the kernels' checks at the softmax path's shapes and at
 every other head width, and the checks at every shape of the chosen paths
@@ -124,6 +125,21 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    band, every AUROC, detection rate and calibration error finite in
    [0, 1], every NCC in [-1, 1], the Platt parameters finite; the walls of
    the job and of the evaluation;
+11b. the ValUES study (the ``study`` path, ``python -m
+   diffuncertainty_tpu_torch.tools.values_study WORKDIR --quick``, the JAX
+   study's quick matrix on the card): first one study net of every AU type
+   of the full study (softmax, ssn, diffusion, prob_unet; unet4 cut by the
+   study's SMALL_NET, fp32) for each EU method of the quick matrix, built
+   by the port's trainer from the study's config, every GroupNorm shape of
+   its training forward and of one inference batch of the cell's job (8,
+   16, 24 and 32 channels at 32x32 and 16x16, the attention block's norm at
+   256 tokens; train and inference rows) checked
+   against the twin, and that batch counted (GroupNorm launched once per
+   site, no GroupNorm twin; attention at head width 4 on its fp32 twin by
+   the gate); then the study as a subprocess beside the training runs: the
+   report's artifacts and figures, a finite softmax-entropy baseline on
+   ``ood_noise``, both AL directions computed, every version non-missing,
+   the study's wall and each cell's train, infer and evaluate walls;
 12. the trainer (``python -m diffuncertainty_tpu_torch.train``, the user's
    entry point): each kernel's backward (its autograd Function: the kernel
    forward, the twin's VJP) against fp32 autograd of the twin on the same
@@ -134,7 +150,8 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    counted (11 and 56 of each, no forward twin), every leaf's gradient
    finite, nonzero and against the same step with both twins forced, and the
    step's split (forward, backward with the twin VJPs apart, optimizer and
-   EMA), busy share and peak memory; then the first member of the JAX
+   EMA), busy share and peak memory (torch.profiler over PROFILED_STEPS
+   steps); then the first member of the JAX
    16-member recipe (seed 2024, eu none, 150 epochs, bf16, batch 16 on the
    toy-128 train split) trained from scratch as a subprocess, its loss
    falling, the EMA weights of its ``last`` checkpoint scored (one member,
@@ -232,6 +249,8 @@ PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
                "multiclass": ASSET_MULTICLASS, "infer": ASSET,
                # evaluates the job's tree of the softmax asset
                "eval": ASSET,
+               # the ValUES study trains its own nets on generated toy data
+               "study": None,
                # trains from scratch on the generated toy-128 data: reads only
                # the JAX members' quality record its bands come from
                "train": ENSEMBLE16_QUALITY,
@@ -413,6 +432,22 @@ TWIN_CALL_TOL = (TOL["bfloat16"][0], 0.99)
 # the multiclass path (bench.py:698-701): frames, frame size, window, stride,
 # members, switched references per frame, seed
 MC_FRAMES, MC_SIZE, MC_WINDOW, MC_STRIDE, MC_MEMBERS, MC_SEED = 8, (256, 512), 128, 64, 8, 1234
+# The study path: the port's ValUES study (tools/values_study.py) at the JAX
+# study's --quick matrix (softmax and ssn x none and dropout x seeds 0 and 1,
+# 3 epochs, 16 train / 8 test images at 32 px, ood_noise, the AL arm), run
+# through its command line on the card; before it, one study net of every AU
+# type of the full study (unet4 cut by SMALL_NET, fp32: GroupNorm at 8, 16,
+# 24 and 32 channels, the decoder's at the skip-concatenated widths;
+# attention at 16x16 with 16 channels, head width 4)
+STUDY_ARGV = ["--quick"]
+STUDY_AU_TYPES = ("softmax", "ssn", "diffusion", "prob_unet")
+STUDY_ARTIFACTS = {"REPORT.md", "summary.json", "ds_task_table.csv", "ds_task_table.tex",
+                   "ds_task_ranks.csv", "au_eu_scatter.json"}
+STUDY_FIGURES = {"risk_coverage", "reliability", "ood_auroc_ood_noise", "al_improvement",
+                 "triptych", "task_overview"}
+# the busy share and peak memory of a training step: torch.profiler over this
+# many steps (its trace of every op costs seconds a step to take and read)
+PROFILED_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -1913,8 +1948,8 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
     GroupNorm) and VJPs (``want_vjp``, the launches by default) counted,
     every leaf's gradient against the twins-forced step (unless
     ``compare_twins`` is off: a network without the kernels), and the step's
-    split (median of ``runs`` steps after 2) and busy share (over ``runs``
-    steps)."""
+    split (median of ``runs`` steps after 2) and busy share (over
+    ``PROFILED_STEPS`` steps)."""
     import torch
 
     from diffuncertainty_tpu_torch.models.unet import AttentionBlock, GroupNorm32
@@ -2031,19 +2066,19 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
         for (mod, name, _), fn in zip(saved, originals):
             setattr(mod, name, fn)
     split = {k: statistics.median(v) for k, v in split.items()}
-    # device busy share and peak memory over 10 plain steps
+    # device busy share and peak memory over PROFILED_STEPS plain steps
     torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     gen = torch.Generator("cuda").manual_seed(1)
     with torch.profiler.profile(activities=acts) as prof:
         start.record()
-        for i in range(runs):
+        for i in range(PROFILED_STEPS):
             state, _ = trainer.train_step(state, batches[i % 2], gen)
         end.record()
         torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / runs
-    dev = device_ms(prof, runs)
+    wall = start.elapsed_time(end) / PROFILED_STEPS
+    dev = device_ms(prof, PROFILED_STEPS)
     busy = dev["busy"]
     split.update(step_wall_ms=wall, device_ms=busy, device_sum_ms=dev["sum"],
                  busy_share=busy / wall if busy > 0 else None,
@@ -2052,7 +2087,7 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
         f"{split['forward']:.2f} ms, backward {split['backward']:.2f} ms (of which the "
         f"attention twin VJPs {split['attention_vjp']:.2f} ms and the GroupNorm twin VJPs "
         f"{split['group_norm_vjp']:.2f} ms), optimizer + EMA {split['optimizer_ema']:.2f} ms; "
-        f"{runs} steps: {wall:.2f} ms a step, device {busy:.2f} ms (kernel times summed "
+        f"{PROFILED_STEPS} steps: {wall:.2f} ms a step, device {busy:.2f} ms (kernel times summed "
         f"{dev['sum']:.2f} ms, {dev['streams']} streams), busy share "
         + ("not measured" if split["busy_share"] is None else f"{split['busy_share']:.3f}")
         + f", peak memory {split['peak_memory_gib']:.2f} GiB")
@@ -2335,14 +2370,14 @@ def run_records(workdir: Path) -> list[dict]:
 
 
 def register_entry_runs(runs, paths) -> None:
-    """The chosen training paths' entry-point runs (``TRAIN_FAMILIES``,
-    ``NEW_TRAIN_RUNS`` and the train path's recipe)."""
+    """The chosen paths' entry-point runs (``TRAIN_FAMILIES``,
+    ``NEW_TRAIN_RUNS``, the train path's recipe and the study)."""
     from diffuncertainty_tpu_torch.tools.multiclass_quality import (default_data_dir,
                                                                     gta_toy_frames)
     from diffuncertainty_tpu_torch.tools.quality import toy128_dataset
     from diffuncertainty_tpu_torch.tools.train_recipe import multiclass_tokens, recipe_tokens
 
-    data_dir = toy128_dataset(HW).base_dir
+    data_dir = toy128_dataset(HW).base_dir if any(p.startswith("train") for p in paths) else None
     train = [sys.executable, "-m", "diffuncertainty_tpu_torch.train"]
     if "train" in paths:
         runs.add("train", train + train_tokens(data_dir, runs.dir("train")), 900)
@@ -2366,6 +2401,9 @@ def register_entry_runs(runs, paths) -> None:
             tokens = recipe_tokens(data_dir, runs.dir(f"train_{model}"), model=model,
                                    epochs=fam["epochs"]) + fam["extra"]
             runs.add(f"train_{model}", train + tokens, 600)
+    if "study" in paths:
+        runs.add("study", [sys.executable, "-m", "diffuncertainty_tpu_torch.tools.values_study",
+                           str(runs.dir("study") / "work"), *STUDY_ARGV], 600)
 
 
 def trained_run(runs, name: str, epochs: int) -> tuple[Path, dict]:
@@ -3000,6 +3038,143 @@ def phase_quality(paths):
     return results
 
 
+def study_job_sites(job, images) -> tuple[list, list]:
+    """Every attention input shape and GroupNorm site (shape, dtype, act,
+    members) of one inference batch of a study job (uncounted)."""
+    import torch
+
+    with recording_sites(job.sampler) as (attn_seen, norm_seen):
+        job._sample_stack(images, torch.Generator("cuda").manual_seed(98))
+        torch.cuda.synchronize()
+    return list(attn_seen), list(norm_seen)
+
+
+def phase_study(smi: str, runs) -> Generator[None, None, dict]:
+    """The study path. Timed part: one study net per AU type of the full
+    study, each EU method of the quick matrix (a trainer on the study's own
+    config and toy data, its flax init saved as the cell's checkpoint); the
+    GroupNorm sites of one training forward (the study's batch, fp32) and of
+    one inference batch of the cell's job, each new one checked against the
+    twin; then every job's batch counted: GroupNorm launched once per site
+    and its twin never, every attention call on the fp32 twin (the gate) and
+    the attention kernel never. Then the quick study's run through its
+    command line (queued with the training runs): every artifact and figure
+    written, a finite softmax-entropy baseline, both AL directions computed,
+    every version preflighted as not missing; its wall and each cell's
+    train, infer and evaluate walls."""
+    import tempfile
+
+    import torch
+
+    from diffuncertainty_tpu_torch.data.dataset import MultiRaterDataset
+    from diffuncertainty_tpu_torch.data.loader import BatchLoader
+    from diffuncertainty_tpu_torch.data.toy import generate_toy_dataset
+    from diffuncertainty_tpu_torch.infer.runner import UncertaintyInference
+    from diffuncertainty_tpu_torch.models.unet import GroupNorm32
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+    from diffuncertainty_tpu_torch.tools import values_study as vs
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    base = Path(tempfile.mkdtemp(prefix="chip_smoke_study_nets_"))
+    checked, norm_cases, counted = set(), [], {}
+    try:
+        scfg = vs.study_config([str(base), *STUDY_ARGV])
+        toy = generate_toy_dataset(
+            base / "toy", num_train=scfg.num_train, num_val=scfg.num_val,
+            num_test=scfg.num_test, num_ood=scfg.num_ood, size=scfg.image_size,
+            ambiguity=scfg.ambiguity, seed=0, ood_shifts=scfg.ood_shifts,
+            num_unlabeled=scfg.num_unlabeled)
+        splits = toy / "splits" / "default" / "firstCycle" / "splits.pkl"
+        train_batch = next(iter(BatchLoader(
+            MultiRaterDataset(splits, toy, split="train", return_all_raters=False),
+            scfg.batch_size, shuffle=True, seed=0)))
+        test_images = next(iter(BatchLoader(MultiRaterDataset(splits, toy, split="id"),
+                                            scfg.batch_size)))["image"]
+        for au in STUDY_AU_TYPES:
+            for eu in scfg.eu_methods:
+                label = f"study {au}_{eu}"
+                trainer = Trainer(vs._load_run_config(scfg, toy, au, eu, 0), device="cuda")
+                state = trainer.init_state()
+                train_seen = []
+                hooks = [m.register_forward_pre_hook(lambda mod, args: train_seen.append(
+                    (tuple(args[0].shape), str(args[0].dtype).split(".")[-1],
+                     "none" if mod.act == "gelu" else mod.act, mod.members)))
+                    for m in trainer.built.module.modules() if isinstance(m, GroupNorm32)]
+                with torch.no_grad():
+                    trainer.forward_loss(train_batch, torch.Generator("cuda").manual_seed(3))
+                for h in hooks:
+                    h.remove()
+                trainer._save_last(state, 0)
+                job = UncertaintyInference([trainer.workdir / "checkpoints" / "last"],
+                                           vs.cell_inference_config(scfg, au, eu, 0))
+                images = job.normalize(test_images)
+                attn_seen, norm_seen = study_job_sites(job, images)
+                for key in sorted(set(train_seen) | set(norm_seen)):
+                    if key not in checked:
+                        shape, dt, act, members = key
+                        norm_cases.append(group_norm_case(
+                            shape, dt, act, seed=800 + len(norm_cases), timed=False,
+                            members=members))
+                        checked.add(key)
+                torch.cuda.synchronize()
+                with counting_twins() as twins:
+                    ca.reset_launch_count()
+                    gn.reset_launch_count()
+                    job._sample_stack(images, torch.Generator("cuda").manual_seed(5))
+                    torch.cuda.synchronize()
+                    launches = {"qkv_attention": ca.launch_count(),
+                                "group_norm_act": gn.launch_count()}
+                want = {"qkv_attention": 0, "group_norm_act": len(norm_seen)}
+                want_twins = {"qkv_attention": len(attn_seen), "group_norm_act": 0}
+                log(f"{label}: GroupNorm sites {sorted(set(norm_seen))} (training forward "
+                    f"{sorted(set(train_seen))}); attention inputs {sorted(set(attn_seen))}; "
+                    f"one inference batch: launches {launches} (expected {want}), twins "
+                    f"{dict(twins)} (expected {want_twins}: fp32 attention takes its twin)")
+                if launches != want or dict(twins) != want_twins:
+                    raise AssertionError(f"{label}: launches {launches} != {want} or twins "
+                                         f"{dict(twins)} != {want_twins}")
+                counted[f"{au}_{eu}"] = launches
+                del job, trainer, state
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    yield
+
+    wall, text = run_output(runs, "study")
+    report = runs.dir("study") / "work" / "report"
+    summary = json.loads((report / "summary.json").read_text())
+    figures = summary["artifacts"]["figures"]
+    names = {p.name for p in report.iterdir()}
+    missing = sorted(STUDY_ARTIFACTS - names) + sorted(
+        f for f in STUDY_FIGURES if f not in figures or not Path(figures[f]).is_file())
+    checks = summary["checks"]
+    shift = checks["ood_auroc"]["per_shift"]["ood_noise"]
+    al = checks.get("al_improvement", {})
+    walls = summary["walls"]
+    log(f"study run: exit 0 in {wall:.1f}s (process included, {BESIDE}); the study's own wall "
+        f"{summary['wall_seconds']}s on {summary['environment']['device_name']} "
+        f"({smi}); artifacts {sorted(names)}")
+    for cell, w in walls["cells"].items():
+        log(f"study cell {cell}: train {w['train_s']:.2f}s, infer {w['infer_s']:.2f}s, "
+            f"evaluate {w['evaluate_s']:.2f}s")
+    log(f"study AL arm {walls['al_s']:.2f}s, report {walls['report_s']:.2f}s; ood_noise "
+        f"baseline {shift['softmax_entropy_baseline']}, EU {shift['eu_methods']}; AU NCC "
+        f"{checks['ambiguity_ncc']['mean_au_ncc_by_au_type']}; AL {al}")
+    if missing or summary["matrix"]["versions"] != 8:
+        raise AssertionError(f"study: missing artifacts {missing} or "
+                             f"{summary['matrix']['versions']} versions, not 8")
+    if not (math.isfinite(shift["softmax_entropy_baseline"]) and al.get(
+            "computed_both_directions")):
+        raise AssertionError(f"study: baseline {shift['softmax_entropy_baseline']} not finite "
+                             f"or the AL arm's directions not both computed: {al}")
+    unfinished = [v for v, st in summary["preflight"].items() if st["missing"]]
+    if unfinished:
+        raise AssertionError(f"study: versions missing after the run: {unfinished}")
+    return {"launches": counted["softmax_dropout"], "launches_by_cell": counted,
+            "norm_cases": norm_cases, "run_wall_s": wall,
+            "study_wall_s": summary["wall_seconds"], "walls": walls}
+
+
 def training_phases(smi, paths, runs, norm_site_list, launches_by_path, seen_attn, seen_norm,
                     attn_checked168, norm_checked168):
     """The chosen training paths. Each phase is a generator: its timed part
@@ -3019,7 +3194,8 @@ def training_phases(smi, paths, runs, norm_site_list, launches_by_path, seen_att
                                                        seen_norm),
         **{f"train_{model}": functools.partial(phase_train_family, smi, model, runs)
            for model in TRAIN_FAMILIES},
-        "train": lambda: phase_train(smi, norm_site_list, runs)}
+        "train": lambda: phase_train(smi, norm_site_list, runs),
+        "study": lambda: phase_study(smi, runs)}
     started = {}
     for path, phase in phases.items():
         if path in paths:
@@ -3049,7 +3225,7 @@ def training_phases(smi, paths, runs, norm_site_list, launches_by_path, seen_att
         launches_by_path[path] = step_launches(counts)
         served = st.get("serve", {})
         new_attn += served.get("attn_cases", [])
-        new_norm += served.get("norm_cases", [])
+        new_norm += served.get("norm_cases", []) + st.get("norm_cases", [])
     for model, st in family_stats.items():
         launches_by_path[f"train_{model}"] = step_launches(st["step"]["launches"])
     train_stats = stats.get("train")
@@ -3182,7 +3358,7 @@ def main(argv=None) -> int:
     if "eval" in paths:
         launches_by_path["eval"], eval_stats = phase_eval(smi, attn_checked, norm_checked)
     runs = None
-    if any(p.startswith("train") for p in paths):
+    if any(p.startswith("train") or p == "study" for p in paths):
         import tempfile
 
         from diffuncertainty_tpu_torch.tools.train_recipe import Runs

@@ -5,7 +5,8 @@ The JAX package writes its masks and heatmaps with PIL
 itself:
 
 - 8-bit grayscale (``L``) and palette (``P``, with a ``PLTE`` chunk) PNGs,
-  deflated by ``zlib`` at level 1, each row unfiltered;
+  deflated by ``zlib`` at level 1, each row unfiltered (and 8-bit ``RGB``
+  ones, the report's image panels, which the port writes and does not read);
 - float32 TIFFs: little-endian, uncompressed, one strip, ``SampleFormat`` 3
   (IEEE float), as PIL's mode ``F`` writes them.
 
@@ -25,7 +26,7 @@ from pathlib import Path
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_GRAY, _PALETTE = 0, 3  # PNG colour types
+_GRAY, _RGB, _PALETTE = 0, 2, 3  # PNG colour types
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -35,16 +36,21 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def write_png(path: str | Path, image: np.ndarray, palette: list[int] | None = None, *,
               mode: str = "L") -> None:
-    """Write a (H, W) uint8 ``image`` as an ``L`` or ``P`` PNG. ``palette``
-    (``P`` only): flat [r, g, b, ...] entries; a grayscale ramp if None."""
+    """Write a (H, W) uint8 ``image`` as an ``L`` or ``P`` PNG, or a (H, W,
+    3) one as an ``RGB`` PNG. ``palette`` (``P`` only): flat [r, g, b, ...]
+    entries; a grayscale ramp if None."""
     image = np.asarray(image)
-    if image.ndim != 2 or image.dtype != np.uint8:
-        raise ValueError(f"write_png takes a (H, W) uint8 array, got {image.dtype} "
-                         f"{image.shape}")
-    if mode not in ("L", "P"):
-        raise ValueError(f"mode must be L or P, got {mode!r}")
-    h, w = image.shape
-    colour = _GRAY if mode == "L" else _PALETTE
+    if mode not in ("L", "P", "RGB"):
+        raise ValueError(f"mode must be L, P or RGB, got {mode!r}")
+    ndim = 3 if mode == "RGB" else 2
+    if (image.ndim != ndim or image.dtype != np.uint8
+            or (mode == "RGB" and image.shape[-1] != 3)):
+        raise ValueError(f"write_png in mode {mode} takes a "
+                         f"{'(H, W, 3)' if mode == 'RGB' else '(H, W)'} uint8 array, got "
+                         f"{image.dtype} {image.shape}")
+    h, w = image.shape[:2]
+    colour = {"L": _GRAY, "P": _PALETTE, "RGB": _RGB}[mode]
+    image = image.reshape(h, -1)
     chunks = [_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))]
     if mode == "P":
         entries = (np.repeat(np.arange(256, dtype=np.uint8), 3) if palette is None

@@ -156,8 +156,9 @@ def test_quality_eval_matches_jax_with_a_deterministic_sampler():
 
 
 def test_port_imports_without_jax_yaml_or_the_jax_package():
-    """Every module of the port, ``chip_smoke``, the job's, the trainer's and
-    the evaluation matrix's ``--help`` with JAX, optax, flax, YAML,
+    """Every module of the port, ``chip_smoke``, the job's, the trainer's,
+    the evaluation matrix's, the study's and the report's ``--help`` with
+    JAX, optax, flax, YAML,
     tensorboardX, PIL, orbax, tensorstore, scikit-learn, pandas, matplotlib
     and the JAX package blocked."""
     code = (
@@ -174,7 +175,8 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "print(len(mods))\n"
-        "for entry in ('infer', 'train', 'evaln.experiments'):\n"
+        "for entry in ('infer', 'train', 'evaln.experiments', 'tools.values_study',\n"
+        "              'tools.report'):\n"
         "    sys.argv = [entry, '--help']\n"
         "    try:\n"
         "        runpy.run_module('diffuncertainty_tpu_torch.' + entry, run_name='__main__')\n"
@@ -190,6 +192,7 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
     assert "--checkpoint_paths" in usage and "--device" in usage
     assert "python -m diffuncertainty_tpu_torch.train" in usage and "device=cpu" in usage
     assert "--preflight-only" in usage and "--report" in usage
+    assert "--quick" in usage and "--no-seed-grouping" in usage
 
 
 def test_no_forbidden_imports_or_library_kernels_in_the_port():
@@ -202,7 +205,9 @@ def test_no_forbidden_imports_or_library_kernels_in_the_port():
             port / "models" / "diffusion.py", port / "models" / "prob_unet.py",
             port / "core" / "specs.py", port / "tools" / "train_recipe.py",
             port / "ops" / "member_fold.py", port / "evaln" / "experiments.py",
-            port / "evaln" / "tasks.py", port / "evaln" / "dataloader.py"} <= set(files)
+            port / "evaln" / "tasks.py", port / "evaln" / "dataloader.py",
+            port / "evaln" / "visualization.py", port / "tools" / "values_study.py",
+            port / "tools" / "report.py", port / "tools" / "checks.py"} <= set(files)
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             assert not bad_import.match(line), f"{path}:{n}: {line}"
@@ -217,7 +222,7 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
 
     assert chip_smoke.parse_paths([]) == chip_smoke.PATHS == (
         "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "ensemble_folded", "unet256",
-        "hrnet", "multiclass", "infer", "eval", "train", "train_diffusion", "train_ssn",
+        "hrnet", "multiclass", "infer", "eval", "study", "train", "train_diffusion", "train_ssn",
         "train_prob_unet", "train_hrnet", "train_subensemble", "train_multiclass", "train_swag",
         "train_ensemble")
     assert chip_smoke.parse_paths(["--paths", "multiclass,hrnet"]) == ("hrnet", "multiclass")
@@ -227,6 +232,9 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
     # the evaluation runs on the job's tree of the softmax asset: it rides with infer
     assert chip_smoke.PATH_ASSETS["eval"] == chip_smoke.PATH_ASSETS["softmax"]
     assert chip_smoke.parse_paths(["--paths", "eval,infer"]) == ("infer", "eval")
+    # the study trains its own nets on generated data: it rides either group
+    assert chip_smoke.PATH_ASSETS["study"] is None
+    assert chip_smoke.parse_paths(["--paths", "train,study,hrnet"]) == ("hrnet", "study", "train")
     # the train path trains from scratch: its one file is the JAX members' quality record
     assert chip_smoke.PATH_ASSETS["train"].name == "ensemble16_quality.json"
     # the families' training paths read no file: they ride either group
