@@ -1,11 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,eval,study,train,train_diffusion,train_ssn,train_prob_unet,train_hrnet,train_subensemble,train_multiclass,train_swag,train_ensemble]
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,eval,lidc_import,study,train,train_diffusion,train_ssn,train_prob_unet,train_hrnet,train_subensemble,train_multiclass,train_swag,train_ensemble]
 
 With no argument every path runs; ``--paths`` picks a comma-separated group
 of them (each needs its file under ``assets/``: a missing one is an error;
-``train`` reads only ``ensemble16_quality.json``, ``train_subensemble`` and
-``eval`` only ``bench_unet16_toy128.npz``, the other ``train_*`` paths, ``study``
+``train`` reads only ``ensemble16_quality.json``, ``train_subensemble``,
+``eval`` and ``lidc_import`` only ``bench_unet16_toy128.npz``, the other ``train_*`` paths, ``study``
 and ``unet256`` read none). Each training phase (and the study's) first runs
 its timed in-process part (kernel checks, the counted and timed steps), one
 after another with nothing else on the card; then the training paths' and
@@ -140,6 +140,40 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    report's artifacts and figures, a finite softmax-entropy baseline on
    ``ood_noise``, both AL directions computed, every version non-missing,
    the study's wall and each cell's train, infer and evaluate walls;
+11c. the LIDC import (the ``lidc_import`` path), from synthetic CT scans to
+   the evaluated job through the user's entry points: 16 seeded scans (one
+   patient each, 96x96x48 voxels at 0.7x0.7x2.5 mm, intensities windowed to
+   [0, 1], 1-2 nodules of 1-4 rater balls of 3-8 mm) through
+   ``data/lidc_raw.py`` to the 128-px crops (63/127 mm voxels), their
+   ``metadata.csv`` and the aggregated pickle; ``python -m
+   diffuncertainty_tpu_torch.data.lidc_import`` as a subprocess (128 px, 4
+   folds, test ratio 0.2, the OOD copies ``ood_noise``, ``ood_blur``,
+   ``ood_contrast`` and ``ood_jpeg``; each shift's copies made again in
+   process, timed and byte-equal); a reference-format Lightning ``.ckpt`` of
+   the softmax asset (reference names under ``model.`` and
+   ``ema_model.module.``, the port's mapping inverted; unet16 and lidc128
+   ``hyper_parameters`` in the reference's layout, pickled as omegaconf
+   containers) converted by ``python -m
+   diffuncertainty_tpu_torch.tools.import_reference_checkpoint``, its raw
+   and EMA weights equal to the asset bit for bit (a round trip through the
+   port's own mapping: the reference names are held to the JAX package's in
+   ``tests/test_torch_port_reference_import.py``); the job (``python -m
+   diffuncertainty_tpu_torch.infer ... --include_eval``, bf16, 16 members x
+   TTA, batch 16) over the id split and the four shifts: images per split as
+   the splits say, TU = AU + EU to 1e-5 in every TIFF, each shift's
+   image-level AUROC of TU and EU finite in [0, 1] (no quality band: the
+   scans are synthetic); in process, the job's loader on the native reader
+   (two reads a batch), one batch's kernel sites checked and its launches
+   counted (11 / 56, no twin), and its heatmaps equal, bit for bit, to those
+   of a sampler built from the asset with the same draws; every split's
+   batch loading through the native reader and through the python path,
+   alternated over three rounds (equal batches, ms a batch beside the
+   sampler call's); the walls of each step. The raw readers need h5py (NPC) and pylidc with the LIDC-IDRI
+   archive (LIDC), which this host lacks: the path starts from synthetic
+   scans, and ``tests/test_torch_port_datasets.py``,
+   ``test_torch_port_codecs.py``, ``test_torch_port_native_loader.py`` and
+   ``test_torch_port_reference_import.py`` hold these modules to the JAX
+   package's on the CPU;
 12. the trainer (``python -m diffuncertainty_tpu_torch.train``, the user's
    entry point): each kernel's backward (its autograd Function: the kernel
    forward, the twin's VJP) against fp32 autograd of the twin on the same
@@ -249,6 +283,8 @@ PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
                "multiclass": ASSET_MULTICLASS, "infer": ASSET,
                # evaluates the job's tree of the softmax asset
                "eval": ASSET,
+               # the softmax asset as a reference checkpoint, served on LIDC crops
+               "lidc_import": ASSET,
                # the ValUES study trains its own nets on generated toy data
                "study": None,
                # trains from scratch on the generated toy-128 data: reads only
@@ -1769,6 +1805,352 @@ def phase_eval(smi: str, attn_checked: set, norm_checked: set):
         f"command line {eval_wall:.1f}s (host)")
     return launches, {"job_wall_s": job_wall, "job_inference_s": infer_s,
                       "eval_wall_s": eval_wall, **numbers}
+
+
+# The lidc_import path: 16 seeded synthetic CT scans (one patient each,
+# 96x96x48 voxels at 0.7x0.7x2.5 mm, intensities windowed to [0, 1]) with
+# 1-2 nodules of 1-4 rater balls (3-8 mm) each, cut to the 128-px crops;
+# the LIDC importer with its four OOD copies; the job over the id split and
+# the shifts on a reference-format checkpoint of the softmax asset
+LIDC_PATIENTS, LIDC_SEED = 16, 1818
+LIDC_SHAPE, LIDC_SPACING = (96, 96, 48), (0.7, 0.7, 2.5)
+LIDC_SHIFTS = ("ood_noise", "ood_blur", "ood_contrast", "ood_jpeg")
+# the reference's MODEL.DROPOUT for unet16 + MC-dropout (eu_method/dropout.yaml's rate)
+LIDC_DROPOUT = 0.2
+
+
+def synthetic_ct_scans(n: int, seed: int) -> list:
+    """``n`` scans of ``LIDC_SHAPE`` voxels: parenchyma 0.15 with smoothed
+    noise, each nodule a soft ball of +0.55, and each rater's annotation a
+    ball around it (centre jittered in-plane, radius x0.8-1.25), stored
+    sparse at an offset as pylidc's masks are. Centres sit within 0.2 of a
+    slice so that every rater's ball holds a voxel; nodules of one scan are
+    more than 25 mm apart, so each clusters alone."""
+    import numpy as np
+    from scipy import ndimage
+
+    from diffuncertainty_tpu_torch.data.lidc_raw import RaterAnnotation, ScanRecord
+
+    rng = np.random.default_rng(seed)
+    spacing = np.asarray(LIDC_SPACING)
+    grid = np.meshgrid(*[np.arange(s) * sp for s, sp in zip(LIDC_SHAPE, spacing)],
+                       indexing="ij")  # voxel centres in mm
+
+    def dist(center_mm):
+        return np.sqrt(sum((g - c) ** 2 for g, c in zip(grid, center_mm)))
+
+    scans = []
+    for p in range(n):
+        vol = 0.15 + 0.1 * ndimage.gaussian_filter(rng.standard_normal(LIDC_SHAPE), 1.0)
+        anns, centers = [], []
+        for _ in range(int(rng.integers(1, 3))):
+            while True:
+                c = np.array([rng.uniform(20, 76), rng.uniform(20, 76),
+                              rng.integers(12, 37) + rng.uniform(-0.2, 0.2)]) * spacing
+                if all(np.linalg.norm(c - o) > 25.0 for o in centers):
+                    break
+            centers.append(c)
+            radius = rng.uniform(1.5, 4.0)
+            vol += 0.55 * np.clip(radius + 0.5 - dist(c), 0.0, 1.0)
+            for _ in range(int(rng.integers(1, 5))):
+                mask = dist(c + np.r_[rng.normal(0, 0.35, 2), 0.0]) <= radius * rng.uniform(
+                    0.8, 1.25)
+                idx = np.argwhere(mask)
+                lo, hi = idx.min(axis=0), idx.max(axis=0) + 1
+                anns.append(RaterAnnotation(
+                    mask=mask[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]],
+                    offset=tuple(int(v) for v in lo),
+                    features={"subtlety": int(rng.integers(1, 6)),
+                              "malignancy": int(rng.integers(1, 6))}))
+        scans.append(ScanRecord(scan_id=p + 1, patient_id=f"LIDC-IDRI-{p + 1:04d}",
+                                volume=np.clip(vol, 0.0, 1.0).astype(np.float32),
+                                spacing=LIDC_SPACING, annotations=anns,
+                                series_uid=f"1.3.6.1.4.1.14519.5.2.1.{seed}.{p + 1}"))
+    return scans
+
+
+def lidc_asset_config(data_dir=""):
+    """The config the softmax asset serves with (unet16, MC-dropout, bf16)."""
+    from diffuncertainty_tpu_torch.core.config import load_config
+
+    return load_config(data="lidc128", network="unet16", model="softmax", eu_method="dropout",
+                       precision="bf16", overrides={"data": {"data_input_dir": str(data_dir)}})
+
+
+def lidc_reference_checkpoint(path: Path, data_dir: Path) -> Path:
+    """A reference-format Lightning ``.ckpt`` of the softmax asset: the state
+    dict in the reference's names (the port's mapping inverted) under
+    ``model.`` and ``ema_model.module.``, and ``hyper_parameters`` for unet16
+    and lidc128 in the reference's hydra layout, pickled as omegaconf
+    containers (stand-in classes of omegaconf's names; no omegaconf here)."""
+    import types
+
+    import torch
+
+    from diffuncertainty_tpu_torch.core.params import flax_to_torch, load_params_npz
+    from diffuncertainty_tpu_torch.core.torch_import import build_mapping
+    from diffuncertainty_tpu_torch.models.factory import build_model
+
+    built = build_model(lidc_asset_config(data_dir), device="cpu")
+    port = flax_to_torch(load_params_npz(ASSET))
+    ref = {}
+    for ref_key, port_key, transform in build_mapping(built.module).entries:
+        if port_key in port:
+            w = port[port_key]
+            ref[ref_key] = w[..., None] if transform.__name__ == "_conv1d" else w
+    if len(ref) != len(port):
+        raise AssertionError(f"the mapping covers {len(ref)} of the asset's {len(port)} leaves")
+    net = lidc_asset_config().network
+    omegaconf = types.ModuleType("omegaconf")
+    omegaconf.DictConfig = type("DictConfig", (dict,), {"__module__": "omegaconf"})
+    omegaconf.ListConfig = type("ListConfig", (list,), {"__module__": "omegaconf"})
+    d, lst = omegaconf.DictConfig, omegaconf.ListConfig
+    model = d({"IN_CHANNELS": net.in_channels, "OUT_CHANNELS": net.out_channels,
+               "MODEL_CHANNELS": net.model_channels,
+               "NUM_RES_BLOCKS": lst(net.num_res_blocks),
+               "NUM_MIDDLE_RES_BLOCKS": net.num_middle_res_blocks,
+               "CHANNEL_MULT": lst(net.channel_mult),
+               "ATTENTION_RESOLUTIONS": lst(net.attention_resolutions),
+               "NUM_HEADS": net.num_heads, "DROPOUT": LIDC_DROPOUT})
+    aug = d({"rotation_limit": 22.5, "scale_limit": lst([-0.2, 0.2]), "height": HW, "width": HW,
+             "mean": lst([0.485, 0.456, 0.406]), "std": lst([0.229, 0.224, 0.225]),
+             "augment_mult": 0.0, "TRAIN": lst([d({"HorizontalFlip": d({"p": 0.5})}),
+                                                 d({"Rotate": d({"limit": 22.5})})])})
+    payload = {"state_dict": {**{f"model.{k}": v for k, v in ref.items()},
+                              **{f"ema_model.module.{k}": v for k, v in ref.items()}},
+               "epoch": 0, "hyper_parameters": d({
+                   "model": d({"cfg": d({"MODEL": model})}),
+                   "data": d({"name": "lidc128", "num_classes": 2, "ignore_index": -1,
+                              "data_input_dir": str(data_dir), "augmentations": aug})})}
+    sys.modules["omegaconf"] = omegaconf
+    try:
+        torch.save(payload, path)
+    finally:
+        del sys.modules["omegaconf"]
+    return path
+
+
+def run_module(label: str, module: str, argv: list[str], timeout: int = 600) -> tuple[str, float]:
+    """``python -m module argv`` as a subprocess that must exit 0: its
+    standard output and wall."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO, capture_output=True,
+                         text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"{label}: {module} exited {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout, wall
+
+
+def phase_lidc_import(smi: str, attn_checked: set, norm_checked: set):
+    """Synthetic CT scans to the evaluated job through the user's entry
+    points: the raw LIDC stage, ``python -m ...data.lidc_import`` with its
+    four OOD copies, a reference-format checkpoint converted by ``python -m
+    ...tools.import_reference_checkpoint`` (equal to the asset bit for bit),
+    then ``python -m ...infer --include_eval`` over the id split and the
+    shifts; in process, one counted batch (11 / 56), that batch's heatmaps
+    against a sampler built from the asset, the job's loader on the native
+    reader, and each shift's image-level AUROC of TU and EU."""
+    import csv
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffuncertainty_tpu_torch.core.checkpoint import load_checkpoint
+    from diffuncertainty_tpu_torch.core.params import flax_to_torch, load_into, load_params_npz
+    from diffuncertainty_tpu_torch.data import lidc_raw, native_loader
+    from diffuncertainty_tpu_torch.data.lidc_import import generate_ood_test_files
+    from diffuncertainty_tpu_torch.data.loader import BatchLoader
+    from diffuncertainty_tpu_torch.evaln.dataloader import ResultsReader
+    from diffuncertainty_tpu_torch.evaln.tasks import ood_detection_paired
+    from diffuncertainty_tpu_torch.infer.image_io import read_tiff
+    from diffuncertainty_tpu_torch.infer.runner import InferenceConfig, UncertaintyInference
+    from diffuncertainty_tpu_torch.models.factory import build_model
+    from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
+    from diffuncertainty_tpu_torch.sampling.sampler import make_sampler
+
+    seed, walls = 777, {}
+    splits = ("id",) + LIDC_SHIFTS
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        scans = synthetic_ct_scans(LIDC_PATIENTS, LIDC_SEED)
+        walls["scans_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        crops = lidc_raw.save_crops(scans, tmp / "crops", lidc_raw.CropConfig.large())
+        n_crops = len(list((crops / "images").glob("*.npy")))
+        pkl = lidc_raw.crops_to_aggregated_pickle(
+            crops, tmp / "data_lidc.pickle", {f"{s.scan_id:04d}": s.series_uid for s in scans})
+        with open(tmp / "LIDC-IDRI_MetaData.csv", "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(["Subject ID", "Series ID"])
+            w.writerows((s.patient_id, s.series_uid) for s in scans)
+        walls["crops_s"] = time.perf_counter() - t0
+        with open(crops / "metadata.csv", newline="") as fh:
+            if len(list(csv.DictReader(fh))) != n_crops:
+                raise AssertionError("lidc_import: metadata.csv rows != crops")
+        log(f"lidc_import: {LIDC_PATIENTS} scans ({sum(len(s.annotations) for s in scans)} "
+            f"rater annotations) -> {n_crops} crops of 128x128 in {walls['crops_s']:.1f}s "
+            f"(scans made in {walls['scans_s']:.1f}s)")
+
+        _, walls["import_s"] = run_module(
+            "lidc_import", "diffuncertainty_tpu_torch.data.lidc_import",
+            ["--pickle-path", str(pkl), "--metadata-csv", str(tmp / "LIDC-IDRI_MetaData.csv"),
+             "--out-root", str(tmp / "data"), "--image-size", str(HW), "--num-splits", "4",
+             "--test-ratio", "0.2"])
+        data_dir = tmp / "data" / f"origlidc{HW}"
+        splits_path = data_dir / "splits" / "ood_aug" / "firstCycle" / "splits.pkl"
+        folds = pickle.loads(splits_path.read_bytes())
+        counts = {s: len(folds[0][s]) for s in splits}
+        if len(folds) != 4 or not all(counts.values()) or any(
+                len(list((data_dir / "preprocessed" / "augmented" / s / "images").glob("*.npy")))
+                != counts["id"] for s in LIDC_SHIFTS):
+            raise AssertionError(f"lidc_import: {len(folds)} folds, split sizes {counts}")
+        # each shift's copies again in process, timed: the same bytes
+        for shift in LIDC_SHIFTS:
+            files = sorted((data_dir / "preprocessed" / "augmented" / shift / "images").iterdir())
+            before = [f.read_bytes() for f in files]
+            t0 = time.perf_counter()
+            generate_ood_test_files(data_dir, folds[0]["id"], shifts=(shift,), overwrite=True)
+            walls[f"{shift}_s"] = time.perf_counter() - t0
+            if [f.read_bytes() for f in files] != before:
+                raise AssertionError(f"lidc_import: {shift}'s copies differ when made again")
+        log(f"lidc_import: the importer {walls['import_s']:.1f}s (process included), splits "
+            f"{ {k: len(v) for k, v in folds[0].items() if not k.startswith('_')} }; each "
+            f"shift's {counts['id']} copies " + ", ".join(
+                f"{s} {walls[f'{s}_s'] * 1e3:.1f} ms" for s in LIDC_SHIFTS))
+
+        # the reference checkpoint, through the reference importer
+        ref_ckpt = lidc_reference_checkpoint(tmp / "reference.ckpt", data_dir)
+        ckpt = tmp / "imported" / "v0" / "checkpoints" / "last"
+        _, walls["convert_s"] = run_module(
+            "convert", "diffuncertainty_tpu_torch.tools.import_reference_checkpoint",
+            ["--ckpt", str(ref_ckpt), "--out", str(ckpt)])
+        state, cfg, meta = load_checkpoint(ckpt)
+        want = flax_to_torch(load_params_npz(ASSET))
+        for key in ("params", "ema_params"):
+            got = flax_to_torch(state[key])
+            if got.keys() != want.keys() or not all(torch.equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"lidc_import: the imported {key} differ from the asset")
+        asset_cfg = lidc_asset_config(data_dir)
+        if (cfg.network.dropout, cfg.data.name, meta["kind"]) != (LIDC_DROPOUT, "lidc128",
+                                                                   "imported"):
+            raise AssertionError(f"lidc_import: the imported config {cfg.network} {cfg.data}")
+        # the reference's hyper_parameters carry no precision: serve in bf16
+        config_json = ckpt / "config.json"
+        config = json.loads(config_json.read_text())
+        config["trainer"]["precision"] = "bf16"
+        config_json.write_text(json.dumps(config, indent=2))
+        log(f"lidc_import: reference .ckpt ({ref_ckpt.stat().st_size} B) converted in "
+            f"{walls['convert_s']:.1f}s (process included); params and ema_params equal the "
+            f"asset's {len(want)} tensors bit for bit")
+
+        argv = ["--checkpoint_paths", str(ckpt), "--data_dir", str(data_dir), "--test_split",
+                *splits, "--n_pred", "1", "--n_models", str(MEMBERS), "--tta",
+                "--test_batch_size", str(BATCH), "--seed", str(seed), "--save_dir",
+                str(tmp / "results"), "--include_eval"]
+        summaries, walls["job_s"] = run_infer_job("lidc job", argv, timeout=900)
+        got_counts = {s["split"]: s["n_images"] for s in summaries}
+        if got_counts != counts:
+            raise AssertionError(f"lidc job: images per split {got_counts}, expected {counts}")
+        walls["job_inference_s"] = sum(s["seconds"] for s in summaries)
+        version_dir = Path(summaries[0]["out_dir"]).parent
+        decomp = 0.0
+        for s in summaries:
+            out_dir = Path(s["out_dir"])
+            for image_id in json.loads((out_dir / "metrics.json").read_text()):
+                tu, au, eu = (read_tiff(out_dir / k / f"{image_id}.tif")
+                              for k in ("TU", "AU", "EU"))
+                if tu.shape != (HW, HW) or not np.isfinite(tu).all():
+                    raise AssertionError(f"lidc job: TU of {image_id} is not a finite map")
+                decomp = max(decomp, float(np.abs(tu - au - eu).max()))
+        if decomp > 1e-5:
+            raise AssertionError(f"lidc job: max |TU - AU - EU| {decomp:.2e} > 1e-5")
+        t0 = time.perf_counter()
+        aurocs = {}
+        for shift in LIDC_SHIFTS:
+            res = ood_detection_paired(ResultsReader(version_dir / "id"),
+                                       ResultsReader(version_dir / shift),
+                                       version_dir / "ood_detection.json",
+                                       dataset_key=f"id&{shift}")[f"id&{shift}"]["mean"]
+            aurocs[shift] = {unc: res[unc]["image_level"]["metrics"]["auroc"]
+                             for unc in ("TU", "EU")}
+            for unc, value in aurocs[shift].items():
+                if not (math.isfinite(value) and 0.0 <= value <= 1.0):
+                    raise AssertionError(f"lidc job: {shift} {unc} AUROC {value}")
+        walls["ood_auroc_s"] = time.perf_counter() - t0
+        for shift, by_unc in aurocs.items():
+            log(f"lidc_import AUROC id vs {shift}, image level: TU {by_unc['TU']:.5f}, "
+                f"EU {by_unc['EU']:.5f}")
+
+        # in process: the job's loader on the native reader, one counted batch
+        job = UncertaintyInference([ckpt], InferenceConfig(
+            n_pred=1, n_models=MEMBERS, tta=True, batch_size=BATCH, seed=seed,
+            data_input_dir=str(data_dir), save_dir=str(tmp / "native"), save_outputs=False))
+        native_loader.reset_read_count()
+        job.run_split("ood_jpeg")
+        want_reads = 2 * -(-counts["ood_jpeg"] // BATCH)
+        if native_loader.read_count() != want_reads:
+            raise AssertionError(f"lidc job: {native_loader.read_count()} native reads, "
+                                 f"expected {want_reads} (2 a batch)")
+        loader = BatchLoader(job._dataset("id"), BATCH, drop_last=False)
+        images = job.normalize(next(iter(loader))["image"])
+        # the main path's shapes are checked; check_sites keys a norm site
+        # with its members (0: not folded)
+        new_attn, new_norm = check_sites(job.sampler, images, attn_checked,
+                                         {k + (0,) for k in norm_checked}, seed=900)
+        launches, _, images = counted_job_batch("lidc_import path", job, seed, attn_checked,
+                                                norm_checked)
+        # the job's batch loading, the native reader against the python path:
+        # every split's batches, alternated, three rounds, warm file cache
+        load_ms, first = {True: [], False: []}, {}
+        for _ in range(3):
+            for use_native in (True, False):
+                t0 = time.perf_counter()
+                batches = [b for s in splits for b in BatchLoader(
+                    job._dataset(s), BATCH, drop_last=False, use_native=use_native)]
+                load_ms[use_native].append((time.perf_counter() - t0) * 1e3 / len(batches))
+                first.setdefault(use_native, batches)
+        if not all(np.array_equal(a[k], b[k]) for a, b in zip(first[True], first[False])
+                   for k in ("image", "seg", "num_raters", "valid")):
+            raise AssertionError("lidc_import: the native reader's batches differ from the "
+                                 "python path's")
+        sampler_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            job._sample_stack(images, torch.Generator("cuda").manual_seed(seed))
+            torch.cuda.synchronize()
+            sampler_ms.append((time.perf_counter() - t0) * 1e3)
+        loading = {"native_ms": load_ms[True], "python_ms": load_ms[False],
+                   "sampler_ms": sampler_ms, "batches": len(first[True])}
+        log(f"lidc_import batch loading on {smi}, ms a batch over {loading['batches']} batches "
+            f"(warm file cache): native {', '.join(f'{v:.3f}' for v in load_ms[True])}; python "
+            f"{', '.join(f'{v:.3f}' for v in load_ms[False])}; the sampler call "
+            f"{', '.join(f'{v:.2f}' for v in sampler_ms)}; the batches equal")
+    # that batch through a sampler built from the asset, same spec and draws
+    asset_built = build_model(asset_cfg, device="cuda")
+    load_into(asset_built.module, ASSET)
+    asset_sampler = make_sampler(asset_built, job.spec)
+    maps = [uncertainty_heatmaps(stack.group_means.float(), sample_axis=0, class_axis=-1)
+            for stack in (job._sample_stack(images, torch.Generator("cuda").manual_seed(seed)),
+                          asset_sampler(images, torch.Generator("cuda").manual_seed(seed)))]
+    if not all(torch.equal(maps[0][k], maps[1][k]) for k in ("TU", "AU", "EU")):
+        raise AssertionError("lidc_import: the imported checkpoint's heatmaps differ from the "
+                             "asset-built sampler's")
+    img_s = sum(got_counts.values()) / walls["job_inference_s"]
+    log(f"lidc_import on {smi}: scans {walls['scans_s']:.1f}s, crops {walls['crops_s']:.1f}s, "
+        f"importer {walls['import_s']:.1f}s, conversion {walls['convert_s']:.1f}s, the job "
+        f"with --include_eval {walls['job_s']:.1f}s over {sum(got_counts.values())} images "
+        f"(inference {walls['job_inference_s']:.1f}s, {img_s:.2f} img/s with writes), OoD "
+        f"pairing {walls['ood_auroc_s']:.2f}s; max |TU-AU-EU| {decomp:.2e}; heatmaps equal "
+        f"the asset-built sampler's; native reads {want_reads}; new kernel shapes "
+        f"{len(new_attn)} / {len(new_norm)}")
+    return launches, {"walls": walls, "img_s": img_s, "images": got_counts, "crops": n_crops,
+                      "auroc": aurocs, "loading": loading}, (new_attn, new_norm)
 
 
 def train_tokens(data_dir, save_dir) -> list[str]:
@@ -3357,6 +3739,11 @@ def main(argv=None) -> int:
         launches_by_path["infer"], infer_stats = phase_infer(smi, attn_checked, norm_checked)
     if "eval" in paths:
         launches_by_path["eval"], eval_stats = phase_eval(smi, attn_checked, norm_checked)
+    if "lidc_import" in paths:
+        launches_by_path["lidc_import"], lidc_stats, lidc_cases = phase_lidc_import(
+            smi, attn_checked, norm_checked)
+        new_attn_cases += lidc_cases[0]
+        new_norm_cases += lidc_cases[1]
     runs = None
     if any(p.startswith("train") or p == "study" for p in paths):
         import tempfile
@@ -3526,6 +3913,8 @@ def main(argv=None) -> int:
         extra += f"; infer job {infer_stats}"
     if "eval" in paths:
         extra += "; eval " + json.dumps(eval_stats)
+    if "lidc_import" in paths:
+        extra += "; lidc_import " + json.dumps(lidc_stats)
     if "train" in paths:
         extra += (f"; train step {train_stats['step']['split']}, remat {train_stats['remat']}, "
                   f"recipe {train_stats['recipe']}, trained quality on 32 images "

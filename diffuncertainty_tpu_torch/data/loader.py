@@ -1,12 +1,22 @@
-"""Batch loader (port of the python path of ``diffuncertainty_tpu/data/loader.py``):
-numpy dicts of stacked images and rater masks, in dataset order or shuffled.
+"""Batch loader (port of ``diffuncertainty_tpu/data/loader.py``): numpy dicts
+of stacked images and rater masks, in dataset order or shuffled.
 
 With ``shuffle`` the order of an epoch is ``np.random.default_rng((seed,
 epoch))``'s permutation; a random-rater dataset draws each sample's rater
 with a child generator seeded by ``default_rng((seed, epoch, 1))``, one per
-sample in order, as the JAX loader's python path does (its native C++ path
-draws raters its own way). Each iteration takes the epoch of ``set_epoch``
-(0 at first) and moves it one on.
+sample in order, as the JAX loader's python path does. Each iteration takes
+the epoch of ``set_epoch`` (0 at first) and moves it one on.
+
+With ``use_native`` (the default, as in JAX) a plain ``MultiRaterDataset``
+whose files the native reader can take (``native_plan``: one image shape,
+one mask shape, one rater count per sample, dtypes in
+``native_loader.READS``, C order) reads each batch's bytes through
+``data/native_loader.py``'s C++ thread pool; any other tree, a subclass or
+``use_native=False`` loads sample by sample through ``dataset.load``. The
+choice is made once from the dataset's npy headers. Both paths pick the same
+rater paths from the same draws and give the same batch, bit for bit (the
+JAX native path draws raters its own way). A failure of the native reader
+raises: there is no fallback.
 
 With ``drop_last`` (the default, which the quality tools use) only full
 batches are yielded. Without it the last batch is padded to ``batch_size``
@@ -23,12 +33,35 @@ from typing import Iterator
 
 import numpy as np
 
+from . import native_loader
 from .dataset import MultiRaterDataset
+
+
+def native_plan(dataset: MultiRaterDataset) -> dict | None:
+    """The native reader's slot shapes for ``dataset`` ({"image": shape,
+    "mask": shape}), or None when its files do not allow one read per batch:
+    not exactly a ``MultiRaterDataset``, no sample, rater counts that differ,
+    more than one image or mask shape, Fortran order or an unread dtype."""
+    if type(dataset) is not MultiRaterDataset or not dataset.image_paths:
+        return None
+    if len({len(paths) for paths in dataset.label_paths}) != 1:
+        return None
+    plan = {}
+    for key, files, slot in (("image", dataset.image_paths, "float32"),
+                             ("mask", [p for ps in dataset.label_paths for p in ps], "int32")):
+        heads = {native_loader.header(p) for p in files}
+        shapes = {shape for shape, _, _ in heads}
+        if (len(shapes) != 1 or any(fortran for _, _, fortran in heads)
+                or not {descr for _, descr, _ in heads} <= native_loader.READS[slot]):
+            return None
+        plan[key] = shapes.pop()
+    ndim_ok = len(plan["image"]) in (2, 3) and len(plan["mask"]) == 2
+    return plan if ndim_ok else None
 
 
 class BatchLoader:
     def __init__(self, dataset: MultiRaterDataset, batch_size: int, *, shuffle: bool = False,
-                 seed: int = 0, drop_last: bool = True,
+                 seed: int = 0, drop_last: bool = True, use_native: bool = True,
                  process_shard: tuple[int, int] | None = None):
         if process_shard is not None:
             raise NotImplementedError("process_shard: multi-process loading is not ported; it "
@@ -38,6 +71,8 @@ class BatchLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
+        self.use_native = use_native
+        self._plan: dict | None | bool = False  # False: not decided yet
         self._epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -71,20 +106,52 @@ class BatchLoader:
             seg = np.concatenate([seg, np.repeat(seg[:1], bs - n, axis=0)])
             num_raters = np.concatenate([num_raters, np.repeat(num_raters[:1], bs - n)])
         return {
-            "image": images.astype(np.float32),
-            "seg": seg.astype(np.int32),
+            "image": images.astype(np.float32, copy=False),
+            "seg": seg.astype(np.int32, copy=False),
             "num_raters": num_raters,
             "valid": valid,
             "image_id": [s["image_id"] for s in samples],
             "dataset": [s["dataset"] for s in samples],
         }
 
+    @property
+    def native(self) -> bool:
+        """Whether batches go through the native reader (decided once)."""
+        if self._plan is False:
+            self._plan = native_plan(self.dataset) if self.use_native else None
+        return self._plan is not None
+
+    def _native_samples(self, idxs, children) -> list[dict]:
+        """The samples of ``dataset.load`` for ``idxs``, their bytes read by
+        the native reader: the same rater paths from the same draws."""
+        ds, plan = self.dataset, self._plan
+        images = native_loader.load_batch([ds.image_paths[i] for i in idxs], plan["image"])
+        if images.ndim == 3:  # grayscale -> 3 channels
+            images = np.repeat(images[..., None], 3, axis=3)
+        if ds.return_all_raters:
+            paths = [p for i in idxs for p in ds.label_paths[i]]
+        elif ds.single_rater:
+            paths = [ds.label_paths[i][ds.stable_rater_index(ds.image_ids[i],
+                                                             len(ds.label_paths[i]))]
+                     for i in idxs]
+        else:
+            paths = [ds.label_paths[i][int(child.integers(len(ds.label_paths[i])))]
+                     for i, child in zip(idxs, children)]
+        masks = native_loader.load_batch(paths, plan["mask"], dtype="int32")
+        masks = masks.reshape(len(idxs), -1, *plan["mask"]) if ds.return_all_raters else masks
+        return [{"image": images[j], "seg": masks[j], "image_id": ds.image_ids[i],
+                 "dataset": ds.sample_datasets[i]} for j, i in enumerate(idxs)]
+
     def __iter__(self) -> Iterator[dict]:
         order = self._order()
         rng = np.random.default_rng((self.seed, self._epoch, 1))
         self._epoch += 1
+        native = self.native
         for start in range(0, len(self) * self.batch_size, self.batch_size):
             idxs = order[start:start + self.batch_size]
             children = [np.random.default_rng(rng.integers(2**63)) for _ in idxs]
-            yield self._collate([self.dataset.load(int(i), child)
-                                 for i, child in zip(idxs, children)])
+            if native:
+                yield self._collate(self._native_samples(idxs, children))
+            else:
+                yield self._collate([self.dataset.load(int(i), child)
+                                     for i, child in zip(idxs, children)])

@@ -4,6 +4,7 @@ toy-128 (or gta-toy) quality of what they train.
     python3 -m diffuncertainty_tpu_torch.tools.train_recipe \\
         [--model softmax|diffusion|ssn|prob_unet|hrnet|swag|ensemble|multiclass]
         [--variant NAME=TOKEN,TOKEN ...] [--epochs N] [--jobs N]
+        [--save-npz DIR]
 
 ``recipe_tokens`` is the command line of a recipe
 (``tools/train_bench_assets.py::_load_cfg`` of the JAX package: the toy64
@@ -53,6 +54,10 @@ bands (``MULTICLASS_BANDS``); a metric outside is listed in the line's
 ``outside_band``. Each ``--variant`` adds its tokens to the recipe (e.g.
 ``fp32=trainer.precision=fp32`` or ``s2061=seed=2061``); the variants train
 at once. Prints one JSON line per variant. Needs a CUDA device.
+``--save-npz DIR`` also writes each run's EMA weights (with the HRNet's
+``batch_stats``) as ``DIR/{model}_{variant}.npz`` in the ``assets/`` format
+(``tools/bench_weights.py``), float leaves stored at the family's dtype of
+the JAX tool (``NPZ_DTYPES``).
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ from ..models.factory import build_model
 from ..sampling.sampler import SamplerSpec, make_sampler
 from ..sampling.tta import TTAConfig
 from ..train.cli import step_report
+from .bench_weights import save_params_npz
 from .multiclass_quality import default_data_dir, gta_toy_frames
 from .quality import toy128_dataset, toy128_quality_eval
 
@@ -92,6 +98,10 @@ RECIPES = {
     "ensemble": dict(model="softmax", network="unet16", eu="none", seed=2024, epochs=150),
 }
 MULTICLASS_EPOCHS = 400
+# storage dtype of a family's npz (``FAMILIES`` and ``train_multiclass`` of the
+# JAX tool); the others keep the dtype they were trained at
+NPZ_DTYPES = {"ssn": "float16", "prob_unet": "float16", "hrnet": "float16",
+              "multiclass": "float16"}
 # the seeds of the 16 members of assets/ensemble16_quality.json
 ENSEMBLE_SEEDS = tuple(2024 + 37 * i for i in range(16))
 # each recipe's record and the test images its protocol holds (None: all
@@ -336,6 +346,13 @@ class Runs:
             self.pending.clear()
 
 
+def save_ema_npz(ckpt: Path, path: Path, model: str) -> Path:
+    """A run's EMA weights (with the HRNet's ``batch_stats``) as an
+    ``assets/``-format npz, float leaves at the family's dtype."""
+    return save_params_npz(load_checkpoint(ckpt)[0]["ema_params"], path,
+                           dtype=NPZ_DTYPES.get(model))
+
+
 def step_summary(output: str) -> dict:
     """A trainer's closing ``steps ...`` line and its median step (ms)."""
     (steps,) = [ln for ln in output.splitlines() if ln.startswith("steps ")]
@@ -352,6 +369,8 @@ def main() -> None:
                         help="the recipe's by default (RECIPES; multiclass 400)")
     parser.add_argument("--jobs", type=int, default=None,
                         help="runs at once (default: all)")
+    parser.add_argument("--save-npz", type=Path, default=None, metavar="DIR",
+                        help="write each run's EMA weights as DIR/{model}_{variant}.npz")
     parser.add_argument("--multiclass-run", nargs=argparse.REMAINDER, default=None,
                         help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -390,6 +409,10 @@ def main() -> None:
     finally:
         runs.stop()
     ckpts = {name: next((tmp / name).glob("*/version_0/checkpoints/last")) for name in variants}
+    if args.save_npz is not None:
+        for name, ckpt in ckpts.items():
+            path = save_ema_npz(ckpt, args.save_npz / f"{model}_{name}.npz", model)
+            print(f"{name}: EMA weights -> {path}", flush=True)
     device_name = torch.cuda.get_device_name(0)
     if model == "ensemble":
         members = [ckpts[n] for n in variants]

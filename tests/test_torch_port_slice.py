@@ -157,15 +157,15 @@ def test_quality_eval_matches_jax_with_a_deterministic_sampler():
 
 def test_port_imports_without_jax_yaml_or_the_jax_package():
     """Every module of the port, ``chip_smoke``, the job's, the trainer's,
-    the evaluation matrix's, the study's and the report's ``--help`` with
-    JAX, optax, flax, YAML,
-    tensorboardX, PIL, orbax, tensorstore, scikit-learn, pandas, matplotlib
-    and the JAX package blocked."""
+    the evaluation matrix's, the study's, the report's, the dataset
+    dataset modules' and the reference importer's ``--help`` with JAX, optax, flax,
+    YAML, tensorboardX, PIL, orbax, tensorstore, scikit-learn, pandas,
+    matplotlib, h5py, pylidc and the JAX package blocked."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'tensorboardX', 'cv2',\n"
         "             'diffuncertainty_tpu', 'PIL', 'orbax', 'tensorstore', 'sklearn',\n"
-        "             'pandas', 'matplotlib'):\n"
+        "             'pandas', 'matplotlib', 'h5py', 'pylidc'):\n"
         "    sys.modules[name] = None\n"
         "import importlib, pkgutil, runpy\n"
         "import diffuncertainty_tpu_torch as pkg\n"
@@ -176,7 +176,8 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "import chip_smoke\n"
         "print(len(mods))\n"
         "for entry in ('infer', 'train', 'evaln.experiments', 'tools.values_study',\n"
-        "              'tools.report'):\n"
+        "              'tools.report', 'data.lidc_import', 'data.lidc_raw', 'data.toy3d',\n"
+        "              'data.npc', 'tools.import_reference_checkpoint'):\n"
         "    sys.argv = [entry, '--help']\n"
         "    try:\n"
         "        runpy.run_module('diffuncertainty_tpu_torch.' + entry, run_name='__main__')\n"
@@ -193,12 +194,16 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
     assert "python -m diffuncertainty_tpu_torch.train" in usage and "device=cpu" in usage
     assert "--preflight-only" in usage and "--report" in usage
     assert "--quick" in usage and "--no-seed-grouping" in usage
+    assert "--pickle-path" in usage and "--save_path" in usage and "--save-root" in usage
+    assert "{process,splits,ood}" in usage and "--ckpt" in usage
 
 
 def test_no_forbidden_imports_or_library_kernels_in_the_port():
     bad_import = re.compile(
         r"^\s*(import|from)\s+(jax|yaml|PIL|orbax|tensorstore|optax|flax|tensorboardX"
         r"|sklearn|pandas|matplotlib|diffuncertainty_tpu\b)")
+    # h5py and pylidc only inside the functions that read raw archives
+    top_level_reader = re.compile(r"^(import|from)\s+(h5py|pylidc)\b")
     files = sorted((REPO / "diffuncertainty_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     port = REPO / "diffuncertainty_tpu_torch"
     assert {port / "train" / "losses.py", port / "train" / "loop.py",
@@ -207,10 +212,17 @@ def test_no_forbidden_imports_or_library_kernels_in_the_port():
             port / "ops" / "member_fold.py", port / "evaln" / "experiments.py",
             port / "evaln" / "tasks.py", port / "evaln" / "dataloader.py",
             port / "evaln" / "visualization.py", port / "tools" / "values_study.py",
-            port / "tools" / "report.py", port / "tools" / "checks.py"} <= set(files)
+            port / "tools" / "report.py", port / "tools" / "checks.py",
+            port / "data" / "jpeg.py", port / "data" / "resize.py", port / "data" / "ood.py",
+            port / "data" / "preprocess.py", port / "data" / "lidc_raw.py",
+            port / "data" / "lidc_import.py", port / "data" / "toy3d.py",
+            port / "data" / "npc.py", port / "data" / "native_loader.py",
+            port / "core" / "torch_import.py", port / "tools" / "import_reference_checkpoint.py",
+            port / "tools" / "bench_weights.py", port / "utils" / "profiling.py"} <= set(files)
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             assert not bad_import.match(line), f"{path}:{n}: {line}"
+            assert not top_level_reader.match(line), f"{path}:{n}: {line}"
     for path in sorted((REPO / "diffuncertainty_tpu_torch").rglob("*.py")):
         text = path.read_text()
         for word in ("cpp_extension", "scaled_dot_product_attention", "torch.compile"):
@@ -222,9 +234,9 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
 
     assert chip_smoke.parse_paths([]) == chip_smoke.PATHS == (
         "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "ensemble_folded", "unet256",
-        "hrnet", "multiclass", "infer", "eval", "study", "train", "train_diffusion", "train_ssn",
-        "train_prob_unet", "train_hrnet", "train_subensemble", "train_multiclass", "train_swag",
-        "train_ensemble")
+        "hrnet", "multiclass", "infer", "eval", "lidc_import", "study", "train",
+        "train_diffusion", "train_ssn", "train_prob_unet", "train_hrnet", "train_subensemble",
+        "train_multiclass", "train_swag", "train_ensemble")
     assert chip_smoke.parse_paths(["--paths", "multiclass,hrnet"]) == ("hrnet", "multiclass")
     assert chip_smoke.parse_paths(["--paths", "infer,softmax"]) == ("softmax", "infer")
     assert chip_smoke.parse_paths(["--paths", "train,hrnet"]) == ("hrnet", "train")
@@ -232,6 +244,10 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
     # the evaluation runs on the job's tree of the softmax asset: it rides with infer
     assert chip_smoke.PATH_ASSETS["eval"] == chip_smoke.PATH_ASSETS["softmax"]
     assert chip_smoke.parse_paths(["--paths", "eval,infer"]) == ("infer", "eval")
+    # the LIDC import serves the softmax asset as a reference checkpoint: it rides with infer
+    assert chip_smoke.PATH_ASSETS["lidc_import"] == chip_smoke.PATH_ASSETS["softmax"]
+    assert chip_smoke.parse_paths(["--paths", "lidc_import,eval,infer"]) == (
+        "infer", "eval", "lidc_import")
     # the study trains its own nets on generated data: it rides either group
     assert chip_smoke.PATH_ASSETS["study"] is None
     assert chip_smoke.parse_paths(["--paths", "train,study,hrnet"]) == ("hrnet", "study", "train")
