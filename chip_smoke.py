@@ -1,12 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,eval,lidc_import,study,train,train_diffusion,train_ssn,train_prob_unet,train_hrnet,train_subensemble,train_multiclass,train_swag,train_ensemble]
+    python3 chip_smoke.py [--paths softmax,diffusion,ssn,prob_unet,ensemble,ensemble_folded,unet256,hrnet,multiclass,infer,eval,lidc_import,multidevice,retina,study,train,train_diffusion,train_ssn,train_prob_unet,train_hrnet,train_subensemble,train_multiclass,train_swag,train_ensemble]
 
 With no argument every path runs; ``--paths`` picks a comma-separated group
 of them (each needs its file under ``assets/``: a missing one is an error;
 ``train`` reads only ``ensemble16_quality.json``, ``train_subensemble``,
-``eval`` and ``lidc_import`` only ``bench_unet16_toy128.npz``, the other ``train_*`` paths, ``study``
-and ``unet256`` read none). Each training phase (and the study's) first runs
+``eval``, ``lidc_import`` and ``multidevice`` only ``bench_unet16_toy128.npz``, the other
+``train_*`` paths, ``study``, ``retina`` and ``unet256`` read none). Each training phase (and the study's) first runs
 its timed in-process part (kernel checks, the counted and timed steps), one
 after another with nothing else on the card; then the training paths' and
 the study's runs through their entry points start
@@ -174,6 +174,39 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    ``test_torch_port_codecs.py``, ``test_torch_port_native_loader.py`` and
    ``test_torch_port_reference_import.py`` hold these modules to the JAX
    package's on the CPU;
+11d. two ranks on the card (the ``multidevice`` path, the softmax asset):
+   ``chip_smoke.py --multidevice-rank`` twice, with ``DU_COORDINATOR``,
+   ``DU_NUM_PROCESSES=2``, ``DU_PROCESS_ID`` and ``DU_DIST_BACKEND=gloo``
+   (CUDA tensors; NCCL refuses two ranks on one device), joined by
+   ``parallel/distributed.py::initialize_distributed``; each rank runs the
+   inference job at mesh (2, 1) (the MC-dropout asset, 16 members x TTA) and
+   (1, 2) (a four-member deep ensemble of the asset with 2% seeded noise on
+   every leaf, 4 TTA rounds, two members a rank in one folded block though
+   ``member_chunk=1``) on the toy-128 16-image batch: its new kernel shapes
+   against the twins, one call counted (11 / 56 a rank, no twin), three
+   timed; then one bf16 data-parallel step at (2, 1) from the asset's
+   weights. This process holds them to the single-process job and step on
+   the same seeds: the gathered heatmaps and mean within the port's bf16
+   call tolerance (mean |d| at most TOL's bf16 atol, argmax agreement
+   0.99), the step's loss to 1e-2 relative and each gradient leaf to
+   STEP_GRAD_TOL (the zero-gradient leaves of the float64 step left out).
+   A rank that fails or outlives MULTIDEVICE_TIMEOUT_S fails the path. Then
+   a world of one on NCCL through ``initialize_distributed``;
+11e. the retina pipelines (the ``retina`` path, no asset): the committed
+   Pillow JPEGs (``tests/fixtures/retina_jpeg``: 512x512 4:2:0, 4:4:4 and
+   gray) decoded on this host, without PIL, equal to Pillow's decode in
+   every pixel; raw Chaksu (3 machines x 4 images at 512x512, 5 experts),
+   RIGA (4 prime TIFFs x 6 pencil variants) and REFUGE (6 cases over
+   train/val/test, 7 rater pairs, the JPEG fixtures) trees written by the
+   port's writers, through ``python -m diffuncertainty_tpu_torch.data.retina``'s
+   commands (``clean-riga``, ``chaksu``, ``chaksu-splits``, ``riga``,
+   ``refuge``, ``retina-splits``) at image_size 128; the trees through
+   ``MultiRaterDataset`` and ``BatchLoader`` with every rater (5, 6 and 7,
+   the rater axis padded by zeros); two epochs of bf16 steps of ``python -m
+   diffuncertainty_tpu_torch.train`` (unet16 softmax with MC-dropout, 3
+   input channels, 3 classes); the job on its checkpoint (``python -m
+   ...infer``, ``id_test``, 16 members x TTA, TU = AU + EU); one batch of
+   it in process, its kernel sites checked, its launches counted (11 / 56);
 12. the trainer (``python -m diffuncertainty_tpu_torch.train``, the user's
    entry point): each kernel's backward (its autograd Function: the kernel
    forward, the twin's VJP) against fp32 autograd of the twin on the same
@@ -285,6 +318,11 @@ PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
                "eval": ASSET,
                # the softmax asset as a reference checkpoint, served on LIDC crops
                "lidc_import": ASSET,
+               # two ranks on the card: the softmax asset's job and a data-parallel step
+               "multidevice": ASSET,
+               # the retina pipelines on synthetic raw trees and committed JPEGs,
+               # then a net trained from scratch on them
+               "retina": None,
                # the ValUES study trains its own nets on generated toy data
                "study": None,
                # trains from scratch on the generated toy-128 data: reads only
@@ -1527,8 +1565,9 @@ def run_infer_job(label: str, argv: list[str], timeout: int = 600) -> tuple[list
     return summaries, wall
 
 
-def counted_job_batch(label: str, job, seed: int, attn_checked: set, norm_checked: set):
-    """One batch of the job's ``id`` split through its sampler and batch
+def counted_job_batch(label: str, job, seed: int, attn_checked: set, norm_checked: set,
+                      split: str = "id"):
+    """One batch of the job's ``split`` through its sampler and batch
     metrics with the launches counted around it (11 / 56, no twin), every
     shape it gives the kernels checked before; returns the launches, the
     batch function and its images."""
@@ -1536,7 +1575,7 @@ def counted_job_batch(label: str, job, seed: int, attn_checked: set, norm_checke
 
     from diffuncertainty_tpu_torch.data.loader import BatchLoader
 
-    batch = next(iter(BatchLoader(job._dataset("id"), BATCH, drop_last=False)))
+    batch = next(iter(BatchLoader(job._dataset(split), BATCH, drop_last=False)))
     images = job.normalize(batch["image"])
     gt = torch.from_numpy(batch["seg"]).cuda()
     num_raters = torch.from_numpy(batch["num_raters"]).cuda()
@@ -2151,6 +2190,475 @@ def phase_lidc_import(smi: str, attn_checked: set, norm_checked: set):
         f"{len(new_attn)} / {len(new_norm)}")
     return launches, {"walls": walls, "img_s": img_s, "images": got_counts, "crops": n_crops,
                       "auroc": aurocs, "loading": loading}, (new_attn, new_norm)
+
+
+RETINA_FIXTURES = REPO / "tests" / "fixtures" / "retina_jpeg"
+RETINA_JPEGS = ("fundus_420", "fundus_444", "fundus_gray")
+RETINA_DISC = (296, 196)  # the fixtures' optic disc, (row, col) (make_fixtures.py)
+RETINA_RIGA = (("BinRushed", 2), ("MESSIDOR", 1), ("Magrabi", 1))  # prime TIFFs a clinic
+RETINA_REFUGE = (("Training-400", 2), ("Validation-400", 2), ("Test-400", 2))
+RETINA_SIZE = 128  # the pipelines' image_size
+RETINA_TRAIN = ["data=lidc128", "network=unet16", "model=softmax", "eu_method=dropout",
+                "data.num_classes=3", "data.split_name=random", "data.batch_size=4",
+                "data.val_batch_size=16", "trainer.max_epochs=2", "trainer.precision=bf16",
+                "trainer.loggers=[jsonl]", "seed=3"]
+
+
+def retina_raw_trees(root: Path, fundus) -> dict:
+    """Raw Chaksu, RIGA and REFUGE trees of 512x512 images written by the
+    port's own writers (and REFUGE's JPEGs copied from the committed
+    fixtures): discs and cups as in ``tests/test_retina.py``, around the
+    fixture image's optic disc shifted per sample."""
+    import numpy as np
+
+    from diffuncertainty_tpu_torch.data.retina import CIRCLE_WIDTHS
+    from diffuncertainty_tpu_torch.infer.image_io import write_png, write_tiff
+
+    rng = np.random.default_rng(19)
+    size = fundus.shape[0]
+    yy, xx = np.mgrid[:size, :size]
+
+    def disk(cy, cx, r):
+        return (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+
+    def sample(dy, dx):
+        img = np.roll(fundus, (dy, dx), axis=(0, 1)).astype(np.int16)
+        return np.clip(img + rng.integers(0, 6, img.shape), 0, 255).astype(np.uint8)
+
+    chaksu = root / "chaksu_raw"
+    for split, per in (("Train", 3), ("Test", 1)):
+        for machine in CIRCLE_WIDTHS:
+            for i in range(per):
+                dy, dx = (int(v) for v in rng.integers(-20, 21, 2))
+                cy, cx = RETINA_DISC[0] + dy, RETINA_DISC[1] + dx
+                stem = f"{machine}_{split}_{i}"
+                path = chaksu / split / "images" / machine / f"{stem}.png"
+                path.parent.mkdir(parents=True, exist_ok=True)
+                write_png(path, sample(dy, dx), mode="RGB")
+                for k in range(5):
+                    for kind, r in (("Disc", 40 + 2 * k), ("Cup", 18 + k % 3)):
+                        m = disk(cy, cx, r)
+                        m[2:5, 2:5] = True  # a speckle the pipelines drop
+                        out = chaksu / split / "labels" / f"Expert{k + 1}" / machine / kind
+                        out.mkdir(parents=True, exist_ok=True)
+                        write_png(out / f"{stem}.png", m.astype(np.uint8) * 255)
+    riga = root / "riga_raw"
+    for clinic, n in RETINA_RIGA:
+        (riga / clinic).mkdir(parents=True)
+        for case in range(1, n + 1):
+            dy, dx = (int(v) for v in rng.integers(-20, 21, 2))
+            cy, cx = RETINA_DISC[0] + dy, RETINA_DISC[1] + dx
+            prime = sample(dy, dx)
+            write_tiff(riga / clinic / f"image{case}prime.tif", prime)
+            for k in range(1, 7):  # six pencil variants: two rings each
+                gt = prime.copy()
+                for r in (44 + k, 20 + k % 4):
+                    gt[disk(cy, cx, r) & ~disk(cy, cx, r - 3)] = (30, 30, 255)
+                write_tiff(riga / clinic / f"image{case}-{k}.tif", gt)
+    refuge = root / "refuge_raw"
+    n = 0
+    for split_dir, count in RETINA_REFUGE:
+        for j in range(count):
+            stem = f"{split_dir[0]}{j + 1:04d}"
+            case = refuge / split_dir / stem
+            case.mkdir(parents=True)
+            shutil.copy(RETINA_FIXTURES / f"{RETINA_JPEGS[n % 3]}.jpg", case / f"{stem}.jpg")
+            n += 1
+            for k in range(1, 8):
+                write_png(case / f"{stem}_seg_disc_{k}.png",
+                          disk(*RETINA_DISC, 40 + k % 5).astype(np.uint8) * 255)
+                write_png(case / f"{stem}_seg_cup_{k}.png",
+                          disk(*RETINA_DISC, 17 + k % 3).astype(np.uint8) * 255)
+    return {"chaksu": chaksu, "riga": riga, "refuge": refuge}
+
+
+def phase_retina(smi: str, attn_checked: set, norm_checked: set):
+    """The retina pipelines on the card's host, without PIL: the committed
+    JPEG fixtures decoded and held to Pillow's decode (their ``.npy``);
+    synthetic raw Chaksu, RIGA and REFUGE trees through ``python -m
+    ...data.retina``'s commands (``clean-riga``, ``chaksu``,
+    ``chaksu-splits``, ``riga``, ``refuge``, ``retina-splits``) at
+    image_size 128; the combined trees through ``MultiRaterDataset`` and
+    ``BatchLoader`` with every rater (5, 6 and 7, padded); a few bf16 steps
+    of ``python -m diffuncertainty_tpu_torch.train`` (unet16, softmax with
+    MC-dropout, 3 input channels and 3 classes); the job over its
+    checkpoint (``python -m ...infer``, ``id_test``) and one batch of it in
+    process, its kernel sites checked and its launches counted (11 / 56)."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from diffuncertainty_tpu_torch.data import retina
+    from diffuncertainty_tpu_torch.data.dataset import MultiRaterDataset
+    from diffuncertainty_tpu_torch.data.jpeg_decode import decode_jpeg
+    from diffuncertainty_tpu_torch.data.loader import BatchLoader
+    from diffuncertainty_tpu_torch.infer.image_io import read_tiff
+    from diffuncertainty_tpu_torch.infer.runner import InferenceConfig, UncertaintyInference
+
+    walls, seed = {}, 777
+    t0 = time.perf_counter()
+    decoded = {}
+    for name in RETINA_JPEGS:
+        decoded[name] = decode_jpeg(RETINA_FIXTURES / f"{name}.jpg")
+        if not np.array_equal(decoded[name], np.load(RETINA_FIXTURES / f"{name}.npy")):
+            raise AssertionError(f"retina: {name}.jpg does not decode to Pillow's array")
+    walls["decode_s"] = time.perf_counter() - t0
+    log(f"retina: the 3 committed JPEGs (4:2:0, 4:4:4, gray; 512x512) decode to Pillow's "
+        f"arrays in every pixel ({walls['decode_s']:.2f}s)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        raw = retina_raw_trees(tmp, decoded["fundus_420"])
+        walls["raw_s"] = time.perf_counter() - t0
+        parent = tmp / "values_datasets"
+        roots = {f"{n}{RETINA_SIZE}": parent / f"{n}{RETINA_SIZE}"
+                 for n in ("chaksu", "riga", "refuge")}
+        size = ["--image-size", str(RETINA_SIZE)]
+        c = raw["chaksu"]
+        commands = [
+            ["clean-riga", "--input", str(raw["riga"]), "--output", str(tmp / "riga_cleaned")],
+            ["chaksu", "--train-image-dir", str(c / "Train" / "images"), "--test-image-dir",
+             str(c / "Test" / "images"), "--train-label-dir", str(c / "Train" / "labels"),
+             "--test-label-dir", str(c / "Test" / "labels"), "--save-path",
+             str(roots["chaksu128"] / "preprocessed"), *size],
+            ["chaksu-splits", "--dataset-root", str(roots["chaksu128"]), "--num-splits", "2",
+             "--seed", "0"],
+            ["riga", "--data-path", str(tmp / "riga_cleaned"), "--save-path",
+             str(roots["riga128"] / "preprocessed"), *size],
+            ["refuge", "--data-root", str(raw["refuge"]), "--save-path",
+             str(roots["refuge128"] / "preprocessed"), *size],
+            ["retina-splits", "--roots", *(f"{k}={v}" for k, v in roots.items()), "--output",
+             str(parent / "retina128" / "splits" / "random" / "firstCycle"), "--seed", "0"]]
+        for argv in commands:
+            t0 = time.perf_counter()
+            retina.main(argv)
+            walls[argv[0]] = time.perf_counter() - t0
+        want = {"chaksu128": (12, 5), "riga128": (4, 6), "refuge128": (6, 7)}
+        for name, (n_images, n_raters) in want.items():
+            pre = roots[name] / "preprocessed"
+            images = sorted((pre / "images").glob("*.npy"))
+            masks = sorted((pre / "labels").glob("*_mask.npy"))
+            if len(images) != n_images or len(masks) != n_images * n_raters:
+                raise AssertionError(f"retina: {name} has {len(images)} images and {len(masks)} "
+                                     f"masks, expected {n_images} x {n_raters}")
+            for path in images[:2] + masks[:2]:
+                arr = np.load(path)
+                if arr.dtype != np.uint8 or arr.shape[:2] != (RETINA_SIZE, RETINA_SIZE):
+                    raise AssertionError(f"retina: {path.name} is {arr.dtype} {arr.shape}")
+            labels = np.stack([np.load(p) for p in masks])
+            if set(np.unique(labels)) != {0, 1, 2}:
+                raise AssertionError(f"retina: {name} labels {np.unique(labels)} != 0, 1, 2")
+        folds = pickle.loads((roots["chaksu128"] / "splits" / "scanner" / "firstCycle"
+                              / "splits.pkl").read_bytes())
+        splits = parent / "retina128" / "splits" / "random" / "firstCycle" / "splits.pkl"
+        (fold,) = pickle.loads(splits.read_bytes())
+        if (len(folds) != 2 or {k: v["num_raters"] for k, v in
+                                fold["_meta"]["dataset_configs"].items()}
+                != {k: r for k, (_, r) in want.items()}):
+            raise AssertionError(f"retina: splits {len(folds)} folds, {fold['_meta']}")
+        # every rater, the rater axis padded to the batch's largest count
+        counts = set()
+        for split in ("train", "val", "id_test"):
+            ds = MultiRaterDataset(splits, parent / "retina128", split=split,
+                                   return_all_raters=True)
+            for batch in BatchLoader(ds, BATCH, drop_last=False):
+                r = batch["num_raters"]
+                if batch["seg"].shape[1] != r.max() or any(
+                        batch["seg"][i, r[i]:].any() for i in range(len(r))):
+                    raise AssertionError(f"retina: {split} rater axis not padded by zeros")
+                counts |= set(r[batch["valid"]].tolist())
+        if counts != {5, 6, 7}:
+            raise AssertionError(f"retina: rater counts {counts} != 5, 6, 7")
+        log(f"retina: raw trees in {walls['raw_s']:.1f}s; the pipelines' commands "
+            + ", ".join(f"{a[0]} {walls[a[0]]:.2f}s" for a in commands)
+            + f"; {sum(n for n, _ in want.values())} samples, batches with 5, 6 and 7 raters")
+
+        # a few bf16 steps through the trainer's entry point, then the job
+        t0 = time.perf_counter()
+        run_module("retina train", "diffuncertainty_tpu_torch.train", [
+            *RETINA_TRAIN, f"data.data_input_dir={parent / 'retina128'}",
+            f"save_dir={tmp / 'runs'}"])
+        walls["train_s"] = time.perf_counter() - t0
+        (ckpt,) = sorted((tmp / "runs").rglob("checkpoints/last"))
+        records = [json.loads(line) for line in (ckpt.parents[1] / "metrics.jsonl")
+                   .read_text().splitlines()]
+        if len(records) != 2 or not all(math.isfinite(r["train_loss"]) for r in records):
+            raise AssertionError(f"retina train: records {records}")
+        argv = ["--checkpoint_paths", str(ckpt), "--test_split", "id_test", "--n_pred", "1",
+                "--n_models", str(MEMBERS), "--tta", "--test_batch_size", str(BATCH),
+                "--seed", str(seed), "--save_dir", str(tmp / "results")]
+        (summary,), walls["job_s"] = run_infer_job("retina job", argv)
+        out_dir = Path(summary["out_dir"])
+        metrics = json.loads((out_dir / "metrics.json").read_text())
+        if not summary["n_images"] == len(metrics) == len(fold["id_test"]):
+            raise AssertionError(f"retina job: {summary} vs {len(fold['id_test'])} images")
+        decomp = max(float(np.abs(np.subtract(*(read_tiff(out_dir / k / f"{i}.tif")
+                                                for k in ("TU", "AU"))) -
+                                  read_tiff(out_dir / "EU" / f"{i}.tif")).max())
+                     for i in metrics)
+        if decomp > 1e-5:
+            raise AssertionError(f"retina job: max |TU - AU - EU| {decomp:.2e}")
+        job = UncertaintyInference([ckpt], InferenceConfig(
+            n_pred=1, n_models=MEMBERS, tta=True, batch_size=BATCH, seed=seed,
+            save_dir=str(tmp / "results")))
+        images = job.normalize(next(iter(BatchLoader(job._dataset("id_test"), BATCH,
+                                                     drop_last=False)))["image"])
+        new_attn, new_norm = check_sites(job.sampler, images, attn_checked,
+                                         {k + (0,) for k in norm_checked}, seed=1000)
+        launches, _, _ = counted_job_batch("retina path", job, seed, attn_checked,
+                                           norm_checked, split="id_test")
+    log(f"retina on {smi}: trainer {walls['train_s']:.1f}s, job {walls['job_s']:.1f}s over "
+        f"{len(metrics)} images (max |TU-AU-EU| {decomp:.2e}); one job batch: {launches}; "
+        f"new kernel shapes {len(new_attn)} / {len(new_norm)}")
+    return launches, {"walls": walls, "images": len(metrics),
+                      "train_loss": [r["train_loss"] for r in records]}, (new_attn, new_norm)
+
+
+MULTIDEVICE_TIMEOUT_S = 480
+MULTIDEVICE_ENSEMBLE = 4  # members of the deep ensemble the member axis splits
+MULTIDEVICE_JOBS = {  # (checkpoints, InferenceConfig fields): 128 rows a rank a call
+    "job21": ("dropout", dict(n_pred=1, n_models=MEMBERS, mesh_shape=(2, 1))),
+    "job12": ("ensemble", dict(n_pred=4, mesh_shape=(1, 2), member_chunk=1)),
+}
+
+
+def multidevice_inputs(work: Path) -> dict:
+    """What both ranks and the single-process reference read: the softmax
+    asset as a job checkpoint (MC-dropout), a four-member deep ensemble of
+    it (noise on every leaf, seeded), the first 16 images of the toy-128
+    ``id`` split and one global training batch."""
+    import numpy as np
+
+    from diffuncertainty_tpu_torch.core.checkpoint import save_checkpoint
+    from diffuncertainty_tpu_torch.core.config import load_config
+    from diffuncertainty_tpu_torch.core.params import load_params_npz
+    from diffuncertainty_tpu_torch.data.loader import BatchLoader
+    from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
+
+    ckpt, ds = softmax_job_checkpoint(work)
+    params = load_params_npz(ASSET)
+    cfg = load_config(data="lidc128", network="unet16", model="softmax", eu_method="ensemble",
+                      precision="bf16", overrides={"data": {
+                          "data_input_dir": str(ds.base_dir), "split_name": "default"}})
+    rng = np.random.default_rng(5)
+
+    def noisy(tree):
+        return {k: noisy(v) if isinstance(v, dict) else
+                (v * (1 + 0.02 * rng.standard_normal(v.shape))).astype(v.dtype)
+                for k, v in tree.items()}
+
+    ens = [save_checkpoint(work / f"ens{i}" / "checkpoints" / "last", {"params": noisy(params)},
+                           cfg, epoch=0) for i in range(MULTIDEVICE_ENSEMBLE)]
+    tcfg, _ = parse_args(train_tokens(ds.base_dir, work / "train"))
+    batch = next(iter(build_loaders(tcfg)[0]))
+    np.savez(work / "train_batch.npz", image=batch["image"], seg=batch["seg"])
+    first = next(iter(BatchLoader(ds, BATCH, drop_last=False)))
+    return {"dropout": [ckpt], "ensemble": ens, "images": first["image"],
+            "train_tokens": train_tokens(ds.base_dir, work / "train")}
+
+
+def multidevice_rank(work: Path) -> int:
+    """One rank of the ``multidevice`` path (``chip_smoke.py
+    --multidevice-rank WORKDIR``, started by :func:`phase_multidevice` with
+    ``DU_*`` set): each job layout's kernel sites checked against the twins,
+    one counted call (its launches), and rank 0 writes the gathered stack's
+    heatmaps; then the data-parallel bf16 step's gradients and loss."""
+    import numpy as np
+    import torch
+
+    from diffuncertainty_tpu_torch.core.params import load_into
+    from diffuncertainty_tpu_torch.infer.runner import InferenceConfig, UncertaintyInference
+    from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
+    from diffuncertainty_tpu_torch.parallel.distributed import initialize_distributed, process_info
+    from diffuncertainty_tpu_torch.train.cli import parse_args
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    sys.path.insert(0, str(REPO))
+    initialize_distributed(device="cuda")
+    rank, world = process_info()
+    backend = torch.distributed.get_backend()
+    inputs = json.loads((work / "inputs.json").read_text())
+    report = {"rank": rank, "world": world, "backend": backend, "launches": {}, "ms": {}}
+    attn_checked, norm_checked = set(), set()
+    for name, (source, fields) in MULTIDEVICE_JOBS.items():
+        job = UncertaintyInference([Path(p) for p in inputs[source]], InferenceConfig(
+            tta=True, batch_size=BATCH, seed=777, save_dir=str(work / "unused"), **fields))
+        images = job.normalize(np.load(work / "images.npy"))
+        attn_cases, norm_cases = check_sites(job.sampler, images, attn_checked, norm_checked,
+                                             seed=1100)
+        report.setdefault("attn_cases", []).extend(attn_cases)
+        report.setdefault("norm_cases", []).extend(norm_cases)
+        stack, launches, *_ = counted_call(job.built, job._sample_stack, images, 777)
+        check_launches(f"multidevice {name} rank {rank}", launches,
+                       {"qkv_attention": 11, "group_norm_act": 56})
+        report["launches"][name] = launches
+        report["mesh"] = {**report.get("mesh", {}), name: dict(job.mesh.shape)}
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            job._sample_stack(images, torch.Generator("cuda").manual_seed(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        report["ms"][name] = times
+        if rank == 0:
+            maps = uncertainty_heatmaps(stack.group_means.float(), sample_axis=0, class_axis=-1)
+            np.savez(work / f"{name}.npz", mean=stack.mean.float().cpu().numpy(),
+                     **{k: v.cpu().numpy() for k, v in maps.items()})
+        del job, stack
+    # one bf16 data-parallel step at (2, 1) from the asset's weights
+    cfg, _ = parse_args(inputs["train_tokens"] + ["trainer.mesh_shape=[2,1]"])
+    trainer = Trainer(cfg, device="cuda", workdir=work / f"train_rank{rank}")
+    load_into(trainer.built.module, ASSET)
+    state = trainer.fresh_state()
+    batch = dict(np.load(work / "train_batch.npz"))
+    rows = trainer.mesh.rows(batch["image"].shape[0], "data")
+    local = {k: v[rows] for k, v in batch.items()}
+    aux, grads = trainer.step_gradients(state, local, torch.Generator("cuda").manual_seed(7))
+    report["step_loss"] = float(aux["loss"])
+    state, aux = trainer.train_step(state, local, torch.Generator("cuda").manual_seed(7))
+    report["step_finite"] = all(bool(torch.isfinite(p).all()) for p in state.params.values())
+    if rank == 0:
+        np.savez(work / "grads.npz", **{k: g.float().cpu().numpy()
+                                        for k, g in zip(state.params, grads)})
+    (work / f"rank{rank}.json").write_text(json.dumps(report))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multidevice(smi: str, attn_checked: set, norm_checked: set):
+    """Two ranks on the one card (``DU_COORDINATOR``, ``DU_NUM_PROCESSES``,
+    ``DU_PROCESS_ID`` and ``DU_DIST_BACKEND=gloo`` on CUDA tensors: NCCL
+    refuses two ranks on one device), each a ``chip_smoke.py
+    --multidevice-rank`` process: the job at mesh (2, 1) (the MC-dropout
+    asset, 16 members x TTA) and (1, 2) (a four-member ensemble of it, two a
+    rank in one block although ``member_chunk=1``) on the toy-128 16-image
+    batch, each rank's calls counted (11 / 56), and one bf16 data-parallel
+    step at (2, 1); held against this process's single-process job and step
+    on the same seed (heatmaps and mean to the port's bf16 call tolerance,
+    each gradient leaf to STEP_GRAD_TOL); then a world-size-1 NCCL group
+    through ``initialize_distributed``."""
+    import os
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffuncertainty_tpu_torch.infer.runner import InferenceConfig, UncertaintyInference
+    from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
+    from diffuncertainty_tpu_torch.parallel.distributed import initialize_distributed
+    from diffuncertainty_tpu_torch.core.params import load_into
+    from diffuncertainty_tpu_torch.train.cli import parse_args
+    from diffuncertainty_tpu_torch.train.loop import Trainer
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        inputs = multidevice_inputs(work)
+        np.save(work / "images.npy", inputs.pop("images"))
+        (work / "inputs.json").write_text(json.dumps(
+            {k: [str(p) for p in v] if k != "train_tokens" else v for k, v in inputs.items()}))
+        env = {**os.environ, "DU_COORDINATOR": f"localhost:{free_port()}",
+               "DU_NUM_PROCESSES": "2", "DU_DIST_BACKEND": "gloo"}
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(2):
+            with open(work / f"rank{r}.log", "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--multidevice-rank",
+                     str(work)], cwd=REPO, env={**env, "DU_PROCESS_ID": str(r)}, stdout=fh,
+                    stderr=subprocess.STDOUT))
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, MULTIDEVICE_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out["ranks_s"] = time.perf_counter() - t0
+        logs = [(work / f"rank{r}.log").read_text() for r in range(2)]
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"multidevice: rank {r} exited {p.returncode}:\n"
+                                     f"{logs[r][-4000:]}")
+        reports = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+        for r, rep in enumerate(reports):
+            log(f"multidevice rank {r} ({rep['backend']}, world {rep['world']}): launches a "
+                f"call {rep['launches']}, ms a call {rep['ms']}, mesh {rep['mesh']}")
+        # the single-process job and step, same seeds
+        images = np.load(work / "images.npy")
+        for name, (source, fields) in MULTIDEVICE_JOBS.items():
+            job = UncertaintyInference(inputs[source], InferenceConfig(
+                tta=True, batch_size=BATCH, seed=777, save_dir=str(work / "unused"),
+                **{**fields, "mesh_shape": None, "member_chunk": None}))
+            x = job.normalize(images)
+            cases = check_sites(job.sampler, x, attn_checked, {k + (0,) for k in norm_checked},
+                                seed=1200)
+            out.setdefault("attn_cases", []).extend(cases[0])
+            out.setdefault("norm_cases", []).extend(cases[1])
+            stack = job._sample_stack(x, torch.Generator("cuda").manual_seed(777))
+            ref = {k: v.cpu().numpy() for k, v in uncertainty_heatmaps(
+                stack.group_means.float(), sample_axis=0, class_axis=-1).items()}
+            ref["mean"] = stack.mean.float().cpu().numpy()
+            got = dict(np.load(work / f"{name}.npz"))
+            diffs = {k: float(np.abs(got[k] - ref[k]).mean()) for k in ref}
+            agree = float((got["mean"].argmax(-1) == ref["mean"].argmax(-1)).mean())
+            log(f"multidevice {name} vs one process, same seed: mean |d| {diffs}, argmax "
+                f"agreement {agree:.5f}")
+            if max(diffs.values()) > TWIN_CALL_TOL[0] or agree < TWIN_CALL_TOL[1]:
+                raise AssertionError(f"multidevice {name} differs from the single-process job")
+            out[name] = {"mean_abs_diff": diffs, "argmax_agreement": agree}
+            del job, stack
+        cfg, _ = parse_args(inputs["train_tokens"])
+        trainer = Trainer(cfg, device="cuda", workdir=work / "train_single")
+        load_into(trainer.built.module, ASSET)
+        state = trainer.fresh_state()
+        batch = dict(np.load(work / "train_batch.npz"))
+        aux, grads = trainer.step_gradients(state, batch, torch.Generator("cuda").manual_seed(7))
+        null = null_gradient_leaves(trainer, state, batch)
+        got = np.load(work / "grads.npz")
+        rel = {n: float(np.linalg.norm(got[n] - g.float().cpu().numpy())
+                        / np.linalg.norm(g.float().cpu().numpy()))
+               for n, g in zip(state.params, grads) if n not in null}
+        worst = max(rel, key=rel.get)
+        loss = float(aux["loss"])
+        losses = [rep["step_loss"] for rep in reports]
+        log(f"multidevice step at (2, 1) vs one process: loss {losses} vs {loss:.6f}; gradient "
+            f"rel L2 per leaf max {rel[worst]:.3e} at {worst}, median "
+            f"{statistics.median(rel.values()):.3e} over {len(rel)} leaves ({len(null)} "
+            f"zero-gradient leaves left out)")
+        if (rel[worst] > STEP_GRAD_TOL or abs(losses[0] - loss) > 1e-2 * abs(loss)
+                or losses[0] != losses[1] or not all(rep["step_finite"] for rep in reports)):
+            raise AssertionError("multidevice: the data-parallel step differs from the "
+                                 "single-process step")
+        out["step"] = {"max_rel": rel[worst], "loss": loss, "losses": losses}
+    # a world of one on NCCL, through the entry point's initializer
+    initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        backend = torch.distributed.get_backend()
+        x = torch.ones(4, device="cuda")
+        torch.distributed.all_reduce(x)
+        if backend != "nccl" or x.tolist() != [1.0] * 4:
+            raise AssertionError(f"multidevice: world of one on {backend}: {x.tolist()}")
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"multidevice on {smi}: ranks {out['ranks_s']:.1f}s; a world of one on nccl all-reduces")
+    launches = {f"multidevice_{name}_rank{rep['rank']}": rep["launches"][name]
+                for rep in reports for name in MULTIDEVICE_JOBS}
+    for rep in reports:
+        out["attn_cases"] = out.get("attn_cases", []) + rep.get("attn_cases", [])
+        out["norm_cases"] = out.get("norm_cases", []) + rep.get("norm_cases", [])
+    return launches, out
 
 
 def train_tokens(data_dir, save_dir) -> list[str]:
@@ -3633,6 +4141,10 @@ def parse_paths(argv) -> tuple[str, ...]:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--multidevice-rank"]:  # one rank of the multidevice path
+        sys.path.insert(0, str(REPO))
+        return multidevice_rank(Path(argv[1]))
     paths = parse_paths(argv)
     sys.path.insert(0, str(REPO))
     smi = phase_device()
@@ -3744,6 +4256,16 @@ def main(argv=None) -> int:
             smi, attn_checked, norm_checked)
         new_attn_cases += lidc_cases[0]
         new_norm_cases += lidc_cases[1]
+    if "multidevice" in paths:
+        md_launches, multidevice_stats = phase_multidevice(smi, attn_checked, norm_checked)
+        launches_by_path.update(md_launches)
+        new_attn_cases += multidevice_stats.pop("attn_cases", [])
+        new_norm_cases += multidevice_stats.pop("norm_cases", [])
+    if "retina" in paths:
+        launches_by_path["retina"], retina_stats, retina_cases = phase_retina(
+            smi, attn_checked, norm_checked)
+        new_attn_cases += retina_cases[0]
+        new_norm_cases += retina_cases[1]
     runs = None
     if any(p.startswith("train") or p == "study" for p in paths):
         import tempfile
@@ -3915,6 +4437,10 @@ def main(argv=None) -> int:
         extra += "; eval " + json.dumps(eval_stats)
     if "lidc_import" in paths:
         extra += "; lidc_import " + json.dumps(lidc_stats)
+    if "multidevice" in paths:
+        extra += "; multidevice " + json.dumps(multidevice_stats)
+    if "retina" in paths:
+        extra += "; retina " + json.dumps(retina_stats)
     if "train" in paths:
         extra += (f"; train step {train_stats['step']['split']}, remat {train_stats['remat']}, "
                   f"recipe {train_stats['recipe']}, trained quality on 32 images "

@@ -27,6 +27,7 @@ from ..ops.warp import (
     separable_margins,
     warp_affine_separable,
 )
+from ..parallel.mesh import draw_rows
 
 # The geometric transforms the pipeline (and the TTA inversion built on it)
 # samples itself; an Affine (shear, translate) is rejected, not narrowed.
@@ -125,15 +126,20 @@ def draw_augment(eff: TrainAugmentConfig, generator: torch.Generator,
     """The per-image draws of one batch, from ``generator`` in this order."""
     b, dev = images.shape[0], images.device
 
-    def uniform(lo, hi):
-        return lo + (hi - lo) * torch.rand(b, generator=generator, device=dev)
+    def rand(shape=()):  # per image: ``draw_rows``
+        return draw_rows(lambda n, g: torch.rand((n,) + shape, generator=g, device=dev), b,
+                         generator)
 
-    flip = torch.rand(b, generator=generator, device=dev) < eff.hflip_p
+    def uniform(lo, hi):
+        return lo + (hi - lo) * rand()
+
+    flip = rand() < eff.hflip_p
     angle = uniform(-eff.rotation_limit, eff.rotation_limit)
     scale = 1.0 + uniform(*eff.scale_limit)
     noise_var = uniform(*eff.gauss_noise_var_limit)
-    apply_noise = torch.rand(b, generator=generator, device=dev) < eff.gauss_noise_p
-    noise = torch.randn(images.shape, generator=generator, device=dev, dtype=images.dtype)
+    apply_noise = rand() < eff.gauss_noise_p
+    noise = draw_rows(lambda n, g: torch.randn((n,) + tuple(images.shape[1:]), generator=g,
+                                               device=dev, dtype=images.dtype), b, generator)
     return AugmentDraws(flip, angle, scale, noise_var, apply_noise, noise)
 
 

@@ -25,6 +25,12 @@ batch has one shape. Each batch carries ``num_raters``, the true rater count
 of each sample, with the rater axis padded by all-zero masks to the batch's
 largest count, and each sample's ``dataset`` label; ``image_id`` and
 ``dataset`` list the real samples only.
+
+With ``process_shard=(index, count)`` (``parallel/distributed.py::
+loader_shard``) each process takes the strided slice ``order[index::count]``
+of the shared (seed, epoch) order, wrap-padded from the start of that order
+to ceil(n / count) samples so that every process runs the same number of
+steps; ``batch_size`` is then the process's own, as in the JAX loader.
 """
 
 from __future__ import annotations
@@ -63,9 +69,10 @@ class BatchLoader:
     def __init__(self, dataset: MultiRaterDataset, batch_size: int, *, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = True, use_native: bool = True,
                  process_shard: tuple[int, int] | None = None):
-        if process_shard is not None:
-            raise NotImplementedError("process_shard: multi-process loading is not ported; it "
-                                      "is ROADMAP Queue 1 item 6")
+        if process_shard is not None and not 0 <= process_shard[0] < process_shard[1]:
+            raise ValueError(f"process_shard index {process_shard[0]} not in "
+                             f"[0, {process_shard[1]})")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -78,14 +85,27 @@ class BatchLoader:
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
 
+    def _local_count(self) -> int:
+        """The samples of this process's epoch: all, or with ``process_shard``
+        the equal, wrap-padded share ceil(n / count)."""
+        n = len(self.dataset)
+        return n if self.process_shard is None else -(-n // self.process_shard[1])
+
     def _order(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
-        if self.shuffle:
+        if self.shuffle:  # (seed, epoch) only: every process permutes alike
             np.random.default_rng((self.seed, self._epoch)).shuffle(idx)
+        if self.process_shard is not None:
+            pidx, count = self.process_shard
+            local = idx[pidx::count]
+            want = self._local_count()
+            if len(local) < want:  # wrap-pad from the global order
+                local = np.concatenate([local, idx[:want - len(local)]])
+            idx = local
         return idx
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._local_count()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _collate(self, samples: list[dict]) -> dict:

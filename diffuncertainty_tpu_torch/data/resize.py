@@ -49,7 +49,10 @@ def bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _pass(samples: np.ndarray, weights: np.ndarray, axis: int) -> np.ndarray:
-    acc = np.tensordot(weights, np.moveaxis(samples.astype(np.int64), axis, 0), axes=1)
+    # in float64, exactly: every product and partial sum is an integer below
+    # 255 * 2**22 * (input size) < 2**53, and BLAS is far faster than int64
+    acc = np.tensordot(weights.astype(np.float64),
+                       np.moveaxis(samples, axis, 0).astype(np.float64), axes=1).astype(np.int64)
     out = np.clip((acc + (1 << (PRECISION_BITS - 1))) >> PRECISION_BITS, 0, 255)
     return np.moveaxis(out, 0, axis).astype(np.uint8)
 

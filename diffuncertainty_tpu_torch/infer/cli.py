@@ -15,6 +15,12 @@ Runs on the card unless ``--device cpu`` is given. Prints one summary dict
 per split (images, seconds, images_per_sec, out_dir). ``--include_eval``
 then runs ``evaln/runner.py::run_default_evaluation`` over each split of the
 job (on the host).
+
+Several ranks: start one process per card with ``DU_COORDINATOR``,
+``DU_NUM_PROCESSES`` and ``DU_PROCESS_ID`` set (or under ``torchrun``);
+``parallel/distributed.py::initialize_distributed`` joins them, and
+``--mesh_shape DATA MEMBER`` (default: the JAX job's auto choice) lays the
+job out over them. The primary rank prints, evaluates and writes.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import argparse
 import glob
 from pathlib import Path
 
+from ..parallel.distributed import initialize_distributed, is_primary
 from .runner import InferenceConfig, UncertaintyInference
 
 
@@ -59,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--include_eval", action="store_true",
                    help="run the default evaluation chain over each split after testing")
     p.add_argument("--mesh_shape", type=int, nargs=2, default=None, metavar=("DATA", "MEMBER"),
-                   help="(data, member) device mesh; the port takes only 1 1")
+                   help="(data, member) mesh of the ranks (one per card); default: the "
+                        "largest usable factorization of the world size")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -103,6 +111,7 @@ def _auto_version(group: list[Path]) -> str:
 
 def main(argv=None) -> list[dict]:
     args = build_parser().parse_args(argv)
+    initialize_distributed(device=args.device)
     summaries = []
     for job in prepare_jobs(args):
         icfg = InferenceConfig(
@@ -122,9 +131,10 @@ def main(argv=None) -> list[dict]:
             summary = runner.run_split(split)
             summary["version"] = job["version"]
             summary["use_ema"] = job["use_ema"]
-            print(summary, flush=True)
+            if is_primary():
+                print(summary, flush=True)
             summaries.append(summary)
-        if args.include_eval:
+        if args.include_eval and is_primary():
             from ..evaln.runner import run_default_evaluation
 
             for split in job["splits"]:

@@ -1,7 +1,7 @@
 """The uncertainty-inference job (port of ``diffuncertainty_tpu/infer/runner.py``).
 
 From one or more checkpoints (``core/checkpoint.py``) and a split on disk to
-the results tree (``infer/results.py``), on one device:
+the results tree (``infer/results.py``):
 
 - each checkpoint's weights (``params``, or ``ema_params`` with ``use_ema``
   or in an EMA-only snapshot) become the port's state dict;
@@ -19,8 +19,16 @@ Members execute as ``member_chunk`` and ``same_dropout`` say
 (``sampling/sampler.py``; the JAX job's two fields: ``member_chunk=None``
 folds every stacked member into one forward). Runs on
 ``InferenceConfig.device`` (``cuda`` by default; without a card that
-raises, it never falls back to the CPU). One device only: the JAX job's
-(data, member) mesh is not ported.
+raises, it never falls back to the CPU).
+
+Several ranks (``parallel/distributed.py``, one process per card): the
+(data, member) mesh of :func:`_resolve_mesh` (``mesh_shape``, or the JAX
+job's auto factorization of the world size), which must cover every rank.
+Every rank loads the same global batch, as the single JAX process does, and
+its samplers run its rows and its members (``make_sampler(..., mesh=)``),
+drawing what one process would draw; the stacks gather on every rank, and
+only the primary rank computes the batch metrics and writes the results
+tree.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from ..data.dataset import MultiRaterDataset
 from ..data.loader import BatchLoader
 from ..models import swag as swag_lib
 from ..models.factory import build_model
+from ..parallel.distributed import is_primary, process_info
+from ..parallel.mesh import make_mesh
 from ..sampling.sampler import PredictionStack, SamplerMeta, SamplerSpec, make_sampler
 from ..sampling.tta import TTAConfig
 from .batch_metrics import make_batch_metrics
@@ -74,15 +84,48 @@ class InferenceConfig:
     # members per forward (SamplerSpec.member_chunk): "auto", None (all) or
     # an int, which bounds peak memory
     member_chunk: int | str | None = "auto"
-    mesh_shape: tuple[int, int] | None = None  # only None or (1, 1) is ported
+    # (data, member) mesh of the process group's ranks: None -> auto (see
+    # _resolve_mesh), (1, 1) -> every rank runs the whole job
+    mesh_shape: tuple[int, int] | None = None
     device: str = "cuda"
 
 
-def _check_ported(icfg: InferenceConfig) -> None:
-    if icfg.mesh_shape is not None and tuple(icfg.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape {tuple(icfg.mesh_shape)}: the port runs on one device; the (data, "
-            f"member) mesh is ROADMAP Queue 1 item 6")
+def _resolve_mesh(mesh_shape: tuple[int, int] | None, batch_size: int,
+                  stacked_members: Sequence[int], world_size: int) -> tuple[int, int] | None:
+    """The (data, member) shape of the job's mesh, or None for no mesh
+    (the JAX ``_resolve_mesh`` as a function of the world size).
+
+    Explicit ``mesh_shape``: None when it has one device; the batch must
+    split over ``data`` and every stacked source's members over ``member``.
+    Auto (None, more than one rank): among (d, m) with d * m <= the world
+    size, ``batch_size % d == 0`` and m == 1 or m dividing every stacked
+    source's member count, the one using the most ranks, then the larger
+    data axis; None when that is (1, 1). A shape that leaves ranks out is
+    refused when the mesh is built (``parallel/mesh.py::Mesh``)."""
+
+    def member_ok(m: int) -> bool:
+        return m == 1 or (bool(stacked_members) and all(n % m == 0 for n in stacked_members))
+
+    if mesh_shape is not None:
+        d, m = int(mesh_shape[0]), int(mesh_shape[1])
+        if d * m <= 1:
+            return None
+        if batch_size % d != 0:
+            raise ValueError(f"batch_size {batch_size} not divisible by mesh data axis {d}")
+        if not member_ok(m):
+            raise ValueError(f"mesh member axis {m} must divide every stacked source's member "
+                             f"count (have {list(stacked_members)})")
+        return d, m
+    if world_size <= 1:
+        return None
+    best = (1, 1)
+    for d in range(1, world_size + 1):
+        if batch_size % d:
+            continue
+        for m in range(1, world_size // d + 1):
+            if member_ok(m) and (d * m, d) > (best[0] * best[1], best[0]):
+                best = (d, m)
+    return None if best == (1, 1) else best
 
 
 def _tta_config(aug) -> TTAConfig:
@@ -101,7 +144,6 @@ class UncertaintyInference:
     """Load checkpoint(s), expand EU members, run prediction + metrics + writes."""
 
     def __init__(self, checkpoint_paths: Sequence[str | Path], icfg: InferenceConfig):
-        _check_ported(icfg)
         if not checkpoint_paths:
             raise ValueError("at least one checkpoint path required")
         self.icfg = icfg
@@ -153,6 +195,14 @@ class UncertaintyInference:
                 external = gen_members - (n if sz > 1 else 0) if keep_groups else 0
                 self._add_source(built, mode, n, not keep_groups, members, external)
 
+        # batches split over the mesh's data axis, stacked members over member
+        stacked = [src["spec"].n_members for src in self.sources
+                   if src["spec"].member_mode == "params_stack"]
+        shape = _resolve_mesh(icfg.mesh_shape, icfg.batch_size, stacked, process_info()[1])
+        self.mesh = make_mesh(shape) if shape is not None else None
+        for src in self.sources:
+            src["sampler"] = make_sampler(src["built"], src["spec"], members=src.pop("members"),
+                                          mesh=self.mesh)
         metas_ = [src["sampler"].meta for src in self.sources]
         assert len({m.samples_per_group for m in metas_}) == 1
         self.meta = SamplerMeta(
@@ -215,8 +265,7 @@ class UncertaintyInference:
             external_generative_members=external_generative_members,
             diffusion_num_steps=icfg.diffusion_num_steps,
             diffusion_sampler=icfg.diffusion_sampler)
-        self.sources.append({"built": built, "spec": spec,
-                             "sampler": make_sampler(built, spec, members=members)})
+        self.sources.append({"built": built, "spec": spec, "members": members})
 
     # ---- prediction -------------------------------------------------------
 
@@ -262,10 +311,13 @@ class UncertaintyInference:
             return {"skipped": True, "split": split}
         loader = BatchLoader(self._dataset(split), self.icfg.batch_size, drop_last=False)
         t0 = time.time()
-        # aborts the write pool if the loop raises; joins it and writes
-        # metrics.json on success
-        with ResultsWriter(out_dir, binary=self.built.num_classes == 2) as writer:
-            n_images = self._run_split_loop(loader, writer)
+        if is_primary():
+            # aborts the write pool if the loop raises; joins it and writes
+            # metrics.json on success
+            with ResultsWriter(out_dir, binary=self.built.num_classes == 2) as writer:
+                n_images = self._run_split_loop(loader, writer)
+        else:  # the other ranks sample their parts and write nothing
+            n_images = self._run_split_loop(loader, None)
         elapsed = time.time() - t0
         return {"split": split, "n_images": n_images, "seconds": elapsed,
                 "images_per_sec": n_images / elapsed if elapsed > 0 else float("nan"),
@@ -277,6 +329,9 @@ class UncertaintyInference:
         n_images = 0
         for batch, generator in zip(loader, self.batch_generators()):
             stack = self._sample_stack(self.normalize(batch["image"]), generator)
+            if writer is None:
+                n_images += int(np.count_nonzero(batch["valid"]))
+                continue
             gt = torch.from_numpy(batch["seg"]).to(self.device)
             results = self.metrics_fn(stack, gt, torch.from_numpy(batch["num_raters"])
                                       .to(self.device))

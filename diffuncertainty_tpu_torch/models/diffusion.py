@@ -25,6 +25,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel.mesh import draw_rows
+
 
 def _base_gamma(name: str, xp) -> Callable:
     """The base schedule on ``xp`` arrays (numpy on the host, torch on the
@@ -43,13 +45,15 @@ def _base_gamma(name: str, xp) -> Callable:
 def draw_t(diffusion: "ContinuousGaussianDiffusion", bs: int,
            generator: torch.Generator) -> torch.Tensor:
     """The (bs,) training times of one step (``diffusion.sample_t``)."""
-    return diffusion.sample_t(generator, bs)
+    return draw_rows(lambda n, g: diffusion.sample_t(g, n), bs, generator)
 
 
 def draw_eps(shape: tuple, generator: torch.Generator, dtype: torch.dtype) -> torch.Tensor:
     """Standard normals of ``shape`` on the generator's device: the training
-    noise, the start noise of a validation trajectory and the DDPM noise."""
-    return torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
+    noise, the start noise of a validation trajectory and the DDPM noise
+    (per row: ``draw_rows``)."""
+    return draw_rows(lambda n, g: torch.randn((n,) + tuple(shape[1:]), generator=g,
+                                              device=g.device, dtype=dtype), shape[0], generator)
 
 
 @dataclasses.dataclass(frozen=True)

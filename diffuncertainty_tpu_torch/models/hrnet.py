@@ -60,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum, draw_rows
 from .unet import ChannelDropout, SameDropout, UnetOutput
 
 MOMENTUM = 0.9  # flax's convention (torch momentum 0.1)
@@ -88,7 +89,13 @@ class BatchNorm(nn.Module):
     ``dtype``. With ``batch_stats`` (a dict: the train mode) it normalizes by
     the batch's statistics and records ``batch_stats[self] = (mean, var)``,
     the batch's float32 (at least) mean and biased variance; else by the
-    running ones."""
+    running ones. With ``group`` (a data-parallel process group, set by the
+    trainer through :func:`sync_batch_stats`) the batch is the group's global
+    batch: the per-channel (sum, sum of squares, count) are summed over it
+    before the normalization, and the variance is flax's
+    ``max(E[x^2] - mean^2, 0)``."""
+
+    group = None
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -104,6 +111,8 @@ class BatchNorm(nn.Module):
         if batch_stats is None:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=self.eps)
+        if self.group is not None:
+            return self._global_batch_norm(x, dtype, batch_stats)
         # normalized by the batch's biased variance, no buffer touched
         y = F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
         with torch.no_grad():
@@ -111,6 +120,29 @@ class BatchNorm(nn.Module):
                                        dim=(0, 2, 3), unbiased=False)
         batch_stats[self] = (mean, var)
         return y
+
+
+    def _global_batch_norm(self, x: torch.Tensor, dtype: torch.dtype,
+                           batch_stats: dict) -> torch.Tensor:
+        xf = x.to(torch.promote_types(dtype, torch.float32))
+        c = xf.shape[1]
+        count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                         count]), self.group)
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp(min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+        batch_stats[self] = (mean.detach(), var.detach())
+        return y.to(dtype)
+
+
+def sync_batch_stats(module: nn.Module, group) -> None:
+    """Take every BatchNorm's train-mode statistics over ``group``'s global
+    batch (None: this rank's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 def upsample_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -298,7 +330,9 @@ class HRNet(nn.Module):
     def draw_keep(self, branch: int, shape: tuple[int, ...], generator: torch.Generator,
                   device: torch.device) -> torch.Tensor:
         """Boolean keep mask of the final dropout for ``branch``, NHWC ``shape``."""
-        return torch.rand(shape, generator=generator, device=device) < 1.0 - self.spec.final_dropout
+        return draw_rows(lambda n, g: torch.rand((n,) + tuple(shape[1:]), generator=g,
+                                                 device=device), shape[0],
+                         generator) < 1.0 - self.spec.final_dropout
 
     def _keep(self, branch: int, br: torch.Tensor, generator) -> torch.Tensor:
         """The NHWC keep mask of ``branch``'s NCHW features ``br``."""

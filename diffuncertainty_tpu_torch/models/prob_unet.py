@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.specs import ProbUnetSpec
+from ..parallel.mesh import draw_rows
 from .unet import Conv, DiffUnet
 
 
@@ -41,8 +42,9 @@ class ProbUnetOutput(NamedTuple):
 
 def sample_latent(params: LatentParams, generator: torch.Generator) -> torch.Tensor:
     """mu + sigma * eps, eps ~ N(0, 1) drawn on the generator's device."""
-    eps = torch.randn(params.mu.shape, generator=generator, device=generator.device,
-                      dtype=params.mu.dtype)
+    shape = tuple(params.mu.shape)
+    eps = draw_rows(lambda n, g: torch.randn((n,) + shape[1:], generator=g, device=g.device,
+                                             dtype=params.mu.dtype), shape[0], generator)
     return params.mu + params.sigma * eps
 
 
@@ -165,17 +167,20 @@ def build_prob_unet(base_kwargs: dict[str, Any], spec: ProbUnetSpec) -> ProbUnet
 
 
 def elbo_loss(logits: torch.Tensor, target: torch.Tensor, kl: torch.Tensor, beta: float,
-              ignore_index: int | None = None
+              ignore_index: int | None = None, count=None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(-elbo, recon_ce, mean_kl)``: the cross entropy of NHWC ``logits``
     against (B, H, W) ``target`` (the mean over the pixels whose target is not
-    ``ignore_index`` when it is >= 0) plus ``beta`` times the mean of ``kl``."""
+    ``ignore_index`` when it is >= 0; ``count`` maps the count of those
+    pixels to the divisor, e.g. a data-parallel share) plus ``beta`` times
+    the mean of ``kl``."""
     num_classes = logits.shape[-1]
     log_probs = F.log_softmax(logits, dim=-1)
     picked = log_probs.gather(-1, target.long().clamp(0, num_classes - 1)[..., None])[..., 0]
     if ignore_index is not None and ignore_index >= 0:
         valid = (target != ignore_index).to(logits.dtype)
-        recon = -(picked * valid).sum() / valid.sum().clamp(min=1.0)
+        n = valid.sum() if count is None else count(valid.sum())
+        recon = -(picked * valid).sum() / n.clamp(min=1.0)
     else:
         recon = -picked.mean()
     mean_kl = kl.mean()

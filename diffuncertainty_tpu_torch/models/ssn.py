@@ -30,6 +30,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import draw_rows
+
 
 class SSNDistribution(NamedTuple):
     mean: torch.Tensor  # (B, N)
@@ -39,8 +41,11 @@ class SSNDistribution(NamedTuple):
 
 
 def draw_normal(shape: tuple, generator: torch.Generator, dtype: torch.dtype) -> torch.Tensor:
-    """Standard normals of ``shape``, drawn on the generator's device."""
-    return torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
+    """Standard normals of ``shape`` (S, rows, ...), drawn on the generator's
+    device (per row, axis 1: ``draw_rows``)."""
+    return draw_rows(lambda n, g: torch.randn((shape[0], n) + tuple(shape[2:]), generator=g,
+                                              device=g.device, dtype=dtype),
+                     shape[1], generator, axis=1)
 
 
 def _capacitance(cov_diag: torch.Tensor, cov_factor: torch.Tensor) -> torch.Tensor:

@@ -73,6 +73,7 @@ from ..ops.cuda_groupnorm import group_norm_act
 from ..ops.member_fold import member_conv2d, member_dense
 from ..ops.resample import downsample_avgpool2x, upsample2x
 from ..ops.time_embed import timestep_embedding
+from ..parallel.mesh import draw_rows
 
 
 @dataclasses.dataclass
@@ -283,8 +284,10 @@ class ChannelDropout(nn.Module):
 
     def draw_mask(self, shape: tuple[int, int], generator: torch.Generator,
                   device: torch.device) -> torch.Tensor:
-        """Boolean keep mask of ``shape`` (B, C)."""
-        return torch.rand(shape, generator=generator, device=device) < 1.0 - self.rate
+        """Boolean keep mask of ``shape`` (B, C) (per row: ``draw_rows``)."""
+        return draw_rows(lambda n, g: torch.rand((n,) + tuple(shape[1:]), generator=g,
+                                                 device=device), shape[0],
+                         generator) < 1.0 - self.rate
 
     def forward(self, x: torch.Tensor, generator) -> torch.Tensor:
         """``generator``: a ``torch.Generator``, or a :class:`SameDropout`

@@ -45,10 +45,20 @@ How members fold into blocks:
 image, reused across all of that member's samples (TTA rounds, diffusion
 trajectories) and every diffusion step (``models/unet.py::SameDropout``).
 
-A member-sharded layout over several cards (ROADMAP Queue 1 item 6) must
-win over an explicit ``member_chunk``: the JAX sampler lets the chunk
-override it (``sampler.py:152``), a fault the port does not copy; the port
-has no mesh yet.
+With a ``mesh`` (``parallel/mesh.py``, one rank per card) the sampler takes
+the global batch on every rank: each rank runs its ``data`` rows (every row
+when the batch does not split over the axis, as the JAX job leaves such a
+batch unsharded) and, for stacked members, its ``member`` slice of the
+stack, all of it in one block: a member axis sharded across ranks wins over
+an explicit ``member_chunk`` (the JAX sampler lets the chunk override it,
+``sampler.py:152``, a fault the port does not copy). The draws are the
+unsharded call's (``parallel/mesh.py::ShardedGenerator``: each rank draws
+the global shape and keeps its rows, member-major), so a seed gives the
+same stack whatever the layout, one block of all members being the
+unsharded reference. The parts are gathered (``all_gather_into_tensor``)
+and every rank returns the whole stack. The prob-U-Net and the HRNet have
+no member-folded form, so their stacks do not shard over members (that
+raises).
 
 Grouping as in the JAX sampler (``sampler.py:346-364, 391-405``): each member
 contributes one group of ``n_pred`` samples when it is generative or TTA is
@@ -71,6 +81,7 @@ from ..models import ssn
 from ..models.factory import AU_TYPES, BuiltModel
 from ..models.prob_unet import LatentParams, sample_latent
 from ..models.unet import Conv, Dense, DiffUnet, SameDropout
+from ..parallel.mesh import ShardedGenerator, draw_rows, gather, shard_member_stack
 from .tta import TTAConfig, apply_tta, invert_tta, sample_tta_params
 
 # "auto" for stacked members, by the stack's device type and the family:
@@ -116,8 +127,9 @@ class SamplerMeta(NamedTuple):
 
 def initial_noise(shape: tuple, generator: torch.Generator, dtype: torch.dtype) -> torch.Tensor:
     """Diffusion start noise ``x_init ~ N(0, 1)`` of ``shape``, drawn on the
-    generator's device."""
-    return torch.randn(shape, generator=generator, device=generator.device, dtype=dtype)
+    generator's device (per row: ``draw_rows``)."""
+    return draw_rows(lambda n, g: torch.randn((n,) + tuple(shape[1:]), generator=g,
+                                              device=g.device, dtype=dtype), shape[0], generator)
 
 
 def _tile_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -188,7 +200,7 @@ def cast_stack(module: nn.Module, members: dict[str, torch.Tensor]) -> dict[str,
 
 
 def make_sampler(built: BuiltModel, spec: SamplerSpec,
-                 members: dict[str, torch.Tensor] | None = None) -> Callable:
+                 members: dict[str, torch.Tensor] | None = None, mesh=None) -> Callable:
     """Build ``fn(images, generator) -> PredictionStack``.
 
     ``images``: (B, H, W, C_in) normalized inputs on the model's device;
@@ -204,6 +216,10 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
     member axis of ``spec.n_members`` (``core/params.py``,
     ``models/swag.py::sample_members``, ``models/subensemble.py``); required
     there and refused for every other mode.
+
+    ``mesh``: a ``parallel/mesh.py::Mesh`` of the ranks (see the module's
+    docstring); every rank calls the sampler with the same images and a
+    generator of the same seed.
 
     The returned function carries ``meta`` (the stack's grouping),
     ``blocks`` (the members of each forward) and ``modules`` (every module
@@ -230,7 +246,19 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
     # members per block
     foldable = isinstance(module, DiffUnet) and built.au_type != "prob_unet"
     chunk = spec.member_chunk
-    if stacked:
+    member_split = stacked and mesh is not None and mesh.size("member") > 1
+    if member_split:
+        if not foldable:
+            raise NotImplementedError(
+                f"a {built.au_type} {type(module).__name__} stack has no member-folded form: its "
+                f"members cannot shard over the mesh's member axis")
+        if spec.n_members % mesh.size("member"):
+            raise ValueError(f"{spec.n_members} members do not split over the mesh's member "
+                             f"axis of {mesh.size('member')}")
+        members = shard_member_stack(members, mesh)
+        n_members = spec.n_members // mesh.size("member")
+        chunk = None  # the rank's members in one block, whatever member_chunk says
+    elif stacked:
         if spec.member_fold and not spec.same_dropout and foldable:
             chunk = None
         elif chunk == "auto":
@@ -334,10 +362,25 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
         group_means = groups.mean(dim=1)
         return PredictionStack(groups, group_means, group_means.mean(dim=0))
 
+    def run_blocks(images, generator):
+        groups = [group_fn(forward, decode, k, images, generator) for k, forward, decode in runs]
+        return groups[0] if len(groups) == 1 else torch.cat(groups)
+
     @torch.no_grad()
     def sampler(images: torch.Tensor, generator: torch.Generator) -> PredictionStack:
-        groups = [group_fn(forward, decode, k, images, generator) for k, forward, decode in runs]
-        return finalize(groups[0] if len(groups) == 1 else torch.cat(groups))
+        if mesh is None:
+            return finalize(run_blocks(images, generator))
+        data = mesh.size("data") if images.shape[0] % mesh.size("data") == 0 else 1
+        if data > 1:
+            images = images[mesh.rows(images.shape[0], "data")]
+        member = (mesh.coord("member"), mesh.size("member")) if member_split else (0, 1)
+        groups = run_blocks(images, ShardedGenerator(
+            generator, images.shape[0], (mesh.coord("data") if data > 1 else 0, data), member))
+        if member_split:
+            groups = gather(groups, mesh, "member")
+        if data > 1:
+            groups = gather(groups, mesh, "data", dim=2)
+        return finalize(groups)
 
     sampler.meta = meta
     sampler.blocks = [k for _, k in blocks]

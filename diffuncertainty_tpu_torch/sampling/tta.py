@@ -24,6 +24,7 @@ from ..ops.warp import (
     warp_affine,
     warp_affine_separable,
 )
+from ..parallel.mesh import draw_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +47,15 @@ def sample_tta_params(cfg: TTAConfig, generator: torch.Generator, batch: int,
                       height: int, width: int) -> TTAParams:
     """Draw per-image flip/rotation/scale on ``generator``'s device."""
     dev = generator.device
-    flip = torch.rand(batch, generator=generator, device=dev) < cfg.hflip_p
+
+    def uniform():
+        return draw_rows(lambda n, g: torch.rand(n, generator=g, device=dev), batch, generator)
+
+    flip = uniform() < cfg.hflip_p
     lim = cfg.rotation_limit
-    angle = -lim + 2.0 * lim * torch.rand(batch, generator=generator, device=dev)
+    angle = -lim + 2.0 * lim * uniform()
     lo, hi = cfg.scale_limit
-    scale = 1.0 + (lo + (hi - lo) * torch.rand(batch, generator=generator, device=dev))
+    scale = 1.0 + (lo + (hi - lo) * uniform())
     center = ((width - 1) / 2.0, (height - 1) / 2.0)
     rot = rotation_matrix(angle, scale, center)  # (B, 2, 3)
     flip_m = hflip_matrix(width, dev).expand(batch, 2, 3)

@@ -14,6 +14,13 @@ its weights with a fresh optimizer. The port adds ``device=`` (``cuda`` by
 default, ``cpu`` when asked); without a card it raises, never falling back.
 Checkpoints are the port's (``core/checkpoint.py``), in the flax key layout,
 which ``python -m diffuncertainty_tpu_torch.infer`` reads.
+
+Data parallel: start one process per card with ``DU_COORDINATOR``,
+``DU_NUM_PROCESSES`` and ``DU_PROCESS_ID`` set (or under ``torchrun``) and
+``trainer.mesh_shape=[D,1]``; ``parallel/distributed.py::
+initialize_distributed`` joins them, each rank loads its strided shard of
+every epoch (``loader_shard``, ``data.batch_size`` rows a rank, as the JAX
+trainer's per-process batch), and the primary rank logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from ..core.checkpoint import load_checkpoint
 from ..core.config import ExperimentConfig, apply_overrides, load_config
 from ..data.dataset import MultiRaterDataset, load_splits
 from ..data.loader import BatchLoader
+from ..parallel.distributed import initialize_distributed, is_primary, loader_shard
 from .loop import Trainer
 
 USAGE = __doc__.split("\n\n")[1]
@@ -63,12 +71,13 @@ def parse_args(argv: list[str]) -> tuple[ExperimentConfig, dict]:
     return cfg, special
 
 
-def build_loaders(cfg: ExperimentConfig):
+def build_loaders(cfg: ExperimentConfig, mesh=None):
     """(train, val, train_eval) loaders: the shuffled train split (one random
-    rater per image, the tail dropped), the val split with every rater, or
-    ``validation_ratio`` of the train split carved off when the fold has no
-    val split, and with ``evaluate_training_data`` a random val-sized subset
-    of the train split."""
+    rater per image, the tail dropped; with a ``mesh``, this rank's shard of
+    it), the val split with every rater, or ``validation_ratio`` of the train
+    split carved off when the fold has no val split, and with
+    ``evaluate_training_data`` a random val-sized subset of the train
+    split."""
     data_dir = Path(cfg.data.data_input_dir)
     splits_path = cfg.data.splits_path or (
         data_dir / "splits" / cfg.data.split_name / "firstCycle" / "splits.pkl")
@@ -90,7 +99,7 @@ def build_loaders(cfg: ExperimentConfig):
         val_ds.subset(val_idx)
         train_ds.subset(set(range(n)) - val_idx)
     train_loader = BatchLoader(train_ds, cfg.data.batch_size, shuffle=True, seed=cfg.seed,
-                               drop_last=True)
+                               drop_last=True, process_shard=loader_shard(mesh))
     val_loader = BatchLoader(val_ds, cfg.data.val_batch_size, drop_last=False)
     train_eval_loader = None
     if cfg.data.evaluate_training_data:
@@ -119,15 +128,18 @@ def step_report(trainer: Trainer) -> str:
 
 def main(argv: list[str] | None = None) -> Trainer:
     cfg, special = parse_args(argv if argv is not None else sys.argv[1:])
-    print(f"Experiment: {cfg.auto_exp_name} (seed {cfg.seed}) on {special['device']}", flush=True)
+    # the rendezvous first: a no-op unless a coordinator is configured
+    initialize_distributed(device=special["device"])
+    say = print if is_primary() else (lambda *a, **k: None)
+    say(f"Experiment: {cfg.auto_exp_name} (seed {cfg.seed}) on {special['device']}", flush=True)
     trainer = Trainer(cfg, device=special["device"])
-    train_loader, val_loader, train_eval_loader = build_loaders(cfg)
+    train_loader, val_loader, train_eval_loader = build_loaders(cfg, trainer.mesh)
     resume_state, start_epoch = None, 0
     if special["resume_from"]:
         saved, _, meta = load_checkpoint(special["resume_from"])
         resume_state = trainer.restore_state(saved)
         start_epoch = int(meta["epoch"]) + 1
-        print(f"Resuming from epoch {start_epoch}", flush=True)
+        say(f"Resuming from epoch {start_epoch}", flush=True)
     elif special["ckpt_path"]:
         from ..core.params import flax_to_torch
 
@@ -136,10 +148,10 @@ def main(argv: list[str] | None = None) -> Trainer:
         # in place: the state's parameters are the module's
         trainer.built.module.load_state_dict(
             flax_to_torch(saved.get("params", saved.get("ema_params"))), strict=True)
-        print("Loaded weights (fresh optimizer state)", flush=True)
+        say("Loaded weights (fresh optimizer state)", flush=True)
     trainer.fit(train_loader, val_loader, train_eval_loader=train_eval_loader,
                 resume_state=resume_state, start_epoch=start_epoch)
     if trainer.step_seconds:
-        print(step_report(trainer), flush=True)
-    print(f"Done. Checkpoints at {trainer.workdir / 'checkpoints'}", flush=True)
+        say(step_report(trainer), flush=True)
+    say(f"Done. Checkpoints at {trainer.workdir / 'checkpoints'}", flush=True)
     return trainer

@@ -44,6 +44,20 @@ SSN families on the HRNet.
   one reverse trajectory with the config's sampler and steps (diffusion),
   which goes into the argmax and the GED as it is, as in the JAX trainer.
 
+Data parallel (``trainer.mesh_shape`` (d, m) with d * m ranks, one process
+per card; ``parallel/``): the state is replicated (rank 0's initial weights
+broadcast), each rank runs the step on its rows of the global batch (the
+CLI's loaders take ``loader_shard``), drawing what one process would draw
+for them (``parallel/mesh.py::ShardedGenerator``), and the gradients are
+averaged over the ``data`` axis before the clip; a loss normalized by a
+count of valid pixels divides by the rank's share of the global count
+(``train/losses.py::global_count``), and the HRNet's train-mode BatchNorm
+takes its moments over the global batch (``models/hrnet.py::
+sync_batch_stats``), as JAX's jit of the global step does. A member axis
+replicates. Validation runs the whole val split on every rank (its numbers
+are the single process's); checkpoints and the metric log are the primary
+rank's.
+
 Parameters stay float32 in the module; ``trainer.precision=bf16`` runs the
 forward in bf16 through both hand-written kernels, whose backwards are their
 twins' VJPs (``ops/cuda_attention.py``, ``ops/cuda_groupnorm.py``).
@@ -78,7 +92,10 @@ from ..metrics.ged import ged_binary
 from ..models import diffusion as diffusion_lib
 from ..models import swag as swag_lib
 from ..models.factory import BuiltModel, build_model
+from ..models.hrnet import sync_batch_stats
 from ..models.unet import flax_init_
+from ..parallel.distributed import is_primary
+from ..parallel.mesh import ShardedGenerator, make_mesh, replicate
 from .losses import make_loss_fn
 
 State = dict[str, torch.Tensor]
@@ -148,9 +165,9 @@ class Trainer:
         """``built``: the model to train (by default ``build_model(cfg)`` on
         ``device``), as the JAX trainer takes one."""
         tr = cfg.trainer
-        if tr.mesh_shape is not None and int(np.prod(tr.mesh_shape)) > 1:
-            raise NotImplementedError(f"trainer.mesh_shape={tuple(tr.mesh_shape)}: multi-device "
-                                      f"training is ROADMAP Queue 1 item 6")
+        self.mesh = (make_mesh(tuple(tr.mesh_shape), tuple(tr.mesh_axis_names))
+                     if tr.mesh_shape is not None and int(np.prod(tr.mesh_shape)) > 1 else None)
+        self.data_group = self.mesh.group("data") if self.mesh is not None else None
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -160,8 +177,12 @@ class Trainer:
         # by ssn_mean_only (only the SSN's pretraining epochs take True)
         self._loss_fns = {mean_only: make_loss_fn(
             self.built, ignore_index=cfg.data.ignore_index,
-            n_aleatoric_samples=cfg.model.n_aleatoric_samples, ssn_mean_only=mean_only)
-            for mean_only in (False, True)}
+            n_aleatoric_samples=cfg.model.n_aleatoric_samples, ssn_mean_only=mean_only,
+            data_group=self.data_group) for mean_only in (False, True)}
+        # validation runs the whole split on every rank: no group
+        self._eval_loss_fn = make_loss_fn(
+            self.built, ignore_index=cfg.data.ignore_index,
+            n_aleatoric_samples=cfg.model.n_aleatoric_samples)
         self.set_epoch(0)
         self.workdir = Path(workdir) if workdir is not None else (
             Path(cfg.save_dir) / cfg.auto_exp_name / str(cfg.version or "version_0"))
@@ -203,7 +224,7 @@ class Trainer:
     def fresh_state(self) -> TrainState:
         """The module's current weights (and BatchNorm statistics) with a
         fresh optimizer (step 0), the EMA a copy of them, fresh SWAG moments."""
-        params = dict(self.built.module.named_parameters())
+        params = replicate(dict(self.built.module.named_parameters()), self.mesh)
         zeros = {k: torch.zeros_like(p) for k, p in params.items()}
         ema = {k: p.detach().clone() for k, p in params.items()} if self.track_ema else None
         self._init_swag(params)
@@ -289,11 +310,28 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: dict, generator: torch.Generator
                    ) -> tuple[TrainState, dict]:
-        loss, aux = self.forward_loss(batch, generator)
-        grads = self.gradients(state, loss)
+        """One step on ``batch`` (data parallel: this rank's rows of the
+        global batch) with the draws of ``generator``."""
+        aux, grads = self.step_gradients(state, batch, generator)
         state, grad_norm = self.apply_gradients(state, grads)
         self.commit_model_state(state, aux.pop("model_state", None))
         return state, {**{k: v.detach() for k, v in aux.items()}, "grad_norm": grad_norm}
+
+    def step_gradients(self, state: TrainState, batch: dict, generator: torch.Generator
+                       ) -> tuple[dict, list[torch.Tensor]]:
+        """The step's aux and gradients (``state.params`` order); data
+        parallel, both averaged over the ``data`` axis, the HRNet's BatchNorm
+        moments taken over the global batch (in the forward and in a remat's
+        recompute)."""
+        sync_batch_stats(self.built.module, self.data_group)
+        try:
+            loss, aux = self.forward_loss(batch, generator)
+            grads = self.average_over_data(self.gradients(state, loss))
+        finally:
+            sync_batch_stats(self.built.module, None)
+        if self.data_group is not None:
+            aux["loss"] = self.average_over_data([aux["loss"].detach()])[0]
+        return aux, grads
 
     @staticmethod
     @torch.no_grad()
@@ -309,6 +347,9 @@ class Trainer:
         dev = self.device
         images = torch.as_tensor(batch["image"]).to(dev)
         seg = torch.as_tensor(batch["seg"]).to(dev)
+        if self.mesh is not None:
+            generator = ShardedGenerator(generator, images.shape[0], (
+                self.mesh.coord("data"), self.mesh.size("data")))
         if seg.ndim == 3:  # single-rater targets: the whole train pipeline
             images, seg = augment_batch(self.aug_cfg, generator, images, seg)
         else:  # multi-rater targets: normalize only
@@ -319,6 +360,17 @@ class Trainer:
         return torch.utils.checkpoint.checkpoint(
             self.loss_fn, *args, use_reentrant=False,
             context_fn=functools.partial(generator_replay, generator))
+
+    def average_over_data(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The mean of each tensor over the ``data`` axis (one all-reduce of
+        them all); the tensors themselves without a data axis."""
+        if self.data_group is None:
+            return tensors
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        torch.distributed.all_reduce(flat, group=self.data_group)
+        flat /= self.mesh.size("data")
+        return [part.view_as(t) for part, t in zip(flat.split([t.numel() for t in tensors]),
+                                                    tensors)]
 
     def gradients(self, state: TrainState, loss: torch.Tensor) -> list[torch.Tensor]:
         """d(loss)/d(every parameter), in ``state.params`` order (zeros for
@@ -410,7 +462,7 @@ class Trainer:
         if use_ema and state.ema_params is not None:
             module = copy.deepcopy(module)
             module.load_state_dict({**state.ema_params, **(state.model_state or {})})
-        loss_fn, sched = self._loss_fns[False], self.sched_for_epoch(epoch)
+        loss_fn, sched = self._eval_loss_fn, self.sched_for_epoch(epoch)
         dev = self.device
         num_classes = self.built.num_classes
         ignore = self.cfg.data.ignore_index
@@ -527,10 +579,14 @@ class Trainer:
         return d
 
     def _save_last(self, state: TrainState, epoch: int) -> None:
+        if not is_primary():  # the state is replicated: the primary writes it
+            return
         save_checkpoint(self._ckpt_dir() / "last", self.full_state_dict(state), self.cfg,
                         epoch=epoch, kind="full")
 
     def _save_scheduled(self, state: TrainState, epoch: int) -> None:
+        if not is_primary():
+            return
         ms = state.model_state or {}
         if self.cfg.ema.only_save_ema and state.ema_params is not None:
             payload, kind = {"ema_params": torch_to_flax({**state.ema_params, **ms})}, "ema_only"
@@ -542,6 +598,8 @@ class Trainer:
                         kind=kind)
 
     def _log(self, record: dict) -> None:
+        if not is_primary():  # every rank's record is the same
+            return
         if self._logger is None:
             from ..utils.loggers import MetricLogger
 

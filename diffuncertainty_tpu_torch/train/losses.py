@@ -30,29 +30,45 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..metrics.dice import soft_dice_loss
 from ..models import ssn as ssn_lib
 from ..models.factory import BuiltModel
 from ..models.prob_unet import elbo_loss, kl_diag_gaussians, sample_latent
+from ..parallel.mesh import all_reduce_sum, draw_rows
 
 
-def masked_ce(logits: torch.Tensor, target: torch.Tensor, ignore_index: int | None) -> torch.Tensor:
+def global_count(count: torch.Tensor, group) -> torch.Tensor:
+    """A count of this rank's rows as the rank's share of the data-parallel
+    global batch's: the global count over the group's size (``count`` itself
+    without a group), so that the mean of the ranks' ``sum / share`` is the
+    global batch's mean."""
+    if group is None:
+        return count
+    return all_reduce_sum(count.detach(), group) / dist.get_world_size(group)
+
+
+def masked_ce(logits: torch.Tensor, target: torch.Tensor, ignore_index: int | None,
+              group=None) -> torch.Tensor:
     """Cross entropy of NHWC logits against (B, H, W) targets, the mean over
-    the pixels whose target is not ``ignore_index``."""
+    the pixels whose target is not ``ignore_index`` (over the data-parallel
+    ``group``'s global batch: :func:`global_count`)."""
     c = logits.shape[-1]
     logp = F.log_softmax(logits, dim=-1)
     picked = logp.gather(-1, target.long().clamp(0, c - 1)[..., None])[..., 0]
     if ignore_index is None:
         return -picked.mean()
     valid = (target != ignore_index).to(logits.dtype)
-    return -(picked * valid).sum() / valid.sum().clamp(min=1.0)
+    return -(picked * valid).sum() / global_count(valid.sum(), group).clamp(min=1.0)
 
 
 def draw_rater(batch: int, raters: int, generator: torch.Generator) -> torch.Tensor:
-    """(B,) rater indices, uniform in [0, raters), on the generator's device."""
-    return torch.randint(0, raters, (batch,), generator=generator, device=generator.device)
+    """(B,) rater indices, uniform in [0, raters), on the generator's device
+    (per row: ``draw_rows``)."""
+    return draw_rows(lambda n, g: torch.randint(0, raters, (n,), generator=g, device=g.device),
+                     batch, generator)
 
 
 def select_random_rater(seg: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -65,13 +81,18 @@ def select_random_rater(seg: torch.Tensor, generator: torch.Generator) -> torch.
 
 
 def make_loss_fn(built: BuiltModel, *, ignore_index: int = -1, n_aleatoric_samples: int = 10,
-                 ssn_mean_only: bool = False) -> Callable:
+                 ssn_mean_only: bool = False, data_group=None) -> Callable:
     """``loss_fn(module, batch, generator, sched=None) -> (loss, aux)``:
     ``batch`` holds ``image`` (B, H, W, C) preprocessed inputs and ``seg``
     (B, H, W) or (B, R, H, W) labels; ``module`` is ``built.module`` or a
     module of its architecture; every draw (dropout masks, the rater, the
     family's own) comes from ``generator``. ``sched`` holds the epoch's
-    ``beta`` (prob-U-Net; the spec's ``beta`` when absent)."""
+    ``beta`` (prob-U-Net; the spec's ``beta`` when absent).
+
+    ``data_group``: the process group a data-parallel step averages its
+    gradients over; a loss normalized by a count of valid pixels then
+    divides by the rank's share of the global batch's count, so that the
+    mean of the ranks' losses is the loss of the global batch."""
     au = built.au_type
     num_classes = built.num_classes
     # the reference's convention: ignore_index 0 means "no ignore" (and the
@@ -93,7 +114,7 @@ def make_loss_fn(built: BuiltModel, *, ignore_index: int = -1, n_aleatoric_sampl
             logits = out.logits
             target = select_random_rater(batch["seg"], generator)
             if use_ignore:
-                loss = masked_ce(logits, target, ignore_index)
+                loss = masked_ce(logits, target, ignore_index, data_group)
             else:
                 loss = (soft_dice_loss(torch.softmax(logits, dim=-1), target)
                         + masked_ce(logits, target, None))
@@ -154,7 +175,8 @@ def make_loss_fn(built: BuiltModel, *, ignore_index: int = -1, n_aleatoric_sampl
             logits = module.decode(out.features, sample_latent(out.posterior, generator))
             kl = kl_diag_gaussians(out.posterior, out.prior)
             beta = (sched or {}).get("beta", spec.beta)
-            neg_elbo, recon, mean_kl = elbo_loss(logits, target, kl, beta, ignore_index=ce_ignore)
+            neg_elbo, recon, mean_kl = elbo_loss(logits, target, kl, beta, ignore_index=ce_ignore,
+                                                 count=lambda c: global_count(c, data_group))
             # the L2 regularizer of the reference over the latent nets and the fcomb
             reg = sum((p ** 2).sum() for name, p in module.named_parameters()
                       if name.split(".", 1)[0] in ("prior", "posterior", "fcomb"))

@@ -454,7 +454,8 @@ def test_h_cli_jobs_and_the_cli_run_equal_jax(softmax_pair, tmp_path, monkeypatc
     for name in evaluated:
         assert_json_close(*(json.loads((tmp_path / side / version / name).read_text())
                             for side in ("port", "jax")), str(name))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # a (data, member) mesh must cover the process group's ranks: one here
+    with pytest.raises(ValueError, match="covers every rank"):
         t_cli.main(argv + ["--mesh_shape", "2", "1", "--device", "cpu"])
 
 
@@ -464,12 +465,13 @@ def test_the_job_runs_on_the_card_by_default_and_never_falls_back(softmax_pair, 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         UncertaintyInference([dst], InferenceConfig())
-    # member_chunk is ported: an int runs, a bad one raises; the mesh still raises
+    # member_chunk is ported: an int runs, a bad one raises; a mesh larger
+    # than the process group (one rank here) raises
     assert UncertaintyInference([dst], InferenceConfig(member_chunk=1, device="cpu")
                                 ).spec.member_chunk == 1
     with pytest.raises(ValueError, match="member_chunk"):
         UncertaintyInference([dst], InferenceConfig(member_chunk=0, device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="covers every rank"):
         UncertaintyInference([dst], InferenceConfig(mesh_shape=(2, 1), device="cpu"))
 
 

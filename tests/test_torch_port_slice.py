@@ -177,7 +177,7 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "print(len(mods))\n"
         "for entry in ('infer', 'train', 'evaln.experiments', 'tools.values_study',\n"
         "              'tools.report', 'data.lidc_import', 'data.lidc_raw', 'data.toy3d',\n"
-        "              'data.npc', 'tools.import_reference_checkpoint'):\n"
+        "              'data.npc', 'tools.import_reference_checkpoint', 'data.retina'):\n"
         "    sys.argv = [entry, '--help']\n"
         "    try:\n"
         "        runpy.run_module('diffuncertainty_tpu_torch.' + entry, run_name='__main__')\n"
@@ -196,6 +196,7 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
     assert "--quick" in usage and "--no-seed-grouping" in usage
     assert "--pickle-path" in usage and "--save_path" in usage and "--save-root" in usage
     assert "{process,splits,ood}" in usage and "--ckpt" in usage
+    assert "{chaksu,chaksu-splits,clean-riga,riga,refuge,retina-splits}" in usage
 
 
 def test_no_forbidden_imports_or_library_kernels_in_the_port():
@@ -218,7 +219,10 @@ def test_no_forbidden_imports_or_library_kernels_in_the_port():
             port / "data" / "lidc_import.py", port / "data" / "toy3d.py",
             port / "data" / "npc.py", port / "data" / "native_loader.py",
             port / "core" / "torch_import.py", port / "tools" / "import_reference_checkpoint.py",
-            port / "tools" / "bench_weights.py", port / "utils" / "profiling.py"} <= set(files)
+            port / "tools" / "bench_weights.py", port / "utils" / "profiling.py",
+            port / "data" / "retina.py", port / "data" / "jpeg_decode.py",
+            port / "infer" / "image_io.py", port / "parallel" / "__init__.py",
+            port / "parallel" / "mesh.py", port / "parallel" / "distributed.py"} <= set(files)
     for path in files:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             assert not bad_import.match(line), f"{path}:{n}: {line}"
@@ -234,7 +238,8 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
 
     assert chip_smoke.parse_paths([]) == chip_smoke.PATHS == (
         "softmax", "diffusion", "ssn", "prob_unet", "ensemble", "ensemble_folded", "unet256",
-        "hrnet", "multiclass", "infer", "eval", "lidc_import", "study", "train",
+        "hrnet", "multiclass", "infer", "eval", "lidc_import", "multidevice", "retina",
+        "study", "train",
         "train_diffusion", "train_ssn", "train_prob_unet", "train_hrnet", "train_subensemble",
         "train_multiclass", "train_swag", "train_ensemble")
     assert chip_smoke.parse_paths(["--paths", "multiclass,hrnet"]) == ("hrnet", "multiclass")
@@ -248,6 +253,12 @@ def test_chip_smoke_paths_argument(monkeypatch, tmp_path):
     assert chip_smoke.PATH_ASSETS["lidc_import"] == chip_smoke.PATH_ASSETS["softmax"]
     assert chip_smoke.parse_paths(["--paths", "lidc_import,eval,infer"]) == (
         "infer", "eval", "lidc_import")
+    # two ranks run the softmax asset's job and step: it rides with infer; the
+    # retina pipelines read the committed JPEG fixtures and no asset
+    assert chip_smoke.PATH_ASSETS["multidevice"] == chip_smoke.PATH_ASSETS["softmax"]
+    assert chip_smoke.PATH_ASSETS["retina"] is None
+    assert chip_smoke.parse_paths(["--paths", "retina,multidevice,infer"]) == (
+        "infer", "multidevice", "retina")
     # the study trains its own nets on generated data: it rides either group
     assert chip_smoke.PATH_ASSETS["study"] is None
     assert chip_smoke.parse_paths(["--paths", "train,study,hrnet"]) == ("hrnet", "study", "train")

@@ -308,8 +308,14 @@ def test_loader_order_and_raters_match_the_jax_python_path(toy_dir):
     jl = JLoader(JDataset(splits(toy_dir), toy_dir, **kw), 8, shuffle=True, use_native=False)
     tl = TLoader(TDataset(splits(toy_dir), toy_dir, **kw), 8, shuffle=True, drop_last=False)
     assert_same_batches(list(jl), list(tl))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TLoader(TDataset(splits(toy_dir), toy_dir, split="val"), 4, process_shard=(0, 2))
+    # a process's shard: the strided slice of the shared order, wrap-padded
+    for shard in ((0, 2), (1, 2), (2, 3)):
+        jl = JLoader(JDataset(splits(toy_dir), toy_dir, split="train"), 3, shuffle=True,
+                     drop_last=False, use_native=False, process_shard=shard)
+        tl = TLoader(TDataset(splits(toy_dir), toy_dir, split="train"), 3, shuffle=True,
+                     drop_last=False, process_shard=shard)
+        assert len(jl) == len(tl)
+        assert_same_batches(list(jl), list(tl))
 
 
 class FakeJaxRandom:
@@ -447,13 +453,14 @@ def test_parse_args_matches_jax(monkeypatch):
 
 
 def test_the_trainer_refuses_what_is_not_ported_and_a_missing_card(toy_dir, tmp_path):
-    """Multi-device training (ROADMAP Queue 1 item 6) and a missing card.
+    """A data-parallel mesh larger than the process group (one rank here)
+    and a missing card.
     ``trainer.remat``, ``eu_method.name=subensemble`` and the HRNet train
     now (``test_torch_port_remat.py``, ``test_torch_port_subensemble_train.py``,
     ``test_torch_port_train_hrnet.py``)."""
     tcfg, _ = t_cli.parse_args(tokens(toy_dir, tmp_path, "trainer.mesh_shape=[2,1]")
                                + ["device=cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="covers every rank"):
         TTrainer(tcfg, device="cpu", workdir=tmp_path / "w")
     if not torch.cuda.is_available():
         tcfg, _ = t_cli.parse_args(tokens(toy_dir, tmp_path))
