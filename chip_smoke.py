@@ -2180,6 +2180,7 @@ def phase_lidc_import(smi: str, attn_checked: set, norm_checked: set):
     if not all(torch.equal(maps[0][k], maps[1][k]) for k in ("TU", "AU", "EU")):
         raise AssertionError("lidc_import: the imported checkpoint's heatmaps differ from the "
                              "asset-built sampler's")
+    augment = host_augmentations(images[0].float().cpu().numpy())
     img_s = sum(got_counts.values()) / walls["job_inference_s"]
     log(f"lidc_import on {smi}: scans {walls['scans_s']:.1f}s, crops {walls['crops_s']:.1f}s, "
         f"importer {walls['import_s']:.1f}s, conversion {walls['convert_s']:.1f}s, the job "
@@ -2187,9 +2188,47 @@ def phase_lidc_import(smi: str, attn_checked: set, norm_checked: set):
         f"(inference {walls['job_inference_s']:.1f}s, {img_s:.2f} img/s with writes), OoD "
         f"pairing {walls['ood_auroc_s']:.2f}s; max |TU-AU-EU| {decomp:.2e}; heatmaps equal "
         f"the asset-built sampler's; native reads {want_reads}; new kernel shapes "
-        f"{len(new_attn)} / {len(new_norm)}")
+        f"{len(new_attn)} / {len(new_norm)}; the host's rater simulators {augment}")
     return launches, {"walls": walls, "img_s": img_s, "images": got_counts, "crops": n_crops,
-                      "auroc": aurocs, "loading": loading}, (new_attn, new_norm)
+                      "auroc": aurocs, "loading": loading, "augment_extra": augment}, (
+                          new_attn, new_norm)
+
+
+def host_augmentations(image) -> dict:
+    """The host's rater-disagreement simulators and z-score
+    (``data/augment_extra.py``, numpy and scipy) once on one image and
+    nested labels 1..3 of its size: each output's shape, dtype and labels,
+    the share of pixels each deformation moved and its host time."""
+    import numpy as np
+
+    from diffuncertainty_tpu_torch.data import augment_extra
+
+    h, w = image.shape[:2]
+    yy, xx = np.mgrid[:h, :w]
+    r2 = (yy - h / 2) ** 2 + (xx - w / 2) ** 2
+    labels = sum(((r2 < (f * min(h, w)) ** 2).astype(np.uint8) for f in (0.35, 0.25, 0.15)),
+                 np.zeros((h, w), np.uint8))
+    rng = np.random.default_rng(17)
+    out, stats = {}, {}
+    for name, fn in (
+            ("sample_normalize", lambda: augment_extra.sample_normalize(image)),
+            ("intensity_guided_sdf_deform",
+             lambda: augment_extra.intensity_guided_sdf_deform(image, labels, rng)),
+            ("mask_elastic_deform", lambda: augment_extra.mask_elastic_deform(labels, rng))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        stats[name] = {"ms": (time.perf_counter() - t0) * 1e3}
+    z = out.pop("sample_normalize")
+    if z.shape != image.shape or abs(float(z.mean())) > 1e-4 or abs(float(z.std()) - 1) > 1e-3:
+        raise AssertionError(f"sample_normalize: shape {z.shape}, mean {z.mean()}, std {z.std()}")
+    for name, m in out.items():
+        if m.shape != labels.shape or m.dtype != labels.dtype or not set(
+                np.unique(m).tolist()) <= {0, 1, 2, 3}:
+            raise AssertionError(f"{name}: {m.shape} {m.dtype} labels {np.unique(m)}")
+        stats[name]["moved"] = float((m != labels).mean())
+        if not stats[name]["moved"] > 0:
+            raise AssertionError(f"{name} moved no pixel")
+    return stats
 
 
 RETINA_FIXTURES = REPO / "tests" / "fixtures" / "retina_jpeg"
@@ -2416,45 +2455,72 @@ def phase_retina(smi: str, attn_checked: set, norm_checked: set):
 
 
 MULTIDEVICE_TIMEOUT_S = 480
-MULTIDEVICE_ENSEMBLE = 4  # members of the deep ensemble the member axis splits
-MULTIDEVICE_JOBS = {  # (checkpoints, InferenceConfig fields): 128 rows a rank a call
-    "job21": ("dropout", dict(n_pred=1, n_models=MEMBERS, mesh_shape=(2, 1))),
-    "job12": ("ensemble", dict(n_pred=4, mesh_shape=(1, 2), member_chunk=1)),
+MULTIDEVICE_ENSEMBLE = 4  # members of each deep ensemble the member axis splits
+# (checkpoints, InferenceConfig fields, (attention, GroupNorm) launches a rank
+# a call): the softmax jobs run 128 rows a rank a call; the prob-U-Net's and
+# the HRNet's stacks have no member-folded form, so a rank runs its two
+# members one a block (the prob-U-Net twice its one-member 16 / 81)
+MULTIDEVICE_JOBS = {
+    "job21": ("dropout", dict(n_pred=1, n_models=MEMBERS, mesh_shape=(2, 1)), (11, 56)),
+    "job12": ("ensemble", dict(n_pred=4, mesh_shape=(1, 2), member_chunk=1), (11, 56)),
+    "prob_unet12": ("prob_unet", dict(n_pred=SAMPLES, mesh_shape=(1, 2), member_chunk=1),
+                    tuple(2 * n for n in GENERATIVE16_LAUNCHES["prob_unet"])),
+    "hrnet12": ("hrnet", dict(n_pred=4, mesh_shape=(1, 2), member_chunk=1), (0, 0)),
 }
 
 
 def multidevice_inputs(work: Path) -> dict:
     """What both ranks and the single-process reference read: the softmax
-    asset as a job checkpoint (MC-dropout), a four-member deep ensemble of
-    it (noise on every leaf, seeded), the first 16 images of the toy-128
-    ``id`` split and one global training batch."""
+    asset as a job checkpoint (MC-dropout), four-member deep ensembles of
+    it and of the prob-U-Net asset (noise on every leaf, seeded) and of
+    seeded hrnet-s weights (each member its own init), all bf16, the first
+    16 images of the toy-128 ``id`` split and one global training batch."""
     import numpy as np
+    import torch
 
     from diffuncertainty_tpu_torch.core.checkpoint import save_checkpoint
     from diffuncertainty_tpu_torch.core.config import load_config
-    from diffuncertainty_tpu_torch.core.params import load_params_npz
+    from diffuncertainty_tpu_torch.core.params import load_params_npz, torch_to_flax
     from diffuncertainty_tpu_torch.data.loader import BatchLoader
+    from diffuncertainty_tpu_torch.models.factory import build_model
+    from diffuncertainty_tpu_torch.models.unet import flax_init_
     from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
 
     ckpt, ds = softmax_job_checkpoint(work)
-    params = load_params_npz(ASSET)
-    cfg = load_config(data="lidc128", network="unet16", model="softmax", eu_method="ensemble",
-                      precision="bf16", overrides={"data": {
-                          "data_input_dir": str(ds.base_dir), "split_name": "default"}})
     rng = np.random.default_rng(5)
+
+    def config(network, model):
+        return load_config(data="lidc128", network=network, model=model, eu_method="ensemble",
+                           precision="bf16", overrides={"data": {
+                               "data_input_dir": str(ds.base_dir), "split_name": "default"}})
 
     def noisy(tree):
         return {k: noisy(v) if isinstance(v, dict) else
                 (v * (1 + 0.02 * rng.standard_normal(v.shape))).astype(v.dtype)
                 for k, v in tree.items()}
 
-    ens = [save_checkpoint(work / f"ens{i}" / "checkpoints" / "last", {"params": noisy(params)},
-                           cfg, epoch=0) for i in range(MULTIDEVICE_ENSEMBLE)]
+    def ensemble(name, cfg, member_params):
+        return [save_checkpoint(work / f"{name}{i}" / "checkpoints" / "last",
+                                {"params": member_params(i)}, cfg, epoch=0)
+                for i in range(MULTIDEVICE_ENSEMBLE)]
+
+    hrnet_cfg = config("hrnet-s", "softmax")
+    hrnet = build_model(hrnet_cfg, device="cpu").module
+
+    def hrnet_member(i):
+        flax_init_(hrnet, torch.Generator().manual_seed(300 + i))
+        return torch_to_flax({k: v.float() for k, v in hrnet.state_dict().items()})
+
+    params, prob_unet = load_params_npz(ASSET), load_params_npz(ASSET_PROB_UNET)
+    ens = ensemble("ens", config("unet16", "softmax"), lambda i: noisy(params))
+    members = {"prob_unet": ensemble("prob_unet", config("unet16", "prob_unet"),
+                                     lambda i: noisy(prob_unet)),
+               "hrnet": ensemble("hrnet", hrnet_cfg, hrnet_member)}
     tcfg, _ = parse_args(train_tokens(ds.base_dir, work / "train"))
     batch = next(iter(build_loaders(tcfg)[0]))
     np.savez(work / "train_batch.npz", image=batch["image"], seg=batch["seg"])
     first = next(iter(BatchLoader(ds, BATCH, drop_last=False)))
-    return {"dropout": [ckpt], "ensemble": ens, "images": first["image"],
+    return {"dropout": [ckpt], "ensemble": ens, **members, "images": first["image"],
             "train_tokens": train_tokens(ds.base_dir, work / "train")}
 
 
@@ -2463,7 +2529,9 @@ def multidevice_rank(work: Path) -> int:
     --multidevice-rank WORKDIR``, started by :func:`phase_multidevice` with
     ``DU_*`` set): each job layout's kernel sites checked against the twins,
     one counted call (its launches), and rank 0 writes the gathered stack's
-    heatmaps; then the data-parallel bf16 step's gradients and loss."""
+    heatmaps; then the data-parallel trainer's validation of the asset's
+    weights (each val batch sharded over ``data``) and its bf16 step's
+    gradients and loss."""
     import numpy as np
     import torch
 
@@ -2471,7 +2539,7 @@ def multidevice_rank(work: Path) -> int:
     from diffuncertainty_tpu_torch.infer.runner import InferenceConfig, UncertaintyInference
     from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
     from diffuncertainty_tpu_torch.parallel.distributed import initialize_distributed, process_info
-    from diffuncertainty_tpu_torch.train.cli import parse_args
+    from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
     from diffuncertainty_tpu_torch.train.loop import Trainer
 
     sys.path.insert(0, str(REPO))
@@ -2481,7 +2549,7 @@ def multidevice_rank(work: Path) -> int:
     inputs = json.loads((work / "inputs.json").read_text())
     report = {"rank": rank, "world": world, "backend": backend, "launches": {}, "ms": {}}
     attn_checked, norm_checked = set(), set()
-    for name, (source, fields) in MULTIDEVICE_JOBS.items():
+    for name, (source, fields, (n_attn, n_norm)) in MULTIDEVICE_JOBS.items():
         job = UncertaintyInference([Path(p) for p in inputs[source]], InferenceConfig(
             tta=True, batch_size=BATCH, seed=777, save_dir=str(work / "unused"), **fields))
         images = job.normalize(np.load(work / "images.npy"))
@@ -2491,7 +2559,8 @@ def multidevice_rank(work: Path) -> int:
         report.setdefault("norm_cases", []).extend(norm_cases)
         stack, launches, *_ = counted_call(job.built, job._sample_stack, images, 777)
         check_launches(f"multidevice {name} rank {rank}", launches,
-                       {"qkv_attention": 11, "group_norm_act": 56})
+                       {"qkv_attention": n_attn, "group_norm_act": n_norm})
+        report.setdefault("blocks", {})[name] = job.sampler.blocks
         report["launches"][name] = launches
         report["mesh"] = {**report.get("mesh", {}), name: dict(job.mesh.shape)}
         times = []
@@ -2512,6 +2581,7 @@ def multidevice_rank(work: Path) -> int:
     trainer = Trainer(cfg, device="cuda", workdir=work / f"train_rank{rank}")
     load_into(trainer.built.module, ASSET)
     state = trainer.fresh_state()
+    report["val"] = trainer.evaluate(state, build_loaders(cfg)[1], epoch=0)
     batch = dict(np.load(work / "train_batch.npz"))
     rows = trainer.mesh.rows(batch["image"].shape[0], "data")
     local = {k: v[rows] for k, v in batch.items()}
@@ -2533,12 +2603,15 @@ def phase_multidevice(smi: str, attn_checked: set, norm_checked: set):
     refuses two ranks on one device), each a ``chip_smoke.py
     --multidevice-rank`` process: the job at mesh (2, 1) (the MC-dropout
     asset, 16 members x TTA) and (1, 2) (a four-member ensemble of it, two a
-    rank in one block although ``member_chunk=1``) on the toy-128 16-image
-    batch, each rank's calls counted (11 / 56), and one bf16 data-parallel
-    step at (2, 1); held against this process's single-process job and step
-    on the same seed (heatmaps and mean to the port's bf16 call tolerance,
-    each gradient leaf to STEP_GRAD_TOL); then a world-size-1 NCCL group
-    through ``initialize_distributed``."""
+    rank in one block although ``member_chunk=1``; four-member prob-U-Net
+    (the asset's widths, 16 latent draws) and hrnet-s (x TTA) ensembles, two
+    a rank one at a time) on the toy-128 16-image batch, each rank's calls
+    counted (11 / 56, 32 / 162 and 0 / 0), and the data-parallel trainer at
+    (2, 1): its validation and one bf16 step; held against this process's
+    single-process jobs, validation and step on the same seed (heatmaps and
+    mean to the port's bf16 call tolerance, every validation number to the
+    step's loss tolerance, each gradient leaf to STEP_GRAD_TOL); then a
+    world-size-1 NCCL group through ``initialize_distributed``."""
     import os
     import socket
     import tempfile
@@ -2550,7 +2623,7 @@ def phase_multidevice(smi: str, attn_checked: set, norm_checked: set):
     from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
     from diffuncertainty_tpu_torch.parallel.distributed import initialize_distributed
     from diffuncertainty_tpu_torch.core.params import load_into
-    from diffuncertainty_tpu_torch.train.cli import parse_args
+    from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
     from diffuncertainty_tpu_torch.train.loop import Trainer
 
     def free_port() -> int:
@@ -2594,10 +2667,11 @@ def phase_multidevice(smi: str, attn_checked: set, norm_checked: set):
         reports = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
         for r, rep in enumerate(reports):
             log(f"multidevice rank {r} ({rep['backend']}, world {rep['world']}): launches a "
-                f"call {rep['launches']}, ms a call {rep['ms']}, mesh {rep['mesh']}")
-        # the single-process job and step, same seeds
+                f"call {rep['launches']}, ms a call {rep['ms']}, mesh {rep['mesh']}, blocks "
+                f"{rep['blocks']}")
+        # the single-process jobs, validation and step, same seeds
         images = np.load(work / "images.npy")
-        for name, (source, fields) in MULTIDEVICE_JOBS.items():
+        for name, (source, fields, _) in MULTIDEVICE_JOBS.items():
             job = UncertaintyInference(inputs[source], InferenceConfig(
                 tta=True, batch_size=BATCH, seed=777, save_dir=str(work / "unused"),
                 **{**fields, "mesh_shape": None, "member_chunk": None}))
@@ -2623,6 +2697,14 @@ def phase_multidevice(smi: str, attn_checked: set, norm_checked: set):
         trainer = Trainer(cfg, device="cuda", workdir=work / "train_single")
         load_into(trainer.built.module, ASSET)
         state = trainer.fresh_state()
+        val = trainer.evaluate(state, build_loaders(cfg)[1], epoch=0)
+        val_ranks = [rep["val"] for rep in reports]
+        log(f"multidevice validation at (2, 1) vs one process: {val_ranks} vs {val}")
+        if (val_ranks[0] != val_ranks[1] or set(val_ranks[0]) != set(val)
+                or any(abs(val_ranks[0][k] - v) > 1e-2 * abs(v) for k, v in val.items())):
+            raise AssertionError("multidevice: the data-parallel validation differs from the "
+                                 "single-process validation")
+        out["validation"] = {"single": val, "ranks": val_ranks[0]}
         batch = dict(np.load(work / "train_batch.npz"))
         aux, grads = trainer.step_gradients(state, batch, torch.Generator("cuda").manual_seed(7))
         null = null_gradient_leaves(trainer, state, batch)

@@ -1,8 +1,13 @@
 """Host-side augmentations (port of ``diffuncertainty_tpu/data/augment_extra.py``):
 the label-space ambiguity of street scenes (``stochastic_label_switches``,
-the reference's ``augmentations.py:8-60``) and the retina artifacts that the
-OOD shifts of ``data/ood.py`` apply (``fov_circular_mask``, ``flash_artifact``
-(``:332-475``), ``filtered_image_noise`` (``:477-539``)). Pure numpy with an
+the reference's ``augmentations.py:8-60``), the per-sample z-score
+(``sample_normalize``), the simulated rater disagreement of nested labels
+(``intensity_guided_sdf_deform``: each level's signed distance field moved
+by a brightness-guided field plus smoothed noise, ``:70-200``; and the
+mask-only elastic deformation ``mask_elastic_deform``) and the retina
+artifacts that the OOD shifts of ``data/ood.py`` apply
+(``fov_circular_mask``, ``flash_artifact`` (``:332-475``),
+``filtered_image_noise`` (``:477-539``)). Pure numpy and scipy with an
 explicit ``np.random.Generator``."""
 
 from __future__ import annotations
@@ -32,6 +37,98 @@ def stochastic_label_switches(
                 m[m == cs.name2trainId[name]] = cs.name2trainId[f"{name}_2"]
         outs.append(m)
     return outs[0] if len(outs) == 1 else np.stack(outs)
+
+
+def sample_normalize(img: np.ndarray, eps: float = 1e-6) -> np.ndarray:
+    """``img`` less its mean over its std (1 where the std is below ``eps``)."""
+    img = img.astype(np.float32, copy=False)
+    std = float(np.std(img))
+    return (img - float(np.mean(img))) / (std if std >= eps else 1.0)
+
+
+def _brightness(image: np.ndarray) -> np.ndarray:
+    """The luma of an RGB image (ITU-R 601 weights), else its one channel."""
+    image = image.astype(np.float32)
+    if image.ndim == 3 and image.shape[-1] == 3:
+        return 0.299 * image[..., 0] + 0.587 * image[..., 1] + 0.114 * image[..., 2]
+    if image.ndim == 3 and image.shape[-1] == 1:
+        return image[..., 0]
+    return image
+
+
+def _binary_sdf(binary: np.ndarray) -> np.ndarray:
+    """The signed distance to the mask's edge: positive inside, half a pixel
+    in from the boundary on each side."""
+    binary = binary.astype(bool)
+    return np.clip(nd.distance_transform_edt(binary) - 0.5, 0, None) - np.clip(
+        nd.distance_transform_edt(~binary) - 0.5, 0, None
+    )
+
+
+def intensity_guided_sdf_deform(
+    image: np.ndarray,
+    mask: np.ndarray,
+    rng: np.random.Generator,
+    *,
+    std_brightness_deform: float = 10.0,
+    std_random_deform: float = 20.0,
+    brightness_deform_weight: float = 5.0,
+    random_deform_weight: float = 5.0,
+) -> np.ndarray:
+    """Deform nested integer labels 1..K (or a one-hot (H, W, K) mask) by
+    moving each level's SDF with a brightness-guided field plus Gaussian-
+    smoothed noise, one normal draw per level; a level with no inside or no
+    outside takes the noise alone."""
+    brightness = _brightness(image)
+    labels = (
+        np.argmax(mask, axis=-1).astype(np.int32)
+        if mask.ndim == 3
+        else mask.astype(np.int32)
+    )
+    out = np.zeros_like(labels)
+    for label_idx in range(1, int(labels.max()) + 1):
+        binary = labels >= label_idx
+        inside = binary.astype(bool)
+        if inside.sum() == 0 or (~inside).sum() == 0:
+            delta_brightness = np.zeros_like(brightness, np.float32)
+        else:
+            sdf = _binary_sdf(binary)
+            blur = nd.gaussian_filter(brightness, sigma=std_brightness_deform)
+            band_in = brightness[(sdf > 0) & (sdf < std_brightness_deform)]
+            band_out = brightness[(sdf < 0) & (sdf > -std_brightness_deform)]
+            mean_in = band_in.mean() if band_in.size else 1.0
+            mean_out = band_out.mean() if band_out.size else 0.0
+            denom = mean_in - mean_out if abs(mean_in - mean_out) > 1e-9 else 1.0
+            delta_brightness = 2.0 * ((blur - mean_out) / denom) - 1.0
+        noise = rng.standard_normal(brightness.shape).astype(np.float32)
+        delta_random = nd.gaussian_filter(noise, sigma=std_random_deform)
+        mean_abs = np.mean(np.abs(delta_random))
+        delta_random = delta_random / mean_abs if mean_abs > 1e-6 else np.zeros_like(delta_random)
+        delta = (
+            brightness_deform_weight * delta_brightness
+            + random_deform_weight * delta_random
+        )
+        deformed = (_binary_sdf(binary) + delta) >= 0.0
+        out[deformed] = label_idx
+    return out.astype(mask.dtype)
+
+
+def mask_elastic_deform(
+    mask: np.ndarray,
+    rng: np.random.Generator,
+    *,
+    alpha: float = 30.0,
+    sigma: float = 6.0,
+) -> np.ndarray:
+    """Mask-only elastic deformation (the reference's
+    ``MaskOnlyElasticTransform``): a nearest-neighbour resample of ``mask``
+    along smoothed normal displacements scaled by ``alpha``."""
+    h, w = mask.shape[:2]
+    dx = nd.gaussian_filter(rng.standard_normal((h, w)), sigma) * alpha
+    dy = nd.gaussian_filter(rng.standard_normal((h, w)), sigma) * alpha
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    coords = np.stack([yy + dy, xx + dx])
+    return nd.map_coordinates(mask, coords, order=0, mode="nearest").astype(mask.dtype)
 
 
 def _sample_param(rng, param):

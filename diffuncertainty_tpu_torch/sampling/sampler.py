@@ -6,7 +6,8 @@ trajectory of forwards for diffusion) over k member-major blocks of rows,
 row ``(m*S + s)*B + i`` being sample s of image i under member m (the JAX
 ``_tile_rows`` and ``reshape(n_members, samples_per_member, B)`` order,
 ``sampler.py:270-288``). Every row takes its own TTA draw, dropout masks and
-diffusion start noise, drawn from the one generator block after block. The
+diffusion start noise, drawn from the one generator block after block (in a
+stack with no member-folded form, from each member's own generator). The
 bodies (:func:`make_sampler`'s ``softmax_group``, ``ssn_group``,
 ``diffusion_group`` and ``prob_unet_group``) are the JAX per-member group
 builders with their member and sample axes folded into the rows, as the JAX
@@ -39,7 +40,13 @@ How members fold into blocks:
   except where the JAX sampler ignores it (``sampler.py:113-121``):
   with ``same_dropout``, with the prob-U-Net and off the DiffUnet; then
   ``member_chunk`` holds. The prob-U-Net and the HRNet have no member-folded
-  form: their stacked members run one per block whatever the chunk.
+  form: their stacked members run one per block whatever the chunk, and
+  with more than one member each draws from its own generator (dropout
+  masks, TTA, latents, noise), seeded by the member's entry of one draw of
+  ``n_members`` seeds from the call's generator, as the JAX sampler splits
+  one key per member. A rank that holds members ``k..`` draws all the seeds
+  and keeps its own, so a seed gives one stack whatever the layout; members
+  of equal weights still draw apart.
 
 ``same_dropout`` (``sampler.py:200, 221``): one dropout draw per member and
 image, reused across all of that member's samples (TTA rounds, diffusion
@@ -56,9 +63,8 @@ unsharded call's (``parallel/mesh.py::ShardedGenerator``: each rank draws
 the global shape and keeps its rows, member-major), so a seed gives the
 same stack whatever the layout, one block of all members being the
 unsharded reference. The parts are gathered (``all_gather_into_tensor``)
-and every rank returns the whole stack. The prob-U-Net and the HRNet have
-no member-folded form, so their stacks do not shard over members (that
-raises).
+and every rank returns the whole stack. A stack with no member-folded form
+runs the rank's members one a block, each from its own generator.
 
 Grouping as in the JAX sampler (``sampler.py:346-364, 391-405``): each member
 contributes one group of ``n_pred`` samples when it is generative or TTA is
@@ -207,8 +213,10 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
     ``generator``: a ``torch.Generator`` on that device, consumed block after
     block: by the TTA draws and then the dropout masks (softmax), by the
     start noise and then each step's dropout masks (diffusion), or by the
-    dropout masks and then the logit or latent draws (SSN, prob-U-Net). Runs
-    without autograd. TTA applies to the softmax path only: the other paths
+    dropout masks and then the logit or latent draws (SSN, prob-U-Net); a
+    stack of more than one member with no member-folded form takes one seed
+    a member from it and draws each member's from that member's generator.
+    Runs without autograd. TTA applies to the softmax path only: the other paths
     ignore ``spec.tta``, as the JAX sampler does.
 
     ``members``: with ``member_mode="params_stack"``, the stacked member
@@ -247,16 +255,16 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
     foldable = isinstance(module, DiffUnet) and built.au_type != "prob_unet"
     chunk = spec.member_chunk
     member_split = stacked and mesh is not None and mesh.size("member") > 1
+    # stacked members that cannot fold draw from generators of their own
+    own_generators = stacked and not foldable and spec.n_members > 1
+    first_member = 0  # the global index of this rank's first member
     if member_split:
-        if not foldable:
-            raise NotImplementedError(
-                f"a {built.au_type} {type(module).__name__} stack has no member-folded form: its "
-                f"members cannot shard over the mesh's member axis")
         if spec.n_members % mesh.size("member"):
             raise ValueError(f"{spec.n_members} members do not split over the mesh's member "
                              f"axis of {mesh.size('member')}")
         members = shard_member_stack(members, mesh)
         n_members = spec.n_members // mesh.size("member")
+        first_member = mesh.coord("member") * n_members
         chunk = None  # the rank's members in one block, whatever member_chunk says
     elif stacked:
         if spec.member_fold and not spec.same_dropout and foldable:
@@ -264,8 +272,8 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
         elif chunk == "auto":
             device = next(iter(members.values())).device.type
             chunk = AUTO_MEMBER_CHUNK.get((device, built.au_type), 1)
-        if not foldable:
-            chunk = 1
+    if stacked and not foldable:
+        chunk = 1
     chunk = n_members if chunk in (None, "auto") else min(chunk, n_members)
     blocks = [(a, min(chunk, n_members - a)) for a in range(0, n_members, chunk)]
 
@@ -362,8 +370,23 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
         group_means = groups.mean(dim=1)
         return PredictionStack(groups, group_means, group_means.mean(dim=0))
 
+    def member_generators(generator):
+        """One generator for each of this rank's members, seeded by its
+        entry of ``spec.n_members`` seeds drawn from ``generator`` (a
+        data-sharded call keeps the rows of its part in each)."""
+        base = generator.generator if isinstance(generator, ShardedGenerator) else generator
+        seeds = torch.randint(0, 2**63 - 1, (spec.n_members,), generator=base,
+                              device=base.device).tolist()
+        gens = [torch.Generator(base.device).manual_seed(seed)
+                for seed in seeds[first_member:first_member + n_members]]
+        if isinstance(generator, ShardedGenerator):
+            gens = [ShardedGenerator(g, generator.images, generator.data) for g in gens]
+        return gens
+
     def run_blocks(images, generator):
-        groups = [group_fn(forward, decode, k, images, generator) for k, forward, decode in runs]
+        gens = member_generators(generator) if own_generators else [generator] * len(runs)
+        groups = [group_fn(forward, decode, k, images, g)
+                  for (k, forward, decode), g in zip(runs, gens)]
         return groups[0] if len(groups) == 1 else torch.cat(groups)
 
     @torch.no_grad()
@@ -373,7 +396,8 @@ def make_sampler(built: BuiltModel, spec: SamplerSpec,
         data = mesh.size("data") if images.shape[0] % mesh.size("data") == 0 else 1
         if data > 1:
             images = images[mesh.rows(images.shape[0], "data")]
-        member = (mesh.coord("member"), mesh.size("member")) if member_split else (0, 1)
+        member = ((mesh.coord("member"), mesh.size("member"))
+                  if member_split and not own_generators else (0, 1))
         groups = run_blocks(images, ShardedGenerator(
             generator, images.shape[0], (mesh.coord("data") if data > 1 else 0, data), member))
         if member_split:

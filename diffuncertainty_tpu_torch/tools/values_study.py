@@ -276,6 +276,14 @@ def _run_al_arm(scfg: StudyConfig, toy: Path, splits: Path, exp_path: Path, seed
     }
 
 
+def _al_arm_runs(scfg: StudyConfig) -> bool:
+    """The AL arm runs on its (AU, EU) cell: a matrix without that cell (an
+    ``--au_types`` or ``--eu_methods`` that leaves it out) skips the arm,
+    where the JAX study stops with ``StopIteration``."""
+    return (scfg.al_arm is not None and bool(scfg.num_unlabeled)
+            and scfg.al_arm[0] in scfg.au_types and scfg.al_arm[1] in scfg.eu_methods)
+
+
 def _mean_dice(split_dir: Path) -> float:
     metrics = json.loads((split_dir / "metrics.json").read_text())
     return float(np.mean([rec["metrics"]["dice"] for rec in metrics.values()]))
@@ -362,7 +370,7 @@ def run_values_study(scfg: StudyConfig) -> dict:
         ckpt = _train_one(scfg, toy, splits, au, eu, seed)
         t_trained = time.time()
         splits_to_run = list(eval_splits)
-        if scfg.al_arm == (au, eu) and seed == scfg.seeds[0] and scfg.num_unlabeled:
+        if _al_arm_runs(scfg) and scfg.al_arm == (au, eu) and seed == scfg.seeds[0]:
             splits_to_run.append("unlabeled")
         inf = _infer_one(scfg, ckpt, au, eu, seed, splits_to_run)
         epochs_seen.add(inf.epoch)
@@ -412,7 +420,7 @@ def run_values_study(scfg: StudyConfig) -> dict:
     # 5. active-learning arm ----------------------------------------------------
     al_results = None
     t_al = time.time()
-    if scfg.al_arm is not None and scfg.num_unlabeled:
+    if _al_arm_runs(scfg):
         arm_label = _method_name(*scfg.al_arm)
         arm_version = next(
             v for v in versions

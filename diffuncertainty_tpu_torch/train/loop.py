@@ -54,8 +54,12 @@ count of valid pixels divides by the rank's share of the global count
 (``train/losses.py::global_count``), and the HRNet's train-mode BatchNorm
 takes its moments over the global batch (``models/hrnet.py::
 sync_batch_stats``), as JAX's jit of the global step does. A member axis
-replicates. Validation runs the whole val split on every rank (its numbers
-are the single process's); checkpoints and the metric log are the primary
+replicates. Validation shards each val batch over ``data`` as the step
+does (every rank loads the whole batch and keeps its rows; the loss is the
+global batch's, the per-image Dice and GED are gathered), so every rank
+logs the single process's numbers; a batch that does not split over the
+axis (a short tail) runs whole on every rank, as the JAX trainer leaves
+such a batch unsharded. Checkpoints and the metric log are the primary
 rank's.
 
 Parameters stay float32 in the module; ``trainer.precision=bf16`` runs the
@@ -67,7 +71,8 @@ Randomness: the initial weights come from a CPU generator seeded with
 CPU and the card; each epoch's augmentation, dropout and rater draws come
 from one generator on the device seeded from ``(seed, epoch)``, so a run
 resumed at an epoch draws what the uninterrupted run draws; validation draws
-from a generator seeded ``seed + 1000 + epoch``.
+from a generator seeded ``seed + 1000 + epoch`` (sharded rows through
+``ShardedGenerator``: the single process's draws).
 """
 
 from __future__ import annotations
@@ -95,7 +100,7 @@ from ..models.factory import BuiltModel, build_model
 from ..models.hrnet import sync_batch_stats
 from ..models.unet import flax_init_
 from ..parallel.distributed import is_primary
-from ..parallel.mesh import ShardedGenerator, make_mesh, replicate
+from ..parallel.mesh import ShardedGenerator, gather, make_mesh, replicate
 from .losses import make_loss_fn
 
 State = dict[str, torch.Tensor]
@@ -179,10 +184,12 @@ class Trainer:
             self.built, ignore_index=cfg.data.ignore_index,
             n_aleatoric_samples=cfg.model.n_aleatoric_samples, ssn_mean_only=mean_only,
             data_group=self.data_group) for mean_only in (False, True)}
-        # validation runs the whole split on every rank: no group
-        self._eval_loss_fn = make_loss_fn(
+        # validation: the batches that split over the data axis (its group)
+        # and those that every rank runs whole (None)
+        self._eval_loss_fns = {group: make_loss_fn(
             self.built, ignore_index=cfg.data.ignore_index,
-            n_aleatoric_samples=cfg.model.n_aleatoric_samples)
+            n_aleatoric_samples=cfg.model.n_aleatoric_samples, data_group=group)
+            for group in {None, self.data_group}}
         self.set_epoch(0)
         self.workdir = Path(workdir) if workdir is not None else (
             Path(cfg.save_dir) / cfg.auto_exp_name / str(cfg.version or "version_0"))
@@ -457,24 +464,40 @@ class Trainer:
         binary multi-rater targets, ``val_ged``. With ``use_ema``, a copy of
         the module holding the EMA weights (and the run's BatchNorm
         statistics) predicts. The HRNet's loss runs in train mode and its
-        statistics' update is dropped; its prediction uses the running ones."""
+        statistics' update is dropped; its prediction uses the running ones.
+        Data parallel, each batch that splits over ``data`` runs sharded
+        (see the module's docstring)."""
         module = self.built.module
         if use_ema and state.ema_params is not None:
             module = copy.deepcopy(module)
             module.load_state_dict({**state.ema_params, **(state.model_state or {})})
-        loss_fn, sched = self._eval_loss_fn, self.sched_for_epoch(epoch)
+        sched = self.sched_for_epoch(epoch)
         dev = self.device
         num_classes = self.built.num_classes
         ignore = self.cfg.data.ignore_index
         ged_ignore = ignore if ignore is not None and ignore >= 0 else None
         generator = torch.Generator(dev).manual_seed(self.cfg.seed + 1000 + epoch)
+        data = self.mesh.size("data") if self.mesh is not None else 1
         losses, dices, geds = [], [], []
         for batch in loader:
             images = normalize_batch(torch.as_tensor(batch["image"]).to(dev), self.aug_cfg.mean,
                                      self.aug_cfg.std)
             seg = torch.as_tensor(batch["seg"]).to(dev)
-            loss, _ = loss_fn(module, {"image": images, "seg": seg}, generator, sched)
-            probs = self._mean_prediction(module, images, generator)
+            split = data > 1 and images.shape[0] % data == 0
+            group, gen = None, generator
+            if split:  # this rank's rows, with the draws one process makes for them
+                rows = self.mesh.rows(images.shape[0], "data")
+                images, seg = images[rows], seg[rows]
+                group = self.data_group
+                gen = ShardedGenerator(generator, images.shape[0],
+                                       (self.mesh.coord("data"), data))
+            sync_batch_stats(module, group)
+            try:
+                loss, _ = self._eval_loss_fns[group](module, {"image": images, "seg": seg}, gen,
+                                                     sched)
+            finally:
+                sync_batch_stats(module, None)
+            probs = self._mean_prediction(module, images, gen)
             pred_idx = probs.argmax(dim=-1)
             seg4 = seg[:, None] if seg.ndim == 3 else seg
             if num_classes == 2:
@@ -482,12 +505,17 @@ class Trainer:
             else:
                 d = dice_multiclass_micro(pred_idx[:, None], seg4, num_classes,
                                           ignore_index=ignore)
+            per_image = {"dice": d.mean(dim=1)}
+            if seg4.shape[1] > 1 and num_classes == 2:
+                per_image["ged"] = ged_binary(probs[:, None], seg4, ignore_index=ged_ignore)["ged"]
+            if split:  # the global batch's loss and per-image metrics
+                loss = self.average_over_data([loss.detach()])[0]
+                per_image = {k: gather(v, self.mesh, "data") for k, v in per_image.items()}
             valid = torch.as_tensor(np.asarray(batch["valid"]), device=dev)
             losses.append(float(loss))
-            dices.extend(d.mean(dim=1)[valid].tolist())
-            if seg4.shape[1] > 1 and num_classes == 2:
-                g = ged_binary(probs[valid][:, None], seg4[valid], ignore_index=ged_ignore)
-                geds.extend(g["ged"].tolist())
+            dices.extend(per_image["dice"][valid].tolist())
+            if "ged" in per_image:
+                geds.extend(per_image["ged"][valid].tolist())
         out = {"val_loss": float(np.mean(losses)), "val_dice": float(np.mean(dices))}
         if geds:
             out["val_ged"] = float(np.mean(geds))

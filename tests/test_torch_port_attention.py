@@ -23,6 +23,7 @@ from diffuncertainty_tpu.models.factory import build_model as j_build_model
 from diffuncertainty_tpu.ops.pallas_attention import qkv_attention_fused
 from diffuncertainty_tpu_torch.ops import attention as tattn
 from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+from torch_threads import one_torch_thread  # noqa: F401
 
 HEADS = 4
 

@@ -19,6 +19,7 @@ import torch
 from diffuncertainty_tpu_torch.ops import attention
 from diffuncertainty_tpu_torch.ops import cuda_attention as ca
 from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def qkv_input(d: int, dtype=torch.float64, heads: int = 2, t: int = 12, seed: int = 0):

@@ -41,6 +41,7 @@ from test_torch_port_infer import (BATCH, HW, assert_same_tree, checkpoint_pair,
                                    random_variables, run_jax, run_port, toy_dir)  # noqa: F401
 from test_torch_port_infer import inject_draws  # noqa: F401
 from test_torch_port_ssn import jax_ssn_eps
+from torch_threads import one_torch_thread  # noqa: F401
 
 GROUPS = [  # (data, network, model, eu_method, precision)
     ("lidc128", "unet16", "softmax", "dropout", "bf16"),

@@ -18,6 +18,7 @@ from PIL import Image
 
 from diffuncertainty_tpu_torch.data.jpeg import jpeg_round_trip
 from diffuncertainty_tpu_torch.data.resize import resize_bilinear, resize_nearest
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def pillow_jpeg(arr, quality):

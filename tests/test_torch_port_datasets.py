@@ -22,6 +22,7 @@ from diffuncertainty_tpu_torch.data import lidc_raw as t_raw
 from diffuncertainty_tpu_torch.data import ood as t_ood
 from diffuncertainty_tpu_torch.data import preprocess as t_pre
 from diffuncertainty_tpu_torch.data import toy3d as t_toy3d
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def assert_same_tree(a, b):

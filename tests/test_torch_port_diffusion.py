@@ -40,6 +40,7 @@ from diffuncertainty_tpu_torch.models.unet import DiffUnet, UnetOutput
 from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
 from diffuncertainty_tpu_torch.ops.time_embed import timestep_embedding
 from test_torch_port_model import UNET16, _as_plain
+from torch_threads import one_torch_thread  # noqa: F401
 
 ASSET = "assets/bench_unet16_toy128_diffusion.npz"
 UNET16_DIFF = dict(UNET16, in_channels=5, diffusion=True)

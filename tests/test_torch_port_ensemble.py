@@ -49,6 +49,7 @@ from test_torch_port_slice import TTA, small_pair
 from test_torch_port_ssn import SMALL_SSN, jax_ssn_eps
 from test_torch_port_swag import port_key
 from test_torch_port_warp_tta import inverse, tta_matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = 32
 

@@ -47,6 +47,7 @@ from diffuncertainty_tpu_torch.core.config import load_config as t_load_config
 from diffuncertainty_tpu_torch.data.dataset import MultiRaterDataset as TDataset
 from diffuncertainty_tpu_torch.evaln.dataloader import ResultsReader as TReader
 from diffuncertainty_tpu_torch.infer.image_io import write_png, write_tiff
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW, MC_SHAPE, RATERS = 32, (24, 32), 3
 SPLITS = {"val": 6, "id": 8, "ood_noise": 6, "ood_blur": 6}

@@ -31,6 +31,7 @@ from diffuncertainty_tpu_torch.models.factory import build_model
 from diffuncertainty_tpu_torch.ops import _build
 from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
 from diffuncertainty_tpu_torch.tools.groupnorm_sites import norm_sites
+from torch_threads import one_torch_thread  # noqa: F401
 
 SRC = (Path(_build.CSRC) / "group_norm_act.cu").read_text()
 

@@ -51,6 +51,7 @@ from diffuncertainty_tpu_torch.models.hrnet import BatchNorm, HRNet, HRNetSpec, 
 from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
 from diffuncertainty_tpu_torch.sampling import tta as t_tta
 from test_torch_port_warp_tta import inverse, tta_matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 ASSET = "assets/bench_hrnet_s_toy128.npz"
 SMALL = dict(width=8, stage1_channels=8, num_modules=(1, 1, 1), num_blocks=1)

@@ -15,6 +15,7 @@ from PIL import Image, TiffImagePlugin
 
 from diffuncertainty_tpu_torch.data.jpeg_decode import decode_jpeg
 from diffuncertainty_tpu_torch.infer import image_io
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURES = Path(__file__).parent / "fixtures" / "retina_jpeg"
 

@@ -63,6 +63,7 @@ from diffuncertainty_tpu_torch.sampling import tta as t_tta
 from diffuncertainty_tpu_torch.sampling.sampler import PredictionStack, SamplerMeta
 from test_torch_port_model import jax_mask_interceptor, torch_draw_mask
 from test_torch_port_warp_tta import inverse, tta_matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 HW, BATCH, N_TEST = 32, 4, 6

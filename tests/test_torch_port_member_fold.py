@@ -51,6 +51,7 @@ from diffuncertainty_tpu_torch.ops.norm import group_norm_32
 from diffuncertainty_tpu_torch.sampling import tta as t_tta
 from test_torch_port_model import mask_for
 from test_torch_port_warp_tta import inverse, tta_matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW, B, M, S = 16, 2, 3, 2
 LOGITS_TOL = dict(atol=1e-5, rtol=1e-4)

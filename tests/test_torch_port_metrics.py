@@ -26,6 +26,7 @@ from diffuncertainty_tpu_torch.metrics.dice import dice_bin_masked
 from diffuncertainty_tpu_torch.metrics.ged import ged_binary
 from diffuncertainty_tpu_torch.ops.entropy import one_minus_msr, uncertainty_heatmaps
 from diffuncertainty_tpu_torch.sampling.sampler import PredictionStack
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def softmax_stack(rng, shape):

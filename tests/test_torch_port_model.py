@@ -33,6 +33,7 @@ from diffuncertainty_tpu_torch.core.params import flax_to_torch, load_into, load
 from diffuncertainty_tpu_torch.core.specs import DropoutSpec
 from diffuncertainty_tpu_torch.models.factory import build_model
 from diffuncertainty_tpu_torch.models.unet import AttentionBlock, ChannelDropout, DiffUnet
+from torch_threads import one_torch_thread  # noqa: F401
 
 ASSET = "assets/bench_unet16_toy128.npz"
 UNET16 = dict(in_channels=3, out_channels=2, model_channels=32, num_res_blocks=(2, 2, 2, 2),

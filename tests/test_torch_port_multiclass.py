@@ -51,6 +51,7 @@ from diffuncertainty_tpu_torch.metrics.ged import ged_multiclass
 from diffuncertainty_tpu_torch.models.factory import build_model
 from diffuncertainty_tpu_torch.models.unet import ChannelDropout
 from diffuncertainty_tpu_torch.tools.multiclass_quality import gta_toy_quality_eval
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL_NET = dict(model_channels=8, num_res_blocks=(1, 1), channel_mult=(1, 2),
                  attention_resolutions=(-1,))

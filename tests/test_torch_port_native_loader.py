@@ -12,6 +12,7 @@ import pytest
 from diffuncertainty_tpu_torch.data import native_loader
 from diffuncertainty_tpu_torch.data.dataset import MultiRaterDataset, save_splits
 from diffuncertainty_tpu_torch.data.loader import BatchLoader, native_plan
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     not any(shutil.which(c) for c in ("g++", "c++")), reason="no C++ compiler on PATH")

@@ -25,6 +25,7 @@ from diffuncertainty_tpu_torch.ops import cuda_attention as ca
 from diffuncertainty_tpu_torch.ops.attention import qkv_attention
 from diffuncertainty_tpu_torch.ops.norm import group_norm_32, num_groups_for
 from diffuncertainty_tpu_torch.ops.resample import downsample_avgpool2x, upsample2x
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("b,t,c,heads", [(2, 64, 64, 4), (2, 16, 256, 4), (1, 49, 96, 2)])

@@ -10,9 +10,12 @@ runs every sharded path beside its single-process twin on a small DiffUnet
 and a small HRNet: the job at (2, 1) and (1, 2) against the one-process job
 (trees compared here), three data-parallel steps against single-process
 steps on the global batch (JAX's tolerances of ``tests/test_parallel.py``:
-loss rtol 1e-4, parameters atol (i + 1) * 2.5e-4), the tile-sharded stitch
-(atol 2e-6), the member layout against ``member_chunk``, and the writes of
-each rank."""
+loss rtol 1e-4, parameters atol (i + 1) * 2.5e-4) and the sharded
+validation of the same weights against the single process's (the step's
+loss tolerance, rtol 1e-4, on every logged number), the tile-sharded stitch
+(atol 2e-6), the member layout against ``member_chunk``, 4-member
+prob-U-Net and HRNet stacks at (1, 2) and (2, 1) against the single
+process's stack (the jobs' atol 1e-5), and the writes of each rank."""
 
 import json
 import os
@@ -37,6 +40,7 @@ from diffuncertainty_tpu_torch.infer.runner import _resolve_mesh
 from diffuncertainty_tpu_torch.parallel import distributed as t_dist
 from diffuncertainty_tpu_torch.train import cli as t_cli
 from diffuncertainty_tpu_torch.train.loop import Trainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 WORLD_TIMEOUT_S = 120
@@ -238,6 +242,22 @@ def test_a_data_parallel_step_equals_the_single_process_step(world, net):
         assert rec["max_stats_rel_diff"][0] <= 1e-5, rec["max_stats_rel_diff"]
 
 
+@pytest.mark.parametrize("net", ["dp_unet", "dp_hrnet"])
+def test_data_parallel_validation_equals_the_single_process_validation(world, net):
+    """The same weights validated at (2, 1) and in one process: the batch
+    of 4 runs 2 rows a rank, the tail of 3 whole on each; every logged
+    number (the multi-rater HRNet batches add ``val_ged``) to the step's
+    loss tolerance."""
+    rec = report(world, net)
+    assert rec["val_dp"] == world["reports"][1][net]["val_dp"]  # every rank logs the same
+    assert rec["val_rows_dp"] == [2, 3]
+    keys = {"val_loss", "val_dice"} | ({"val_ged"} if net == "dp_hrnet" else set())
+    assert set(rec["val_dp"]) == set(rec["val_single"]) == keys
+    for k in keys:
+        assert np.isfinite(rec["val_single"][k])
+        np.testing.assert_allclose(rec["val_dp"][k], rec["val_single"][k], rtol=1e-4, err_msg=k)
+
+
 def test_the_tile_sharded_stitch_equals_the_unsharded_one(world):
     assert report(world, "stitch_shape") == (1, 40, 56, 2)
     assert report(world, "stitch_max_diff") <= 2e-6
@@ -248,6 +268,21 @@ def test_the_member_layout_beats_member_chunk(world):
     assert report(world, "member_chunk1_blocks") == [1, 1, 1, 1]
     assert report(world, "member_one_block_blocks") == [4]
     assert report(world, "member_max_diff") <= 1e-6
+
+
+@pytest.mark.parametrize("family", ["prob_unet", "hrnet"])
+def test_an_unfolded_stack_shards_over_either_axis_as_the_single_process_stack(world, family):
+    """A 4-member stack with no member-folded form: at (1, 2) each rank runs
+    its two members one a block, at (2, 1) its image of all four; both equal
+    the single process's stack (the jobs' atol 1e-5), whose members differ."""
+    assert report(world, f"{family}_shape") == (4, 2, 2, 32, 32, 2)
+    assert report(world, f"{family}_single_blocks") == [1, 1, 1, 1]
+    assert report(world, f"{family}_m12_blocks") == [1, 1]
+    assert report(world, f"{family}_d21_blocks") == [1, 1, 1, 1]
+    for layout in ("m12", "d21"):
+        for rep in world["reports"]:
+            assert rep[f"{family}_{layout}_max_diff"] <= 1e-5, (layout, rep["rank"])
+    assert report(world, f"{family}_member_spread") > 1e-3
 
 
 def test_only_rank_0_writes(world):

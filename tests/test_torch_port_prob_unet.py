@@ -40,6 +40,7 @@ from diffuncertainty_tpu_torch.models.factory import BuiltModel, build_model
 from diffuncertainty_tpu_torch.models.unet import AttentionBlock, DiffUnet, GroupNorm32
 from diffuncertainty_tpu_torch.ops.entropy import uncertainty_heatmaps
 from test_torch_port_ssn import compare_config_with_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 ASSET = "assets/bench_unet16_toy128_prob_unet.npz"
 SMALL = dict(in_channels=3, out_channels=2, model_channels=8, num_res_blocks=(1, 1),

@@ -25,6 +25,7 @@ from diffuncertainty_tpu_torch.core import torch_import as t_import
 from diffuncertainty_tpu_torch.core.params import flax_to_torch
 from diffuncertainty_tpu_torch.core.specs import DropoutSpec
 from diffuncertainty_tpu_torch.models.unet import DiffUnet
+from torch_threads import one_torch_thread  # noqa: F401
 
 # two levels, attention at the deeper one; the SSN head; a diffusion net
 # (time embedding, emb_layers); dropout inside in_layers (per_block off)

@@ -40,8 +40,9 @@ from diffuncertainty_tpu_torch.train.loop import Trainer as TTrainer
 from test_torch_port_model import jax_mask_interceptor, torch_draw_mask
 from test_torch_port_train import (STEP_TOL, assert_state_close, configs, jax_adam, jax_init,
                                    jax_state, noisy, tokens, toy_batch, toy_dir, track_flat)
-from test_torch_port_train_diffusion import SCALE_SHIFT, family_tokens, one_torch_thread
+from test_torch_port_train_diffusion import SCALE_SHIFT, family_tokens
 from test_torch_port_train_hrnet import hrnet_tokens, spec_kw
+from torch_threads import one_torch_thread  # noqa: F401
 
 __all__ = ["one_torch_thread", "toy_dir"]
 

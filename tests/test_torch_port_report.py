@@ -47,24 +47,13 @@ import diffuncertainty_tpu_torch.tools.report as t_report
 import diffuncertainty_tpu_torch.tools.values_study as t_study
 from diffuncertainty_tpu_torch.data.dataset import MultiRaterDataset as TDataset
 from diffuncertainty_tpu_torch.infer.image_io import write_png, write_tiff
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW, RATERS = 16, 3
 SPLITS = {"val": 5, "id": 6, "ood_noise": 6}
 METHODS = ("softmax_none", "softmax_dropout", "ssn_none", "ssn_dropout")
 SEEDS = (0, 1)
 EXACT = dict(rtol=0, atol=1e-12)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the small tensors here gain nothing from more, and
-    under the suite's parallel workers the threads only contend."""
-    import torch
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def write_dataset(root: Path, rng) -> Path:

@@ -16,6 +16,7 @@ from diffuncertainty_tpu.data import retina as j_retina
 from diffuncertainty_tpu_torch.data import retina as t_retina
 from diffuncertainty_tpu_torch.data.dataset import MultiRaterDataset
 from diffuncertainty_tpu_torch.infer.image_io import read_image
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = 96
 

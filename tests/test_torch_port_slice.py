@@ -45,6 +45,7 @@ from diffuncertainty_tpu_torch.sampling import tta as t_tta
 from diffuncertainty_tpu_torch.tools.quality import toy128_quality_eval
 from test_torch_port_model import jax_mask_interceptor, torch_draw_mask
 from test_torch_port_warp_tta import inverse, tta_matrices
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(in_channels=3, out_channels=2, model_channels=32, num_res_blocks=(1, 1),
@@ -158,7 +159,8 @@ def test_quality_eval_matches_jax_with_a_deterministic_sampler():
 def test_port_imports_without_jax_yaml_or_the_jax_package():
     """Every module of the port, ``chip_smoke``, the job's, the trainer's,
     the evaluation matrix's, the study's, the report's, the dataset
-    dataset modules' and the reference importer's ``--help`` with JAX, optax, flax,
+    dataset modules', the reference importer's and the diffusion seed
+    spread's ``--help`` with JAX, optax, flax,
     YAML, tensorboardX, PIL, orbax, tensorstore, scikit-learn, pandas,
     matplotlib, h5py, pylidc and the JAX package blocked."""
     code = (
@@ -177,7 +179,8 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
         "print(len(mods))\n"
         "for entry in ('infer', 'train', 'evaln.experiments', 'tools.values_study',\n"
         "              'tools.report', 'data.lidc_import', 'data.lidc_raw', 'data.toy3d',\n"
-        "              'data.npc', 'tools.import_reference_checkpoint', 'data.retina'):\n"
+        "              'data.npc', 'tools.import_reference_checkpoint', 'data.retina',\n"
+        "              'tools.diffusion_seed_spread'):\n"
         "    sys.argv = [entry, '--help']\n"
         "    try:\n"
         "        runpy.run_module('diffuncertainty_tpu_torch.' + entry, run_name='__main__')\n"
@@ -197,6 +200,7 @@ def test_port_imports_without_jax_yaml_or_the_jax_package():
     assert "--pickle-path" in usage and "--save_path" in usage and "--save-root" in usage
     assert "{process,splits,ood}" in usage and "--ckpt" in usage
     assert "{chaksu,chaksu-splits,clean-riga,riga,refuge,retina-splits}" in usage
+    assert "--seed-bases" in usage
 
 
 def test_no_forbidden_imports_or_library_kernels_in_the_port():

@@ -27,24 +27,13 @@ import numpy as np
 import pytest
 
 import diffuncertainty_tpu_torch.tools.values_study as t_study
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 MINI = ["--au_types", "softmax", "ssn", "--eu_methods", "none", "dropout", "--seeds", "0",
         "--epochs", "1", "--image_size", "16", "--num_train", "8", "--num_val", "4",
         "--num_test", "4", "--num_unlabeled", "4", "--batch_size", "4", "--n_pred", "2",
         "--n_models", "2", "--loggers", "jsonl", "--device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the small tensors here gain nothing from more, and
-    under the suite's parallel workers the threads only contend."""
-    import torch
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -111,6 +100,21 @@ def test_a_second_run_reuses_the_cells(study):
     assert again["wall_seconds"] < summary["wall_seconds"]
     assert json.dumps(again["checks"]) == json.dumps(summary["checks"])
     assert all(w["train_s"] < 1.0 for w in again["walls"]["cells"].values())
+
+
+def test_a_matrix_without_the_al_arms_cell_skips_the_arm(study):
+    """The AL arm (softmax, dropout) needs its cell: a matrix of the SSN
+    alone, its cells reused from the study, skips the arm and still writes
+    the report (the JAX study stops with ``StopIteration``)."""
+    work, _, _ = study
+    argv = list(MINI)
+    at = argv.index("--au_types")
+    argv[at + 1:at + 3] = ["ssn"]
+    again = t_study.main([str(work), *argv])
+    assert again["matrix"]["au_types"] == ["ssn"] and again["al"] is None
+    assert set(again["walls"]["cells"]) == {"ssn_none_s0", "ssn_dropout_s0"}
+    assert all(w["train_s"] < 1.0 for w in again["walls"]["cells"].values())
+    assert (work / "report" / "summary.json").is_file()
 
 
 @pytest.mark.parametrize("argv", [

@@ -19,6 +19,7 @@ from diffuncertainty_tpu.models import subensemble as j_se
 from diffuncertainty_tpu_torch.core.params import flax_to_torch, flax_to_torch_stacked
 from diffuncertainty_tpu_torch.models import subensemble as t_se
 from test_torch_port_slice import small_pair
+from torch_threads import one_torch_thread  # noqa: F401
 
 M = 3
 

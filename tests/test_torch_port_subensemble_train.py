@@ -49,7 +49,7 @@ from diffuncertainty_tpu_torch.train import cli as t_cli
 from diffuncertainty_tpu_torch.train import subensemble_trainer as t_st
 from diffuncertainty_tpu_torch.train.loop import Trainer as TTrainer
 from test_torch_port_train import tokens, toy_dir
-from test_torch_port_train_diffusion import one_torch_thread
+from torch_threads import one_torch_thread  # noqa: F401
 
 __all__ = ["one_torch_thread", "toy_dir"]
 M, STEPS = 2, 8

@@ -24,6 +24,7 @@ from diffuncertainty_tpu_torch.core.params import (flax_to_torch, flax_to_torch_
 from diffuncertainty_tpu_torch.models import swag as t_swag
 from diffuncertainty_tpu_torch.models.factory import build_model
 from diffuncertainty_tpu_torch.tools.bench_assets import swag_draw_members
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-6, rtol=1e-5)
 SWAG_ASSET = "assets/bench_unet16_toy128_swag.npz"

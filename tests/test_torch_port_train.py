@@ -65,6 +65,7 @@ from diffuncertainty_tpu_torch.infer import cli as t_infer_cli
 from diffuncertainty_tpu_torch.models.factory import build_model as t_build_model
 from diffuncertainty_tpu_torch.models.unet import flax_init_
 from diffuncertainty_tpu_torch.train.loop import Trainer as TTrainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL_NET = [  # tests/test_train.py:14-22
     "network.model_channels=8",

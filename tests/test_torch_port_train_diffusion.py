@@ -69,22 +69,13 @@ from diffuncertainty_tpu_torch.train.loop import Trainer as TTrainer
 from test_torch_port_train import (ATOL, RTOL, STEP_TOL, assert_state_close, jax_adam,
                                    jax_state, noisy, tokens, toy_batch, toy_dir, track_flat)
 from test_torch_port_train_fit import assert_same_checkpoint, fixed_rater_patches, records
+from torch_threads import one_torch_thread  # noqa: F401
 
 LR = 0.003  # SMALL_NET's learning rate
 __all__ = ["one_torch_thread", "toy_dir"]
 
 
 # ---- shared by the three family files ---------------------------------------
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one intra-op thread while the module runs: its
-    tensors are small, and with a thread per core on a shared host and
-    several test workers a 32x32 GroupNorm took 100 times as long."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def fixed_normal(shape) -> np.ndarray:

@@ -55,6 +55,7 @@ from diffuncertainty_tpu_torch.train.loop import Trainer as TTrainer
 from test_torch_port_model import jax_mask_interceptor, torch_draw_mask
 from test_torch_port_train import (assert_state_close, configs, inject_augment_draws, jax_init,
                                    jax_state, noisy, tokens, toy_dir, track_flat)
+from torch_threads import one_torch_thread  # noqa: F401
 
 LR = 0.003  # SMALL_NET's learning rate
 METRIC_TOL = ARRAY_TOL = 1e-5

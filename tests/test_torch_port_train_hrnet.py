@@ -64,8 +64,9 @@ from test_torch_port_hrnet import SMALL, masks_by_shape, random_variables
 from test_torch_port_model import jax_mask_interceptor, torch_draw_mask
 from test_torch_port_train import STEP_TOL, assert_state_close, jax_adam, tokens, toy_batch, toy_dir
 from test_torch_port_train_diffusion import (assert_moments_close, assert_records_close,
-                                             inject_draws, one_torch_thread)
+                                             inject_draws)
 from test_torch_port_train_fit import records
+from torch_threads import one_torch_thread  # noqa: F401
 
 __all__ = ["one_torch_thread", "toy_dir"]
 STAGE_DROPOUT = (0.1, 0.2, 0.3, 0.4)

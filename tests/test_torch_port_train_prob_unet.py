@@ -26,8 +26,8 @@ from test_torch_port_train import toy_batch, toy_dir
 from test_torch_port_train_diffusion import (check_evaluate, check_export_resume, check_fit,
                                              check_infer_job, check_new_init_leaves,
                                              check_step_gradients, check_three_steps,
-                                             family_configs, inject_draws, one_torch_thread,
-                                             run_both)
+                                             family_configs, inject_draws, run_both)
+from torch_threads import one_torch_thread  # noqa: F401
 
 __all__ = ["one_torch_thread", "toy_dir"]
 WARMUP = ["model.prob_unet.beta=0.01", "model.prob_unet.beta_warmup_epochs=4"]

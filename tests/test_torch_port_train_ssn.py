@@ -32,7 +32,8 @@ from test_torch_port_train_diffusion import (check_evaluate, check_export_resume
                                              check_infer_job, check_loss_and_gradients,
                                              check_new_init_leaves, check_three_steps,
                                              family_configs, inject_draws, jax_family_init,
-                                             one_torch_thread, records, run_both)
+                                             records, run_both)
+from torch_threads import one_torch_thread  # noqa: F401
 
 __all__ = ["one_torch_thread", "toy_dir"]
 PRETRAIN = ["model.ssn_pretrain_epochs=1"]

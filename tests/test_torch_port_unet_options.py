@@ -42,6 +42,7 @@ from diffuncertainty_tpu_torch.models.factory import build_model
 from diffuncertainty_tpu_torch.models.unet import ChannelDropout, DiffUnet, MLPBlock, ResBlock
 from diffuncertainty_tpu_torch.ops.resample import upsample2x
 from test_torch_port_model import _as_plain, jax_mask_interceptor, torch_draw_mask
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW, B = 16, 2
 LOGITS_TOL = dict(atol=1e-5, rtol=1e-4)

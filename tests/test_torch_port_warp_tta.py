@@ -16,6 +16,7 @@ from diffuncertainty_tpu.ops import warp as jwarp
 from diffuncertainty_tpu.sampling import tta as jtta
 from diffuncertainty_tpu_torch.ops import warp as twarp
 from diffuncertainty_tpu_torch.sampling import tta as ttta
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-5
 

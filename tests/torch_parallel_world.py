@@ -33,6 +33,7 @@ from diffuncertainty_tpu_torch.models.hrnet import HRNet, HRNetSpec
 from diffuncertainty_tpu_torch.models.unet import flax_init_
 from diffuncertainty_tpu_torch.parallel.distributed import initialize_distributed, process_info
 from diffuncertainty_tpu_torch.parallel.mesh import make_mesh
+from diffuncertainty_tpu_torch.sampling.sampler import PredictionStack
 from diffuncertainty_tpu_torch.sampling.sampler import SamplerSpec, make_sampler
 from diffuncertainty_tpu_torch.train import cli as train_cli
 from diffuncertainty_tpu_torch.train import loop as loop_lib
@@ -72,16 +73,31 @@ def perturbed_(trainer: Trainer, seed: int) -> None:
             p.add_(0.05 * torch.randn(p.shape, generator=g, dtype=p.dtype).to(p.device))
 
 
-def batches(seed: int, raters: int | None = None) -> list[dict]:
+def batches(seed: int, raters: int | None = None, sizes=(GLOBAL_BATCH,) * STEPS) -> list[dict]:
     rng = np.random.default_rng(seed)
     out = []
-    for _ in range(STEPS):
-        shape = (GLOBAL_BATCH, 32, 32) if raters is None else (GLOBAL_BATCH, raters, 32, 32)
+    for n in sizes:
+        shape = (n, 32, 32) if raters is None else (n, raters, 32, 32)
         seg = (rng.random(shape) < 0.3).astype(np.int32)
         seg[rng.random(shape) < 0.1] = -1  # ignored pixels: a count-normalized loss
-        out.append({"image": rng.random((GLOBAL_BATCH, 32, 32, 3), dtype=np.float32),
-                    "seg": seg})
+        out.append({"image": rng.random((n, 32, 32, 3), dtype=np.float32), "seg": seg})
     return out
+
+
+def validation(trainers: dict, states: dict, raters, record: dict) -> None:
+    """Both trainers' validation of the same weights on a batch that splits
+    over the data axis and a tail of 3 that does not (its last row padding):
+    the numbers of each and the rows each sharded loss saw."""
+    val = batches(5, raters, sizes=(GLOBAL_BATCH, 3))
+    val[0]["valid"] = np.ones(GLOBAL_BATCH, bool)
+    val[1]["valid"] = np.array([True, True, False])
+    rows = record["val_rows_dp"] = []
+    fns = trainers["dp"]._eval_loss_fns
+    for group, fn in list(fns.items()):
+        fns[group] = lambda module, batch, *a, _f=fn: rows.append(len(batch["image"])) or _f(
+            module, batch, *a)
+    for kind in ("dp", "single"):
+        record[f"val_{kind}"] = trainers[kind].evaluate(states[kind], val, epoch=0)
 
 
 def dp_steps(cfg, work: Path, name: str, module_fn=None, raters=None) -> dict:
@@ -100,8 +116,9 @@ def dp_steps(cfg, work: Path, name: str, module_fn=None, raters=None) -> dict:
         trainers[kind].init_state()
         perturbed_(trainers[kind], 11)
         states[kind] = trainers[kind].fresh_state()
-    gens = {k: trainers[k].epoch_generator(0) for k in trainers}
     record = {"loss_dp": [], "loss_single": [], "max_param_diff": []}
+    validation(trainers, states, raters, record)
+    gens = {k: trainers[k].epoch_generator(0) for k in trainers}
     for batch in batches(3, raters):
         for kind in ("dp", "single"):
             part = {k: v[rows] for k, v in batch.items()} if kind == "dp" else batch
@@ -161,6 +178,51 @@ def member_layout(work: Path, out: dict) -> None:
                                     - results["one_block"].groups).abs().max())
 
 
+def member_copies(built, members: int, seed: int) -> dict:
+    """``members`` copies of the module's seeded init, stacked, each with
+    its own noise on every float leaf (running variances scaled, so they
+    stay positive; the init's zero convs would hide the members)."""
+    g = torch.Generator().manual_seed(seed)
+    flax_init_(built.module, g)
+    states = []
+    for _ in range(members):
+        state = {}
+        for k, v in built.module.state_dict().items():
+            z = torch.randn(v.shape, generator=g) if v.is_floating_point() else None
+            state[k] = (v.clone() if z is None else v * (1 + 0.2 * z.abs())
+                        if k.endswith("running_var") else v + 0.05 * z)
+        states.append(state)
+    return stack_states(states, built.module)
+
+
+def unfolded_stacks(out: dict) -> None:
+    """4-member stacks of the families with no member-folded form (the
+    prob-U-Net, the HRNet with stage and final dropout and TTA) at (1, 2)
+    and (2, 1), each beside the single process's stack of the same seed."""
+    images = torch.from_numpy(np.random.default_rng(2).random((2, 32, 32, 3), dtype=np.float32))
+    hrnet = build_model(load_cfg("hrnet-s", "dropout"), "cpu")
+    models = {"prob_unet": build_model(load_cfg("unet16", "none", model="prob_unet"), "cpu"),
+              "hrnet": dataclasses.replace(hrnet, module=HRNet(2, HRNetSpec(**HRNET_SMALL)))}
+    for name, built in models.items():
+        stack = member_copies(built, 4, 21)
+        results = {}
+        for layout, mesh in (("single", None), ("m12", make_mesh((1, 2))),
+                             ("d21", make_mesh((2, 1)))):
+            sampler = make_sampler(built, SamplerSpec(n_pred=2, n_members=4, tta=True,
+                                                      member_mode="params_stack"),
+                                   members=stack, mesh=mesh)
+            results[layout] = sampler(images, torch.Generator().manual_seed(9))
+            out[f"{name}_{layout}_blocks"] = sampler.blocks
+        ref = results["single"]
+        out[f"{name}_shape"] = tuple(ref.groups.shape)
+        for layout in ("m12", "d21"):
+            out[f"{name}_{layout}_max_diff"] = max(
+                float((getattr(results[layout], k) - getattr(ref, k)).abs().max())
+                for k in PredictionStack._fields)
+        out[f"{name}_member_spread"] = min(float((ref.groups[m] - ref.groups[0]).abs().max())
+                                           for m in range(1, 4))
+
+
 def dp_fit(work: Path, out: dict) -> None:
     """One epoch of the training command at (2, 1): each rank its shard."""
     argv = [f"data.data_input_dir={work / 'toy'}", f"save_dir={work / 'fit'}",
@@ -176,9 +238,9 @@ SMALL_NET = ["network.model_channels=8", "network.num_res_blocks=[1,1]",
              "network.channel_mult=[1,2]", "network.attention_resolutions=[-1]"]
 
 
-def load_cfg(network: str = "unet16", eu: str = "dropout", *extra):
+def load_cfg(network: str = "unet16", eu: str = "dropout", *extra, model: str = "softmax"):
     small = SMALL_NET if network == "unet16" else []
-    cfg, _ = train_cli.parse_args([f"network={network}", "data=toy64", "model=softmax",
+    cfg, _ = train_cli.parse_args([f"network={network}", "data=toy64", f"model={model}",
                                    f"eu_method={eu}", *small, *extra, "device=cpu"])
     return cfg
 
@@ -210,6 +272,7 @@ def main(work: Path) -> None:
                             work, "h", lambda: HRNet(2, HRNetSpec(**HRNET_SMALL)), raters=3))),
                         ("stitch", lambda: stitch(out)),
                         ("member", lambda: member_layout(work, out)),
+                        ("unfolded", lambda: unfolded_stacks(out)),
                         ("fit", lambda: dp_fit(work, out))):
         try:
             check()
