@@ -184,12 +184,19 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    every leaf, 4 TTA rounds, two members a rank in one folded block though
    ``member_chunk=1``) on the toy-128 16-image batch: its new kernel shapes
    against the twins, one call counted (11 / 56 a rank, no twin), three
-   timed; then one bf16 data-parallel step at (2, 1) from the asset's
-   weights. This process holds them to the single-process job and step on
-   the same seeds: the gathered heatmaps and mean within the port's bf16
-   call tolerance (mean |d| at most TOL's bf16 atol, argmax agreement
-   0.99), the step's loss to 1e-2 relative and each gradient leaf to
-   STEP_GRAD_TOL (the zero-gradient leaves of the float64 step left out).
+   timed; four-member prob-U-Net and hrnet-s ensembles (the assets, 2%
+   seeded noise) at (1, 2) and (2, 1); the trainer's validation at (2, 1)
+   by the loader and with a tail batch that runs whole; then one bf16
+   data-parallel step at (2, 1) from the asset's weights. The ranks run with
+   this process's float32 settings (``exact_float32``: cuDNN's TF32, which
+   torch starts on, off; the HRNet's heads run float32 convolutions). This
+   process holds them to the single-process job and step on the same seeds:
+   the gathered heatmaps and mean within the port's bf16 call tolerance
+   (mean |d| at most TOL's bf16 atol, argmax agreement 0.99), the
+   prob-U-Net and hrnet-s stacks at (1, 2) equal bit for bit (a rank runs
+   its members as one process does), validation to 1e-2 relative, the
+   step's loss to 1e-2 relative and each gradient leaf to STEP_GRAD_TOL
+   (the zero-gradient leaves of the float64 step left out).
    A rank that fails or outlives MULTIDEVICE_TIMEOUT_S fails the path. Then
    a world of one on NCCL through ``initialize_distributed``;
 11e. the retina pipelines (the ``retina`` path, no asset): the committed
@@ -319,6 +326,7 @@ PATH_ASSETS = {"softmax": ASSET, "diffusion": ASSET_DIFFUSION, "ssn": ASSET_SSN,
                # the softmax asset as a reference checkpoint, served on LIDC crops
                "lidc_import": ASSET,
                # two ranks on the card: the softmax asset's job and a data-parallel step
+               # (and the prob-U-Net and hrnet-s assets' ensembles)
                "multidevice": ASSET,
                # the retina pipelines on synthetic raw trees and committed JPEGs,
                # then a net trained from scratch on them
@@ -553,9 +561,18 @@ def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is False")
     log(f"device 0: {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    exact_float32()
+    return smi
+
+
+def exact_float32() -> None:
+    """float32 convolutions and matmuls without TF32, in this process and in
+    every process it starts for the card (torch turns cuDNN's TF32 on by
+    default; the HRNet's heads run float32 convolutions)."""
+    import torch
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    return smi
 
 
 def _kernel_name(demangled: str) -> str:
@@ -2466,24 +2483,35 @@ MULTIDEVICE_JOBS = {
     "prob_unet12": ("prob_unet", dict(n_pred=SAMPLES, mesh_shape=(1, 2), member_chunk=1),
                     tuple(2 * n for n in GENERATIVE16_LAUNCHES["prob_unet"])),
     "hrnet12": ("hrnet", dict(n_pred=4, mesh_shape=(1, 2), member_chunk=1), (0, 0)),
+    # at (2, 1) a rank runs all four members, one a block, on its 8 images
+    "prob_unet21": ("prob_unet", dict(n_pred=SAMPLES, mesh_shape=(2, 1), member_chunk=1),
+                    tuple(4 * n for n in GENERATIVE16_LAUNCHES["prob_unet"])),
+    "hrnet21": ("hrnet", dict(n_pred=4, mesh_shape=(2, 1), member_chunk=1), (0, 0)),
 }
+# the member-sharded stacks with no member-folded form: a rank runs each of
+# its members as the single process does (the same rows, weights and
+# draws), so the gathered stack equals the single process's bit for bit
+MULTIDEVICE_EXACT = ("prob_unet12", "hrnet12")
+# the validation beside the loader's: the val split's first 12 images (6 a
+# rank) and a tail of its last 4 padded to 5 rows (odd: it runs whole)
+VAL_TAIL_ROWS = (12, 5)
 
 
 def multidevice_inputs(work: Path) -> dict:
     """What both ranks and the single-process reference read: the softmax
     asset as a job checkpoint (MC-dropout), four-member deep ensembles of
-    it and of the prob-U-Net asset (noise on every leaf, seeded) and of
-    seeded hrnet-s weights (each member its own init), all bf16, the first
-    16 images of the toy-128 ``id`` split and one global training batch."""
+    it, of the prob-U-Net asset and of the hrnet-s asset (noise on every
+    leaf, seeded), all bf16, the first 16 images of the toy-128 ``id`` split
+    and one global training batch. (Seeded random hrnet-s members carry
+    logits of hundreds: there a bf16 convolution's batch-dependent rounding
+    moves whole pixels, ``tools/layout_probe.py``.)"""
     import numpy as np
-    import torch
 
     from diffuncertainty_tpu_torch.core.checkpoint import save_checkpoint
     from diffuncertainty_tpu_torch.core.config import load_config
-    from diffuncertainty_tpu_torch.core.params import load_params_npz, torch_to_flax
+    from diffuncertainty_tpu_torch.core.params import load_into, load_params_npz, torch_to_flax
     from diffuncertainty_tpu_torch.data.loader import BatchLoader
     from diffuncertainty_tpu_torch.models.factory import build_model
-    from diffuncertainty_tpu_torch.models.unet import flax_init_
     from diffuncertainty_tpu_torch.train.cli import build_loaders, parse_args
 
     ckpt, ds = softmax_job_checkpoint(work)
@@ -2505,23 +2533,41 @@ def multidevice_inputs(work: Path) -> dict:
                 for i in range(MULTIDEVICE_ENSEMBLE)]
 
     hrnet_cfg = config("hrnet-s", "softmax")
-    hrnet = build_model(hrnet_cfg, device="cpu").module
-
-    def hrnet_member(i):
-        flax_init_(hrnet, torch.Generator().manual_seed(300 + i))
-        return torch_to_flax({k: v.float() for k, v in hrnet.state_dict().items()})
+    hrnet = load_into(build_model(hrnet_cfg, device="cpu").module, ASSET_HRNET)
+    hrnet_params = torch_to_flax({k: v.float() for k, v in hrnet.state_dict().items()})
 
     params, prob_unet = load_params_npz(ASSET), load_params_npz(ASSET_PROB_UNET)
     ens = ensemble("ens", config("unet16", "softmax"), lambda i: noisy(params))
     members = {"prob_unet": ensemble("prob_unet", config("unet16", "prob_unet"),
                                      lambda i: noisy(prob_unet)),
-               "hrnet": ensemble("hrnet", hrnet_cfg, hrnet_member)}
+               "hrnet": ensemble("hrnet", hrnet_cfg, lambda i: noisy(hrnet_params))}
     tcfg, _ = parse_args(train_tokens(ds.base_dir, work / "train"))
     batch = next(iter(build_loaders(tcfg)[0]))
     np.savez(work / "train_batch.npz", image=batch["image"], seg=batch["seg"])
     first = next(iter(BatchLoader(ds, BATCH, drop_last=False)))
     return {"dropout": [ckpt], "ensemble": ens, **members, "images": first["image"],
             "train_tokens": train_tokens(ds.base_dir, work / "train")}
+
+
+def val_tail_batches(cfg) -> list[dict]:
+    """The val split as two batches of VAL_TAIL_ROWS: the first splits over
+    the data axis, the tail (its last row padding) does not."""
+    import numpy as np
+
+    from diffuncertainty_tpu_torch.train.cli import build_loaders
+
+    loader = build_loaders(cfg)[1]
+    whole = next(iter(loader))
+    n = int(np.sum(whole["valid"]))
+    first, tail = VAL_TAIL_ROWS
+    if n != first + tail - 1:
+        raise AssertionError(f"multidevice: the val split holds {n} images, not "
+                             f"{first + tail - 1}")
+    keep = {k: v for k, v in whole.items() if isinstance(v, np.ndarray) and len(v) >= n}
+    head = {k: v[:first] for k, v in keep.items()}
+    pad = {k: np.concatenate([v[first:n], v[first:first + 1]]) for k, v in keep.items()}
+    pad["valid"] = np.arange(tail) < tail - 1
+    return [head, pad]
 
 
 def multidevice_rank(work: Path) -> int:
@@ -2543,6 +2589,7 @@ def multidevice_rank(work: Path) -> int:
     from diffuncertainty_tpu_torch.train.loop import Trainer
 
     sys.path.insert(0, str(REPO))
+    exact_float32()  # as the single process that holds the ranks
     initialize_distributed(device="cuda")
     rank, world = process_info()
     backend = torch.distributed.get_backend()
@@ -2582,6 +2629,12 @@ def multidevice_rank(work: Path) -> int:
     load_into(trainer.built.module, ASSET)
     state = trainer.fresh_state()
     report["val"] = trainer.evaluate(state, build_loaders(cfg)[1], epoch=0)
+    rows_seen = report["val_tail_rows"] = []
+    fns = trainer._eval_loss_fns
+    for group, fn in list(fns.items()):
+        fns[group] = lambda module, b, *a, _f=fn: rows_seen.append(len(b["image"])) or _f(
+            module, b, *a)
+    report["val_tail"] = trainer.evaluate(state, val_tail_batches(cfg), epoch=0)
     batch = dict(np.load(work / "train_batch.npz"))
     rows = trainer.mesh.rows(batch["image"].shape[0], "data")
     local = {k: v[rows] for k, v in batch.items()}
@@ -2601,15 +2654,19 @@ def phase_multidevice(smi: str, attn_checked: set, norm_checked: set):
     """Two ranks on the one card (``DU_COORDINATOR``, ``DU_NUM_PROCESSES``,
     ``DU_PROCESS_ID`` and ``DU_DIST_BACKEND=gloo`` on CUDA tensors: NCCL
     refuses two ranks on one device), each a ``chip_smoke.py
-    --multidevice-rank`` process: the job at mesh (2, 1) (the MC-dropout
-    asset, 16 members x TTA) and (1, 2) (a four-member ensemble of it, two a
-    rank in one block although ``member_chunk=1``; four-member prob-U-Net
-    (the asset's widths, 16 latent draws) and hrnet-s (x TTA) ensembles, two
-    a rank one at a time) on the toy-128 16-image batch, each rank's calls
-    counted (11 / 56, 32 / 162 and 0 / 0), and the data-parallel trainer at
-    (2, 1): its validation and one bf16 step; held against this process's
+    --multidevice-rank`` process with this process's float32 settings
+    (``exact_float32``): the job at mesh (2, 1) (the MC-dropout asset, 16
+    members x TTA) and (1, 2) (a four-member ensemble of it, two a rank in
+    one block although ``member_chunk=1``; four-member prob-U-Net (the
+    asset's widths, 16 latent draws) and hrnet-s (x TTA) ensembles, two a
+    rank one at a time, and the same two at (2, 1), all four a rank on its
+    8 images) on the toy-128 16-image batch, each rank's calls counted (11 /
+    56, 32 / 162 and 64 / 324, 0 / 0), and the data-parallel trainer at (2,
+    1): its validation, the same with a tail that runs whole
+    (VAL_TAIL_ROWS), and one bf16 step; held against this process's
     single-process jobs, validation and step on the same seed (heatmaps and
-    mean to the port's bf16 call tolerance, every validation number to the
+    mean to the port's bf16 call tolerance, and the member-sharded unfolded
+    stacks MULTIDEVICE_EXACT bit for bit; every validation number to the
     step's loss tolerance, each gradient leaf to STEP_GRAD_TOL); then a
     world-size-1 NCCL group through ``initialize_distributed``."""
     import os
@@ -2671,19 +2728,24 @@ def phase_multidevice(smi: str, attn_checked: set, norm_checked: set):
                 f"{rep['blocks']}")
         # the single-process jobs, validation and step, same seeds
         images = np.load(work / "images.npy")
+        refs = {}  # one single-process job per (source, n_pred): the layouts share it
         for name, (source, fields, _) in MULTIDEVICE_JOBS.items():
-            job = UncertaintyInference(inputs[source], InferenceConfig(
-                tta=True, batch_size=BATCH, seed=777, save_dir=str(work / "unused"),
-                **{**fields, "mesh_shape": None, "member_chunk": None}))
-            x = job.normalize(images)
-            cases = check_sites(job.sampler, x, attn_checked, {k + (0,) for k in norm_checked},
-                                seed=1200)
-            out.setdefault("attn_cases", []).extend(cases[0])
-            out.setdefault("norm_cases", []).extend(cases[1])
-            stack = job._sample_stack(x, torch.Generator("cuda").manual_seed(777))
-            ref = {k: v.cpu().numpy() for k, v in uncertainty_heatmaps(
-                stack.group_means.float(), sample_axis=0, class_axis=-1).items()}
-            ref["mean"] = stack.mean.float().cpu().numpy()
+            key = (source, fields["n_pred"])
+            if key not in refs:
+                job = UncertaintyInference(inputs[source], InferenceConfig(
+                    tta=True, batch_size=BATCH, seed=777, save_dir=str(work / "unused"),
+                    **{**fields, "mesh_shape": None, "member_chunk": None}))
+                x = job.normalize(images)
+                cases = check_sites(job.sampler, x, attn_checked,
+                                    {k + (0,) for k in norm_checked}, seed=1200)
+                out.setdefault("attn_cases", []).extend(cases[0])
+                out.setdefault("norm_cases", []).extend(cases[1])
+                stack = job._sample_stack(x, torch.Generator("cuda").manual_seed(777))
+                refs[key] = {k: v.cpu().numpy() for k, v in uncertainty_heatmaps(
+                    stack.group_means.float(), sample_axis=0, class_axis=-1).items()}
+                refs[key]["mean"] = stack.mean.float().cpu().numpy()
+                del job, stack
+            ref = refs[key]
             got = dict(np.load(work / f"{name}.npz"))
             diffs = {k: float(np.abs(got[k] - ref[k]).mean()) for k in ref}
             agree = float((got["mean"].argmax(-1) == ref["mean"].argmax(-1)).mean())
@@ -2691,8 +2753,10 @@ def phase_multidevice(smi: str, attn_checked: set, norm_checked: set):
                 f"agreement {agree:.5f}")
             if max(diffs.values()) > TWIN_CALL_TOL[0] or agree < TWIN_CALL_TOL[1]:
                 raise AssertionError(f"multidevice {name} differs from the single-process job")
+            if name in MULTIDEVICE_EXACT and (max(diffs.values()) > 0 or agree < 1):
+                raise AssertionError(f"multidevice {name}: a member-sharded stack with no "
+                                     f"folded form differs from the single process's")
             out[name] = {"mean_abs_diff": diffs, "argmax_agreement": agree}
-            del job, stack
         cfg, _ = parse_args(inputs["train_tokens"])
         trainer = Trainer(cfg, device="cuda", workdir=work / "train_single")
         load_into(trainer.built.module, ASSET)
@@ -2705,6 +2769,17 @@ def phase_multidevice(smi: str, attn_checked: set, norm_checked: set):
             raise AssertionError("multidevice: the data-parallel validation differs from the "
                                  "single-process validation")
         out["validation"] = {"single": val, "ranks": val_ranks[0]}
+        tail = trainer.evaluate(state, val_tail_batches(cfg), epoch=0)
+        tails = [rep["val_tail"] for rep in reports]
+        rows = [rep["val_tail_rows"] for rep in reports]
+        log(f"multidevice validation with a whole tail at (2, 1) vs one process: {tails} vs "
+            f"{tail}; rows a rank's loss saw {rows}")
+        if (tails[0] != tails[1] or set(tails[0]) != set(tail)
+                or rows != [[VAL_TAIL_ROWS[0] // 2, VAL_TAIL_ROWS[1]]] * 2
+                or any(abs(tails[0][k] - v) > 1e-2 * abs(v) for k, v in tail.items())):
+            raise AssertionError("multidevice: the data-parallel validation with a whole tail "
+                                 "differs from the single-process validation")
+        out["validation_tail"] = {"single": tail, "ranks": tails[0], "rows": rows[0]}
         batch = dict(np.load(work / "train_batch.npz"))
         aux, grads = trainer.step_gradients(state, batch, torch.Generator("cuda").manual_seed(7))
         null = null_gradient_leaves(trainer, state, batch)

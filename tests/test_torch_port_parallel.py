@@ -153,18 +153,24 @@ def world(tmp_path_factory):
     checkpoint(work, "ckpt_drop", "dropout", 1)
     for i in range(4):
         checkpoint(work, f"ckpt_ens{i}", "none", 10 + i)
-    port = free_port()
-    env = {**os.environ, "DU_COORDINATOR": f"localhost:{port}", "DU_NUM_PROCESSES": "2",
-           "OMP_NUM_THREADS": "1", "PYTHONPATH": f"{REPO}{os.pathsep}"
-           + os.environ.get("PYTHONPATH", "")}
+    return run_world(work, "torch_parallel_world.py", 2)
+
+
+def run_world(work: Path, script: str, ranks: int, timeout: float = WORLD_TIMEOUT_S) -> dict:
+    """``ranks`` processes of ``tests/<script> work`` joined on gloo, each
+    with one thread, under one timeout that kills them all: their reports
+    (``rank<R>.pkl``, {} for a rank that wrote none), logs and exit codes."""
+    env = {**os.environ, "DU_COORDINATOR": f"localhost:{free_port()}",
+           "DU_NUM_PROCESSES": str(ranks), "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": f"{REPO}{os.pathsep}" + os.environ.get("PYTHONPATH", "")}
     env.pop("DU_DIST_BACKEND", None)
     procs = []
-    for r in range(2):
+    for r in range(ranks):
         with open(work / f"rank{r}.log", "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, str(REPO / "tests" / "torch_parallel_world.py"), str(work)],
+                [sys.executable, str(REPO / "tests" / script), str(work)],
                 env={**env, "DU_PROCESS_ID": str(r)}, stdout=log, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     for proc in procs:
         try:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -172,10 +178,10 @@ def world(tmp_path_factory):
             for p in procs:
                 p.kill()
                 p.wait()
-    logs = [(work / f"rank{r}.log").read_text() for r in range(2)]
+    logs = [(work / f"rank{r}.log").read_text() for r in range(ranks)]
     reports = [pickle.loads((work / f"rank{r}.pkl").read_bytes())
-               if (work / f"rank{r}.pkl").exists() else {} for r in range(2)]
-    return {"work": work, "reports": reports, "logs": logs,
+               if (work / f"rank{r}.pkl").exists() else {} for r in range(ranks)]
+    return {"work": work, "reports": reports, "logs": logs, "timeout": timeout,
             "returncodes": [p.returncode for p in procs]}
 
 
@@ -184,7 +190,7 @@ def report(world, key):
     for r, rep in enumerate(world["reports"]):
         errors = {k: v for k, v in rep.items() if k.endswith("_error")}
         assert not errors, f"rank {r}: {errors}"
-        assert rep.get("done"), (f"rank {r} did not finish in {WORLD_TIMEOUT_S} s (exit "
+        assert rep.get("done"), (f"rank {r} did not finish in {world['timeout']} s (exit "
                                  f"{world['returncodes'][r]}): {world['logs'][r][-3000:]}")
     return world["reports"][0][key]
 
@@ -293,3 +299,37 @@ def test_only_rank_0_writes(world):
     fit = Path(report(world, "fit_workdir"))
     assert (fit / "checkpoints" / "last").exists()
     assert len((fit / "metrics.jsonl").read_text().splitlines()) == 1
+
+
+@pytest.mark.parametrize("family", ["prob_unet", "hrnet"])
+def test_a_member_sharded_unfolded_stack_is_the_single_process_stack_bit_for_bit(world, family):
+    """At (1, 2) a rank runs each of its members as the single process does
+    (the same rows, weights and draws), so the stacks are equal, not only
+    close: ``chip_smoke.py``'s MULTIDEVICE_EXACT holds the same on the card."""
+    assert [rep[f"{family}_m12_max_diff"] for rep in world["reports"]] == [0.0, 0.0]
+
+
+def test_chip_smoke_ranks_take_its_float32_settings(monkeypatch, tmp_path):
+    """Each ``--multidevice-rank`` process switches TF32 off (torch starts
+    cuDNN's on) before it joins the world, as the process that holds it to
+    the single-process stacks does: on the card the HRNet's float32 heads
+    otherwise part between the two. The CPU has no TF32, so the card's
+    check holds the stacks themselves."""
+    import chip_smoke
+    from diffuncertainty_tpu_torch.parallel import distributed
+
+    seen = []
+
+    class Joined(Exception):
+        pass
+
+    def initialize(*a, **k):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        raise Joined
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(distributed, "initialize_distributed", initialize)
+    with pytest.raises(Joined):
+        chip_smoke.multidevice_rank(tmp_path)
+    assert seen == [(False, False)]
