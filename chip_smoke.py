@@ -134,7 +134,8 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    its training forward and of one inference batch of the cell's job (8,
    16, 24 and 32 channels at 32x32 and 16x16, the attention block's norm at
    256 tokens; train and inference rows) checked
-   against the twin, and that batch counted (GroupNorm launched once per
+   against the twin, the GroupNorm backward kernel at every site of the
+   training forward checked as in 12, and that batch counted (GroupNorm launched once per
    site, no GroupNorm twin; attention at head width 4 on its fp32 twin by
    the gate); then the study as a subprocess beside the training runs: the
    report's artifacts and figures, a finite softmax-entropy baseline on
@@ -215,17 +216,20 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    ...infer``, ``id_test``, 16 members x TTA, TU = AU + EU); one batch of
    it in process, its kernel sites checked, its launches counted (11 / 56);
 12. the trainer (``python -m diffuncertainty_tpu_torch.train``, the user's
-   entry point): each kernel's backward (its autograd Function: the kernel
-   forward, the twin's VJP) against fp32 autograd of the twin on the same
-   bf16 values at the training shapes (attention at (16, 1024, 384) and
-   (16, 256, 768), GroupNorm at unet16's norm sites at 16 rows with silu and
-   with none), with the VJP's time, its bound and the library backward's
-   time; one full-model bf16 step at batch 16 with the launches and VJPs
-   counted (11 and 56 of each, no forward twin), every leaf's gradient
-   finite, nonzero and against the same step with both twins forced, and the
-   step's split (forward, backward with the twin VJPs apart, optimizer and
-   EMA), busy share and peak memory (torch.profiler over PROFILED_STEPS
-   steps); then the first member of the JAX
+   entry point): each backward kernel (through its autograd Function: the
+   kernel forward saving its statistics, the backward kernel) against fp32
+   autograd of the twin on the same bf16 values and against the kernel's
+   plain version on the card, both under GRAD_TOL, at the training shapes
+   (attention at (16, 1024, 384) and (16, 256, 768), GroupNorm at unet16's
+   norm sites at 16 rows with silu and with none); two calls bit-equal, the
+   forward under grad bit-equal to the no-grad forward; the kernel's time
+   beside the twin VJP's, the plain version's, the library backward's and
+   the bound; one full-model bf16 step at batch 16 with the launches counted
+   (11 and 56 forward and backward launches, no twin VJP, no forward twin),
+   every leaf's gradient finite, nonzero and against the same step with both
+   twins forced, and the step's split (forward, backward with the backward
+   kernels' calls apart, optimizer and EMA), busy share and peak memory
+   (torch.profiler over PROFILED_STEPS steps); then the first member of the JAX
    16-member recipe (seed 2024, eu none, 150 epochs, bf16, batch 16 on the
    toy-128 train split) trained from scratch as a subprocess, its loss
    falling, the EMA weights of its ``last`` checkpoint scored (one member,
@@ -237,21 +241,21 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
 13. the trainer for the diffusion, SSN and prob-U-Net families (the
    ``train_diffusion``, ``train_ssn`` and ``train_prob_unet`` paths, each
    the family's recipe of ``tools/train_recipe.py`` trained from scratch):
-   each kernel's backward against fp32 autograd of its twin at every
-   attention and GroupNorm site of the family's training forward (the
-   prob-U-Net's base, prior and posterior encoders at d = 24 and 48, the
-   SSN's two head norms, the diffusion input's 5 channels); one counted
-   bf16 step at batch 16 from step 2 (11 / 56, 11 / 58 and 21 / 106
-   launches; the SSN also in its mean-only phase, 11 / 57; the prob-U-Net
-   base's unused head takes no VJP: 105), each leaf against the
-   twins-forced step; a short run through the entry point as a subprocess
+   each backward kernel checked as in 12 at every attention and GroupNorm
+   site of the family's training forward (the prob-U-Net's base, prior and
+   posterior encoders at d = 24 and 48, the SSN's two head norms, the
+   diffusion input's 5 channels); one counted bf16 step at batch 16 from
+   step 2 (11 / 56, 11 / 58 and 21 / 106 forward launches, as many backward
+   launches, no twin VJP; the SSN also in its mean-only phase, 11 / 57; the
+   prob-U-Net base's unused head takes no backward: 105), each leaf against
+   the twins-forced step; a short run through the entry point as a subprocess
    (diffusion 4 epochs with two DDPM validations, SSN 12 epochs across its
    mean-only flip with ``cov_failed`` per epoch, prob-U-Net 6 epochs with
    beta rising), its loss falling; its checkpoint's EMA weights in the
    family's serving sampler (110 / 560, 11 / 58, 16 / 81 launches, no
    twin) and in the inference job as a subprocess over the 256 images;
 13a. ``trainer.remat`` (the ``train`` path): the remat forward and backward
-   counted (each kernel's forward twice, 22 / 112, the VJPs once), its
+   counted (each kernel's forward twice, 22 / 112, its backward once), its
    gradients against the stored forward's on the same generator state (fp32
    to 1e-6 of the largest gradient, bf16 to STEP_GRAD_TOL), peak memory with
    and without;
@@ -263,8 +267,8 @@ Drives ``diffuncertainty_tpu_torch`` (never JAX, never ``diffuncertainty_tpu``):
    without it, the step's split; a 4-epoch run and its checkpoint (EMA
    weights and the run's statistics) in the HRNet serving path;
 13c. the sub-ensemble mask trainer (``train_subensemble``) over the frozen
-   softmax asset: one counted step (10 members, 110 / 560 launches and VJPs,
-   no twin), a short run (``SUBENSEMBLE``) with its loss falling, the hard
+   softmax asset: one counted step (10 members, 110 / 560 forward and
+   backward launches, no twin), a short run (``SUBENSEMBLE``) with its loss falling, the hard
    masks' mean IoU below 1 and the expected fill within
    ``SUBENSEMBLE_FILL_BAND`` of the target, the members folded in the sampler (their new shapes against the
    twins, 11 / 56 launches, EU > 0);
@@ -422,10 +426,11 @@ TRAIN_SEED, TRAIN_EPOCHS = 2024, 150
 # 256-image numbers are reported.
 TRAIN_BANDS = {"dice": (0.9299, 0.9533), "ged_bma": (0.0511, 0.0983),
                "aurc": (0.0380, 0.0518), "ece": (0.0284, 0.0494)}
-# A kernel's backward (its twin's VJP on the bf16 inputs) against autograd of
-# the twin in fp32 on the same values: |g - g32| <= A * max|g32| + R * |g32|.
-# The bf16 VJP rounds the gradient it returns (2^-9 relative) and, inside the
-# attention, the probabilities and their gradient (2^-9 each) before sums of
+# A backward kernel against autograd of the twin in fp32 on the same bf16
+# values (and against the kernel's plain version, which computes in f32):
+# |g - g32| <= A * max|g32| + R * |g32|. The kernel rounds the gradient it
+# returns (2^-9 relative) and, inside the attention, the probabilities and
+# their gradient (2^-9 each) where they enter a bf16 product, before sums of
 # up to 1024 terms whose cancellations leave an error of the sum's scale,
 # not the element's: A = 2^-6 (eight such roundings), R = 2^-7.
 GRAD_TOL = (2.0 ** -6, 2.0 ** -7)
@@ -451,9 +456,10 @@ TRAIN_FAMILIES = {
             "serve": GENERATIVE16_LAUNCHES["ssn"]},
     # base, prior and posterior encoders: the serving path's 16 / 81 and the
     # posterior's 5 / 25; the base's output head is computed and not used
-    # (the fcomb decodes), so its norm's VJP does not run: 105 GroupNorm VJPs
+    # (the fcomb decodes), so its norm's backward does not run: 105 GroupNorm
+    # backward launches
     "prob_unet": {"epochs": 6, "extra": ["trainer.val_every_n_epochs=3"], "step": (21, 106),
-                  "step_vjp": (21, 105), "serve": GENERATIVE16_LAUNCHES["prob_unet"]},
+                  "step_bwd": (21, 105), "serve": GENERATIVE16_LAUNCHES["prob_unet"]},
 }
 # The training paths of the HRNet, the multiclass recipe, SWAG-diag and the
 # deep ensemble: the run of each through its entry point (tools/train_recipe.py's
@@ -2827,112 +2833,181 @@ def train_tokens(data_dir, save_dir) -> list[str]:
 
 
 def grad_error(name: str, got, ref) -> dict:
-    """``got`` (the kernel's Function) against ``ref`` (fp32 autograd of the
-    twin) under GRAD_TOL; the max abs and the max abs over max |ref|."""
+    """``got`` (the kernel's gradient) against ``ref`` (fp32 autograd of the
+    twin, or the kernel's plain version) under GRAD_TOL; the max abs and the
+    max abs over max |ref|."""
     import torch
 
     a, r = GRAD_TOL
+    ref = ref.float()
     err = (got.float() - ref).abs()
     scale = ref.abs().max().item()
     bad = (err > a * scale + r * ref.abs()).sum().item()
     out = {"max_abs_err": err.max().item(), "max_rel_err": err.max().item() / max(scale, 1e-30)}
     if not torch.isfinite(got.float()).all() or bad:
-        raise AssertionError(f"{name} backward disagrees with fp32 autograd of its twin: {bad} "
+        raise AssertionError(f"{name}: the backward kernel disagrees with its reference: {bad} "
                              f"elements beyond {a}*max|ref| + {r}*|ref| ({out})")
     return out
 
 
-def vjp_cases(norm_site_list, attn_sites=None) -> tuple[list[dict], list[dict]]:
-    """Each kernel's backward at the training step's shapes: the gradients
-    through its autograd Function (kernel forward, the twin's VJP) against
-    fp32 autograd of the twin on the same bf16 values, the VJP's time
-    (CUDA events), its bound and the library backward's time.
-    ``attn_sites``: {T: (calls, C)} of one training forward (unet16's by
-    default); ``norm_site_list``: its GroupNorm sites (shape without the
-    batch, dtype, act)."""
+def attention_backward_case(b: int, t: int, c: int, calls: int, seed: int) -> dict:
+    """The attention backward kernel at (b, t, 3c): the forward under grad
+    (writing m and l) equal bit for bit to the no-grad forward; the
+    Function's gradient (kernel forward, backward kernel) against fp32
+    autograd of the twin and against the kernel's plain version on the card,
+    both under GRAD_TOL; two kernel calls bit-equal; the kernel's time beside
+    the twin VJP's, the plain version's, SDPA's backward and the bound (CUDA
+    events, median of 10)."""
     import torch
     import torch.nn.functional as F
 
     from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.tools.groupnorm_sites import event_ms
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
+    g_out = torch.randn((b, t, c), generator=gen, device="cuda").to(torch.bfloat16)
+    site = f"attention backward B={b} T={t} C={c}"
+    with torch.no_grad():
+        out0 = ca.qkv_attention_cuda(qkv, 4)
+    out, m, lsum = ca._forward(qkv, 4, stats=True)
+    if not torch.equal(out, out0):
+        raise AssertionError(f"{site}: the forward under grad differs from the no-grad forward")
+    x = qkv.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(ca.qkv_attention_cuda(x, 4), x, g_out)
+    again = ca._backward(qkv, out, m, lsum, g_out, 4)
+    if not (torch.equal(got, again) and torch.equal(again, ca._backward(qkv, out, m, lsum,
+                                                                         g_out, 4))):
+        raise AssertionError(f"{site}: two calls of the backward kernel differ")
+    x32 = qkv.float().requires_grad_(True)
+    (ref,) = torch.autograd.grad(ca.qkv_attention_reference(x32, 4), x32, g_out.float())
+    plain = ca.qkv_attention_backward_reference(qkv, out, m, lsum, g_out, 4)
+    case = {"B": b, "T": t, "C": c, "d": c // 4, "calls": calls,
+            **grad_error(site, got, ref),
+            "max_abs_err_plain": grad_error(f"{site} vs its plain version", got,
+                                            plain)["max_abs_err"]}
+    case["ms"] = event_ms(lambda: ca._backward(qkv, out, m, lsum, g_out, 4), runs=10)
+    case["vjp_ms"] = event_ms(lambda: ca.qkv_attention_vjp(qkv, 4, g_out), runs=10)
+    case["plain_ms"] = event_ms(lambda: ca.qkv_attention_backward_reference(
+        qkv, out, m, lsum, g_out, 4), runs=10)
+    ch = c // 4
+    qh = qkv.view(b, t, 4, 3 * ch).permute(0, 2, 1, 3)
+    q, k, v = (qh[..., j * ch:(j + 1) * ch].contiguous().requires_grad_(True) for j in range(3))
+    o = F.scaled_dot_product_attention(q, k, v, scale=ch ** -0.5)
+    g4 = g_out.view(b, t, 4, ch).permute(0, 2, 1, 3)
+    case["library_ms"] = event_ms(lambda: torch.autograd.grad(o, (q, k, v), g4,
+                                                              retain_graph=True), runs=10)
+    flops = 10.0 * b * 4 * t * t * ch  # recompute QK^T, dV, dP, dQ, dK
+    nbytes = 2.0 * b * t * (3 * c + c + c + 3 * c) + 2 * 4.0 * b * 4 * t  # qkv, o, dO, m, l; dqkv
+    case["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    case["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
+    log(f"{site}: max|g-g32| {case['max_abs_err']:.3e} ({case['max_rel_err']:.3e} of max|g32|), "
+        f"max|g-plain| {case['max_abs_err_plain']:.3e}, repeat bit-equal, forward under grad "
+        f"bit-equal; kernel {case['ms']:.4f} ms, twin VJP {case['vjp_ms']:.4f} ms, plain "
+        f"{case['plain_ms']:.4f} ms, sdpa backward {case['library_ms']:.4f} ms, bound "
+        f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
+    return case
+
+
+def norm_backward_case(shape: tuple, dt: str, act: str, calls: int, seed: int,
+                       members: int = 0, timed: bool = True) -> dict:
+    """The GroupNorm backward kernel at ``shape`` (with an ``(members, C)``
+    affine when ``members`` > 0), checked as :func:`attention_backward_case`
+    (its three gradients each under GRAD_TOL); timed beside the twin VJP,
+    the plain version, ``F.group_norm`` (+ ``F.silu``) backward and the
+    bound unless ``timed`` is off."""
+    import torch
+    import torch.nn.functional as F
+
     from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
     from diffuncertainty_tpu_torch.ops.norm import num_groups_for
     from diffuncertainty_tpu_torch.tools.groupnorm_sites import event_ms
 
-    attn = []
-    for i, (t, (calls, c)) in enumerate((attn_sites or UNET16_ATTENTION).items()):
-        gen = torch.Generator("cuda").manual_seed(900 + i)
-        qkv = torch.randn((BATCH, t, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
-        g_out = torch.randn((BATCH, t, c), generator=gen, device="cuda").to(torch.bfloat16)
-        x = qkv.clone().requires_grad_(True)
-        (got,) = torch.autograd.grad(ca.qkv_attention_cuda(x, 4), x, g_out)
-        x32 = qkv.float().requires_grad_(True)
-        (ref,) = torch.autograd.grad(ca.qkv_attention_reference(x32, 4), x32, g_out.float())
-        case = {"B": BATCH, "T": t, "C": c, "d": c // 4, "calls": calls,
-                **grad_error(f"attention at T={t} C={c}", got, ref)}
-        case["vjp_ms"] = event_ms(lambda: ca.qkv_attention_vjp(qkv, 4, g_out), runs=10)
-        ch = c // 4
-        qh = qkv.view(BATCH, t, 4, 3 * ch).permute(0, 2, 1, 3)
-        q, k, v = (qh[..., j * ch:(j + 1) * ch].contiguous().requires_grad_(True)
-                   for j in range(3))
-        o = F.scaled_dot_product_attention(q, k, v, scale=ch ** -0.5)
-        g4 = g_out.view(BATCH, t, 4, ch).permute(0, 2, 1, 3)
-        case["library_ms"] = event_ms(lambda: torch.autograd.grad(o, (q, k, v), g4,
-                                                                  retain_graph=True), runs=10)
-        flops = 10.0 * BATCH * 4 * t * t * ch  # recompute QK^T, dV, dP, dQ, dK
-        nbytes = 2.0 * BATCH * t * (3 * c + c + 3 * c)  # qkv and dout read, dqkv written
-        case["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        case["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES \
-            else "bytes"
-        log(f"attention backward B={BATCH} T={t} C={c}: max|g-g32| {case['max_abs_err']:.3e} "
-            f"({case['max_rel_err']:.3e} of max|g32|); twin VJP {case['vjp_ms']:.4f} ms, sdpa "
-            f"backward {case['library_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
-            f"({case['bound_by']})")
-        attn.append(case)
-        del qkv, g_out, x, got, x32, ref, q, k, v, o
-    norms = []
+    dtype = getattr(torch, dt)
+    c = shape[-1]
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = (3.0 * torch.randn(shape, generator=gen, device="cuda") + 1.0).to(dtype)
+    lead = (members,) if members else ()
+    scale = torch.randn(lead + (c,), generator=gen, device="cuda")
+    bias = torch.randn(lead + (c,), generator=gen, device="cuda")
+    gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+    site = f"GroupNorm backward {shape} {dt} {act}" + (f" ({members}, {c}) affine"
+                                                        if members else "")
+    with torch.no_grad():
+        y0 = gn.group_norm_act(x, scale, bias, act)
+    y, mean, var = gn._forward(x, scale, bias, act, 1e-5, None, stats=True)
+    if not torch.equal(y, y0):
+        raise AssertionError(f"{site}: the forward under grad differs from the no-grad forward")
+    leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+    got = torch.autograd.grad(gn.group_norm_act(*leaves, act), leaves, gy)
+    for _ in range(2):
+        again = gn._backward(x, scale, bias, mean, var, gy, act, 1e-5)
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            raise AssertionError(f"{site}: two calls of the backward kernel differ")
+    leaves32 = [t.float().requires_grad_(True) for t in (x, scale, bias)]
+    ref = torch.autograd.grad(gn.group_norm_act_reference(*leaves32, act), leaves32, gy.float())
+    plain = gn.group_norm_act_backward_reference(x, scale, bias, mean, var, gy, act)
+    errs = [grad_error(f"{site} d{w}", g, r) for w, g, r in zip(("x", "scale", "bias"), got, ref)]
+    plain_errs = [grad_error(f"{site} d{w} vs its plain version", g, r)
+                  for w, g, r in zip(("x", "scale", "bias"), got, plain)]
+    s = x.numel() // (shape[0] * c)
+    plan = gn.backward_plan(s, c, dtype, shape[0])
+    case = {"shape": list(shape), "dtype": dt, "act": act, "members": members, "calls": calls,
+            "max_abs_err": max(e["max_abs_err"] for e in errs),
+            "max_rel_err": max(e["max_rel_err"] for e in errs),
+            "max_abs_err_plain": max(e["max_abs_err"] for e in plain_errs),
+            "cluster": plan.cluster, "threads": plan.threads, "slice_pix": plan.slice_pix}
+    text = (f"{site}: max|g-g32| {case['max_abs_err']:.3e} ({case['max_rel_err']:.3e} of "
+            f"max|g32|), max|g-plain| {case['max_abs_err_plain']:.3e}, repeat bit-equal, forward "
+            f"under grad bit-equal; K={plan.cluster}, {plan.threads} threads")
+    if not timed:
+        log(text)
+        return case
+    case["ms"] = event_ms(lambda: gn._backward(x, scale, bias, mean, var, gy, act, 1e-5),
+                          runs=10)
+    case["vjp_ms"] = event_ms(lambda: gn.group_norm_act_vjp(x, scale, bias, act, 1e-5, gy),
+                              runs=10)
+    case["plain_ms"] = event_ms(lambda: gn.group_norm_act_backward_reference(
+        x, scale, bias, mean, var, gy, act), runs=10)
+    xv = x.movedim(-1, 1).detach().requires_grad_(True)
+    sc, bi = scale.to(dtype).requires_grad_(True), bias.to(dtype).requires_grad_(True)
+    yl = F.group_norm(xv, num_groups_for(c), sc, bi, 1e-5)
+    yl = F.silu(yl) if act == "silu" else yl
+    case["library_ms"] = event_ms(lambda: torch.autograd.grad(
+        yl, (xv, sc, bi), gy.movedim(-1, 1), retain_graph=True), runs=10)
+    numel = x.numel()
+    # x and dy read, dx written; mean and var read; the affine read, its grads written
+    nbytes = 3.0 * numel * x.element_size() + 2 * mean.numel() * 4 + 4 * scale.numel() * 4
+    flops = numel * (12.0 + (4.0 if act == "silu" else 0.0))
+    case["bound_ms"] = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
+    case["bound_by"] = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_FP32_FLOPS else "operations"
+    log(f"{text}; kernel {case['ms']:.4f} ms, twin VJP {case['vjp_ms']:.4f} ms, plain "
+        f"{case['plain_ms']:.4f} ms, F.group_norm backward {case['library_ms']:.4f} ms, bound "
+        f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
+    return case
+
+
+def vjp_cases(norm_site_list, attn_sites=None) -> tuple[list[dict], list[dict]]:
+    """Each backward kernel at the training step's shapes (batch 16):
+    :func:`attention_backward_case` at every attention site and
+    :func:`norm_backward_case` at every GroupNorm site with silu and with
+    none. ``attn_sites``: {T: (calls, C)} of one training forward (unet16's
+    by default); ``norm_site_list``: its GroupNorm sites (shape without the
+    batch, dtype, act)."""
+    import torch
+
+    attn = [attention_backward_case(BATCH, t, c, calls, 900 + i)
+            for i, (t, (calls, c)) in enumerate((attn_sites or UNET16_ATTENTION).items())]
     calls = {}
     for shape, dt, act in norm_site_list:
         calls[(shape, dt)] = calls.get((shape, dt), 0) + 1
-    for i, ((shape, dt), n) in enumerate(sorted(calls.items(), key=lambda kv: (-kv[0][0][0],
+    norms = []
+    for i, ((shape, dt), _) in enumerate(sorted(calls.items(), key=lambda kv: (-kv[0][0][0],
                                                                               kv[0]))):
-        dtype = getattr(torch, dt)
-        c = shape[-1]
         for act in ("silu", "none"):
-            gen = torch.Generator("cuda").manual_seed(950 + 2 * i + (act == "none"))
-            x = (3.0 * torch.randn((BATCH,) + shape, generator=gen, device="cuda") + 1.0).to(dtype)
-            scale = torch.randn(c, generator=gen, device="cuda")
-            bias = torch.randn(c, generator=gen, device="cuda")
-            gy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
-            leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
-            got = torch.autograd.grad(gn.group_norm_act(*leaves, act), leaves, gy)
-            leaves32 = [t.float().requires_grad_(True) for t in (x, scale, bias)]
-            ref = torch.autograd.grad(gn.group_norm_act_reference(*leaves32, act), leaves32,
-                                      gy.float())
-            site = f"GroupNorm {(BATCH,) + shape} {dt} {act}"
-            errs = [grad_error(f"{site} d{w}", g, r) for w, g, r in zip(("x", "scale", "bias"),
-                                                                         got, ref)]
-            case = {"shape": [BATCH, *shape], "dtype": dt, "act": act,
-                    "calls": sum(1 for s in norm_site_list if s == (shape, dt, act)),
-                    "max_abs_err": max(e["max_abs_err"] for e in errs),
-                    "max_rel_err": max(e["max_rel_err"] for e in errs)}
-            case["vjp_ms"] = event_ms(lambda: gn.group_norm_act_vjp(x, scale, bias, act, 1e-5,
-                                                                    gy), runs=10)
-            xv = x.movedim(-1, 1).detach().requires_grad_(True)
-            sc, bi = scale.to(dtype).requires_grad_(True), bias.to(dtype).requires_grad_(True)
-            y = F.group_norm(xv, num_groups_for(c), sc, bi, 1e-5)
-            y = F.silu(y) if act == "silu" else y
-            case["library_ms"] = event_ms(lambda: torch.autograd.grad(
-                y, (xv, sc, bi), gy.movedim(-1, 1), retain_graph=True), runs=10)
-            numel = x.numel()
-            nbytes = 3.0 * numel * x.element_size() + 4 * c * 4  # x, dy, dx; affine and grads
-            flops = numel * (12.0 + (4.0 if act == "silu" else 0.0))
-            case["bound_ms"] = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
-            log(f"{site} backward: max|g-g32| {case['max_abs_err']:.3e} "
-                f"({case['max_rel_err']:.3e} of max|g32|); twin VJP {case['vjp_ms']:.4f} ms, "
-                f"F.group_norm backward {case['library_ms']:.4f} ms, bound "
-                f"{case['bound_ms']:.4f} ms")
-            norms.append(case)
-            del x, gy, leaves, got, leaves32, ref, xv, y
+            n = sum(1 for site in norm_site_list if site == (shape, dt, act))
+            norms.append(norm_backward_case((BATCH,) + shape, dt, act, n,
+                                            950 + 2 * i + (act == "none")))
     torch.cuda.empty_cache()
     return attn, norms
 
@@ -2987,12 +3062,34 @@ def null_gradient_leaves(trainer, state, batch) -> set[str]:
     return {n for n, v in norms.items() if v < 1e-8 * top}
 
 
+def step_counts() -> dict:
+    """Both kernels' forward and backward launches and their twins' VJPs."""
+    from diffuncertainty_tpu_torch.ops import cuda_attention as ca
+    from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
+
+    return {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
+            "qkv_attention_bwd": ca.backward_launch_count(),
+            "group_norm_act_bwd": gn.backward_launch_count(),
+            "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
+
+
+def want_counts(launches: tuple, backward: tuple | None = None) -> dict:
+    """The counts of a training step: ``launches`` forward launches
+    (attention, GroupNorm), ``backward`` backward launches (the forward's by
+    default), no twin VJP."""
+    backward = backward or launches
+    return {"qkv_attention": launches[0], "group_norm_act": launches[1],
+            "qkv_attention_bwd": backward[0], "group_norm_act_bwd": backward[1],
+            "qkv_attention_vjp": 0, "group_norm_act_vjp": 0}
+
+
 def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked: set,
-                     want: tuple = (11, 56), want_vjp: tuple | None = None,
+                     want: tuple = (11, 56), want_bwd: tuple | None = None,
                      label: str = "train step", runs: int = 10,
                      compare_twins: bool = True) -> dict:
     """One full-model bf16 step at batch 16: launches (``want``: attention,
-    GroupNorm) and VJPs (``want_vjp``, the launches by default) counted,
+    GroupNorm), backward launches (``want_bwd``, the launches by default)
+    and twin VJPs (none) counted,
     every leaf's gradient against the twins-forced step (unless
     ``compare_twins`` is off: a network without the kernels), and the step's
     split (median of ``runs`` steps after 2) and busy share (over
@@ -3028,14 +3125,12 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
         gn.reset_launch_count()
         loss, g = grads(7)
         torch.cuda.synchronize()
-        counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
-                  "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
+        counts = step_counts()
     for h in hooks:
         h.remove()
-    want_vjp = want_vjp or want
-    want = {"qkv_attention": want[0], "group_norm_act": want[1],
-            "qkv_attention_vjp": want_vjp[0], "group_norm_act_vjp": want_vjp[1]}
-    log(f"{label}: launches and VJPs {counts} (expected {want}), twin forwards {twins}")
+    want = want_counts(want, want_bwd)
+    log(f"{label}: launches, backward launches and twin VJPs {counts} (expected {want}), twin "
+        f"forwards {twins}")
     if counts != want or any(twins.values()):
         raise AssertionError(f"{label}: {counts} != {want} or twin forwards ran: {twins}")
     shapes = {(b, hh * ww, c) for b, hh, ww, c in attn_seen}
@@ -3064,8 +3159,8 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
         del g_t, loss_t
 
     # the step's split (CUDA events, median of 10): forward (augment, forward,
-    # loss), backward with the two twin VJPs apart, optimizer + EMA
-    vjp_events = {"qkv_attention": [], "group_norm_act": []}
+    # loss), backward with the two backward kernels' calls apart, optimizer + EMA
+    bwd_events = {"qkv_attention": [], "group_norm_act": []}
 
     def timed(mod, name, kernel):
         fn = getattr(mod, name)
@@ -3075,14 +3170,13 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
             start.record()
             out = fn(*args, **kwargs)
             end.record()
-            vjp_events[kernel].append((start, end))
+            bwd_events[kernel].append((start, end))
             return out
         return fn, wrapper
 
     split = {"forward": [], "backward": [], "optimizer_ema": [],
-             "attention_vjp": [], "group_norm_vjp": []}
-    saved = [(ca, "qkv_attention_vjp", "qkv_attention"), (gn, "group_norm_act_vjp",
-                                                          "group_norm_act")]
+             "attention_backward": [], "group_norm_backward": []}
+    saved = [(ca, "_backward", "qkv_attention"), (gn, "_backward", "group_norm_act")]
     originals = []
     for mod, name, kernel in saved:
         fn, wrapper = timed(mod, name, kernel)
@@ -3091,7 +3185,7 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
     try:
         for i in range(runs + 2):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            for v in vjp_events.values():
+            for v in bwd_events.values():
                 v.clear()
             ev[0].record()
             loss, _ = trainer.forward_loss(batches[i % 2], torch.Generator("cuda").manual_seed(i))
@@ -3105,10 +3199,10 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
                 split["forward"].append(ev[0].elapsed_time(ev[1]))
                 split["backward"].append(ev[1].elapsed_time(ev[2]))
                 split["optimizer_ema"].append(ev[2].elapsed_time(ev[3]))
-                split["attention_vjp"].append(sum(s.elapsed_time(e)
-                                                  for s, e in vjp_events["qkv_attention"]))
-                split["group_norm_vjp"].append(sum(s.elapsed_time(e)
-                                                   for s, e in vjp_events["group_norm_act"]))
+                split["attention_backward"].append(sum(s.elapsed_time(e)
+                                                       for s, e in bwd_events["qkv_attention"]))
+                split["group_norm_backward"].append(sum(s.elapsed_time(e)
+                                                        for s, e in bwd_events["group_norm_act"]))
     finally:
         for (mod, name, _), fn in zip(saved, originals):
             setattr(mod, name, fn)
@@ -3132,8 +3226,8 @@ def phase_train_step(smi: str, trainer, batches, attn_checked: set, norm_checked
                  peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
     log(f"{label} split on {smi} (batch {BATCH}, CUDA events, median of {runs}): forward "
         f"{split['forward']:.2f} ms, backward {split['backward']:.2f} ms (of which the "
-        f"attention twin VJPs {split['attention_vjp']:.2f} ms and the GroupNorm twin VJPs "
-        f"{split['group_norm_vjp']:.2f} ms), optimizer + EMA {split['optimizer_ema']:.2f} ms; "
+        f"attention backward kernels' calls {split['attention_backward']:.2f} ms and the "
+        f"GroupNorm backward kernels' calls {split['group_norm_backward']:.2f} ms), optimizer + EMA {split['optimizer_ema']:.2f} ms; "
         f"{PROFILED_STEPS} steps: {wall:.2f} ms a step, device {busy:.2f} ms (kernel times summed "
         f"{dev['sum']:.2f} ms, {dev['streams']} streams), busy share "
         + ("not measured" if split["busy_share"] is None else f"{split['busy_share']:.3f}")
@@ -3162,7 +3256,7 @@ def phase_train(smi: str, norm_site_list, runs) -> Generator[None, None, dict]:
 
     attn_cases, norm_cases, attn_checked, norm_checked = unet16_train_checks(norm_site_list)
     data_dir = toy128_dataset(HW).base_dir
-    out = {"attention_vjp": attn_cases, "group_norm_vjp": norm_cases}
+    out = {"attention_backward": attn_cases, "group_norm_backward": norm_cases}
     tmp = runs.dir("train")
     cfg, _ = parse_args(train_tokens(data_dir, tmp))
     trainer = Trainer(cfg, device="cuda", workdir=runs.dir("train_probe"))
@@ -3259,8 +3353,9 @@ def training_sites(trainer, batch) -> tuple[dict, list]:
 
 
 def counted_grads(trainer, state, batch, seed: int) -> dict:
-    """Launches and VJPs of one forward and backward, the counts set to 0
-    just before and read just after; fails if a plain twin ran."""
+    """Launches, backward launches and twin VJPs of one forward and
+    backward, the counts set to 0 just before and read just after; fails if
+    a plain twin ran."""
     import torch
 
     from diffuncertainty_tpu_torch.ops import cuda_attention as ca
@@ -3273,8 +3368,7 @@ def counted_grads(trainer, state, batch, seed: int) -> dict:
         loss, _ = trainer.forward_loss(batch, torch.Generator("cuda").manual_seed(seed))
         trainer.gradients(state, loss)
         torch.cuda.synchronize()
-        counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
-                  "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
+        counts = step_counts()
     if any(twins.values()):
         raise AssertionError(f"plain twins ran in the counted step: {twins}")
     return counts
@@ -3311,19 +3405,18 @@ def phase_train_family(smi: str, model: str, runs) -> Generator[None, None, dict
     trainer.init_state()
     attn_sites, norm_sites = training_sites(trainer, batches[0])
     attn_cases, norm_cases = vjp_cases(norm_sites, attn_sites)
-    out["attention_vjp"], out["group_norm_vjp"] = attn_cases, norm_cases
+    out["attention_backward"], out["group_norm_backward"] = attn_cases, norm_cases
     attn_checked = {(c["B"], c["T"], c["C"]) for c in attn_cases}
     norm_checked = {(tuple(c["shape"]), c["dtype"], c["act"]) for c in norm_cases}
     out["step"] = phase_train_step(smi, trainer, batches, attn_checked, norm_checked,
-                                   want=fam["step"], want_vjp=fam.get("step_vjp"),
+                                   want=fam["step"], want_bwd=fam.get("step_bwd"),
                                    label=f"{label} step", runs=5)
     if "mean_only_step" in fam:  # the pretraining epochs skip the factor head
         trainer.set_epoch(0)
         counts = counted_grads(trainer, trainer.fresh_state(), batches[1], 11)
-        n_attn, n_norm = fam["mean_only_step"]
-        want = {"qkv_attention": n_attn, "group_norm_act": n_norm,
-                "qkv_attention_vjp": n_attn, "group_norm_act_vjp": n_norm}
-        log(f"{label} mean-only step: launches and VJPs {counts} (expected {want})")
+        want = want_counts(fam["mean_only_step"])
+        log(f"{label} mean-only step: launches, backward launches and twin VJPs {counts} "
+            f"(expected {want})")
         if counts != want:
             raise AssertionError(f"{label} mean-only step: {counts} != {want}")
         out["mean_only_launches"] = counts
@@ -3537,13 +3630,10 @@ def phase_remat_step(smi: str, cfg, batches) -> dict:
                 ca.reset_launch_count()
                 gn.reset_launch_count()
                 grads(remat)
-                counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
-                          "qkv_attention_vjp": ca.vjp_count(),
-                          "group_norm_act_vjp": gn.vjp_count()}
-            want = {"qkv_attention": 22, "group_norm_act": 112, "qkv_attention_vjp": 11,
-                    "group_norm_act_vjp": 56}
-            log(f"train remat step: launches and VJPs {counts} (expected {want}: the forward "
-                f"and its recompute), twin forwards {twins}")
+                counts = step_counts()
+            want = want_counts((22, 112), (11, 56))
+            log(f"train remat step: launches, backward launches and twin VJPs {counts} "
+                f"(expected {want}: the forward and its recompute), twin forwards {twins}")
             if counts != want or any(twins.values()):
                 raise AssertionError(f"train remat step: {counts} != {want} or twins ran {twins}")
             out["launches"] = counts
@@ -3621,10 +3711,9 @@ def phase_train_hrnet(smi: str, runs) -> Generator[None, None, dict]:
         gn.reset_launch_count()
         loss, g, _ = grads(trainer)
         torch.cuda.synchronize()
-        counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
-                  "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
-    log(f"train_hrnet step: launches and VJPs {counts} (the HRNet has neither kernel), twin "
-        f"forwards {twins}")
+        counts = step_counts()
+    log(f"train_hrnet step: launches, backward launches and twin VJPs {counts} (the HRNet has "
+        f"neither kernel), twin forwards {twins}")
     if any(counts.values()) or any(twins.values()):
         raise AssertionError(f"train_hrnet step launched {counts} or twins {twins}")
     out["launches"] = {k: v for k, v in counts.items() if not k.endswith("_vjp")}
@@ -3798,13 +3887,11 @@ def phase_train_subensemble(smi: str, norm_site_list, seen_attn: set,
         st.train_subensemble_masks(built, state, batches,
                                    st.SubensembleConfig(**{**SUBENSEMBLE, "steps": 1}))
         torch.cuda.synchronize()
-        counts = {"qkv_attention": ca.launch_count(), "group_norm_act": gn.launch_count(),
-                  "qkv_attention_vjp": ca.vjp_count(), "group_norm_act_vjp": gn.vjp_count()}
+        counts = step_counts()
     m = scfg.num_masks
-    want = {"qkv_attention": 11 * m, "group_norm_act": 56 * m, "qkv_attention_vjp": 11 * m,
-            "group_norm_act_vjp": 56 * m}
-    log(f"train_subensemble step ({m} members one after another): launches and VJPs {counts} "
-        f"(expected {want}), twin forwards {twins}")
+    want = want_counts((11 * m, 56 * m))
+    log(f"train_subensemble step ({m} members one after another): launches, backward launches "
+        f"and twin VJPs {counts} (expected {want}), twin forwards {twins}")
     if counts != want or any(twins.values()):
         raise AssertionError(f"train_subensemble step: {counts} != {want} or twins {twins}")
     history: list = []
@@ -3954,9 +4041,8 @@ def phase_train_swag(smi: str, runs, norm_site_list, seen_attn: set,
     trainer.init_state()
     state = trainer.fresh_state()
     counts = counted_grads(trainer, state, batches[1], 11)
-    log(f"train_swag step: launches and VJPs {counts}")
-    if counts != {"qkv_attention": 11, "group_norm_act": 56, "qkv_attention_vjp": 11,
-                  "group_norm_act_vjp": 56}:
+    log(f"train_swag step: launches, backward launches and twin VJPs {counts}")
+    if counts != want_counts((11, 56)):
         raise AssertionError(f"train_swag step: {counts}")
     del trainer, state, batches
     yield  # the rest waits for the entry-point run
@@ -4000,9 +4086,9 @@ def phase_train_ensemble(smi: str, runs, norm_site_list, seen_attn: set,
     batches = list(build_loaders(cfg)[0])[:2]
     trainer.init_state()
     counts = counted_grads(trainer, trainer.fresh_state(), batches[1], 13)
-    log(f"train_ensemble member step (seed {seeds[-1]}): launches and VJPs {counts}")
-    if counts != {"qkv_attention": 11, "group_norm_act": 56, "qkv_attention_vjp": 11,
-                  "group_norm_act_vjp": 56}:
+    log(f"train_ensemble member step (seed {seeds[-1]}): launches, backward launches and twin "
+        f"VJPs {counts}")
+    if counts != want_counts((11, 56)):
         raise AssertionError(f"train_ensemble step: {counts}")
     del trainer, batches
     yield  # the rest waits for the entry-point runs
@@ -4102,7 +4188,8 @@ def phase_study(smi: str, runs) -> Generator[None, None, dict]:
     config and toy data, its flax init saved as the cell's checkpoint); the
     GroupNorm sites of one training forward (the study's batch, fp32) and of
     one inference batch of the cell's job, each new one checked against the
-    twin; then every job's batch counted: GroupNorm launched once per site
+    twin, and the backward kernel at each new site of the training forward
+    (:func:`norm_backward_case`); then every job's batch counted: GroupNorm launched once per site
     and its twin never, every attention call on the fp32 twin (the gate) and
     the attention kernel never. Then the quick study's run through its
     command line (queued with the training runs): every artifact and figure
@@ -4125,6 +4212,7 @@ def phase_study(smi: str, runs) -> Generator[None, None, dict]:
 
     base = Path(tempfile.mkdtemp(prefix="chip_smoke_study_nets_"))
     checked, norm_cases, counted = set(), [], {}
+    bwd_checked, norm_backward_cases = set(), []
     try:
         scfg = vs.study_config([str(base), *STUDY_ARGV])
         toy = generate_toy_dataset(
@@ -4164,6 +4252,13 @@ def phase_study(smi: str, runs) -> Generator[None, None, dict]:
                             shape, dt, act, seed=800 + len(norm_cases), timed=False,
                             members=members))
                         checked.add(key)
+                # the backward kernel at the training forward's sites (fp32, 8-32 channels)
+                for key in sorted(set(train_seen) - bwd_checked):
+                    shape, dt, act, members = key
+                    norm_backward_cases.append(norm_backward_case(
+                        shape, dt, act, train_seen.count(key), 850 + len(norm_backward_cases),
+                        members=members, timed=False))
+                    bwd_checked.add(key)
                 torch.cuda.synchronize()
                 with counting_twins() as twins:
                     ca.reset_launch_count()
@@ -4218,7 +4313,8 @@ def phase_study(smi: str, runs) -> Generator[None, None, dict]:
     if unfinished:
         raise AssertionError(f"study: versions missing after the run: {unfinished}")
     return {"launches": counted["softmax_dropout"], "launches_by_cell": counted,
-            "norm_cases": norm_cases, "run_wall_s": wall,
+            "norm_cases": norm_cases, "norm_backward_cases": norm_backward_cases,
+            "run_wall_s": wall,
             "study_wall_s": summary["wall_seconds"], "walls": walls}
 
 
@@ -4501,20 +4597,26 @@ def main(argv=None) -> int:
             f"{a['bound_ms']:.4f} ms; ")
         log(f"{key}: {attn_text}GroupNorm device {fmt(n['device_ms'])} (events "
             f"{fmt(n['ms'])}), F.group_norm {fmt(n['library_ms'])}, bound {fmt(n['bound_ms'])}")
-    # each kernel's backward (its twin's VJP) per training step at batch 16
+    # each backward kernel per training step at batch 16: its calls at every
+    # site (CUDA events, each site alone) beside the twin VJP's, the plain
+    # version's, the library backward's and the bound
     step_stats = ({"train": train_stats} if "train" in paths else {}) | {
         f"train_{m}": st for m, st in family_stats.items()}
+    backward_per_step = {"attention": {}, "norm": {}}
     for path, st in step_stats.items():
-        for key, cases in (("attention", st["attention_vjp"]), ("norm", st["group_norm_vjp"])):
+        for key, cases in (("attention", st["attention_backward"]),
+                           ("norm", st["group_norm_backward"])):
             per_step = {k: sum(c["calls"] * c[k] for c in cases)
-                        for k in ("vjp_ms", "bound_ms", "library_ms")}
-            per_step["per"] = (f"one bf16 {path} step at batch {BATCH}: the twin's VJP at each "
-                               f"of its sites (CUDA events), bound and the library's backward")
-            name = "train_step_backward" if path == "train" else f"{path}_step_backward"
-            (attn_extra if key == "attention" else norm_extra)[name] = per_step
-            log(f"{key} backward per {path} step on {smi}: twin VJPs "
-                f"{per_step['vjp_ms']:.3f} ms, library backward {per_step['library_ms']:.3f} ms, "
-                f"bound {per_step['bound_ms']:.4f} ms")
+                        for k in ("ms", "vjp_ms", "plain_ms", "library_ms", "bound_ms")}
+            per_step["bound_by"] = max(cases, key=lambda c: c["calls"] * c["bound_ms"])["bound_by"]
+            per_step["per"] = (f"one bf16 {path} step at batch {BATCH}: the backward kernel at "
+                               f"each of its sites, each alone (CUDA events), beside the twin's "
+                               f"VJP, the plain version, the library's backward and the bound")
+            backward_per_step[key][path] = per_step
+            log(f"{key} backward per {path} step on {smi}: kernel {per_step['ms']:.3f} ms, twin "
+                f"VJPs {per_step['vjp_ms']:.3f} ms, plain {per_step['plain_ms']:.3f} ms, library "
+                f"backward {per_step['library_ms']:.3f} ms, bound {per_step['bound_ms']:.4f} ms "
+                f"({per_step['bound_by']})")
     # the main path: softmax, else the chosen path that launches the kernels most
     main_path = "softmax" if "softmax" in paths else max(
         launches_by_path, key=lambda p: sum(launches_by_path[p].values()))
@@ -4572,6 +4674,53 @@ def main(argv=None) -> int:
         "folded_and_unet256_shapes": new_norm_cases,
         "ptxas": ptxas.get("group_norm_act", {}),
     }]
+    # the backward kernels: the main path is the train path's step (else the
+    # first family step that ran); launches are that step's
+    backward_path = next((p for p in ("train", "train_diffusion", "train_ssn",
+                                      "train_prob_unet") if p in step_stats), None)
+    if backward_path is None:
+        log("no training step ran: the backward kernels are not in this run's kernels line")
+    else:
+        norm_bwd_extra = [c for st in new_stats.values()
+                          for c in st.get("norm_backward_cases", [])]
+        for name, kernel, key, replaces, note in (
+                ("qkv_attention_backward", "qkv_attention", "attention",
+                 "diffuncertainty_tpu/ops/pallas_attention.py:95",
+                 "the custom_vjp backward of the TPU kernel at :38, which differentiates its "
+                 "XLA twin"),
+                ("group_norm_act_backward", "group_norm_act", "norm",
+                 "diffuncertainty_tpu/ops/norm.py:19",
+                 "no TPU kernel: the JAX package trains on XLA's autodiff of group_norm_32; "
+                 "the Pallas kernel at pallas_groupnorm.py:32 has no backward")):
+            per = backward_per_step[key]
+            cases = [c for st in step_stats.values()
+                     for c in st["attention_backward" if key == "attention"
+                                 else "group_norm_backward"]]
+            cases += [] if key == "attention" else norm_bwd_extra
+            main = per[backward_path]
+            kernels.append({
+                "name": name,
+                "route": "cuda",
+                "source": f"diffuncertainty_tpu_torch/csrc/{kernel}.cu",
+                "replaces": replaces,
+                "replaces_note": note,
+                "launches": launches_by_path[backward_path][f"{kernel}_bwd"],
+                "launches_path": backward_path,
+                "launches_by_path": {f"{p}_step": counts[f"{kernel}_bwd"]
+                                     for p, counts in launches_by_path.items()
+                                     if f"{kernel}_bwd" in counts},
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "max_abs_err_plain": max(c["max_abs_err_plain"] for c in cases),
+                "ms": main["ms"],
+                "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"],
+                "twin_vjp_ms": main["vjp_ms"],
+                "per": main["per"],
+                **{f"{p}_step": v for p, v in per.items()},
+                "shapes": cases,
+            })
     extra = ""
     if "ensemble" in paths:
         extra += f" (ensemble member overheads {ens_overheads})"
@@ -4604,7 +4753,7 @@ def main(argv=None) -> int:
                   f"{train_stats['quality_32']}, on 256 {train_stats['quality']}")
     for path, st in new_stats.items():
         extra += f"; {path} " + json.dumps({k: v for k, v in st.items() if k not in (
-            "attn_cases", "norm_cases")}, default=str)
+            "attn_cases", "norm_cases", "norm_backward_cases")}, default=str)
     for model, st in family_stats.items():
         extra += (f"; train_{model} step {st['step']['split']}, run {st['run']['wall_s']:.1f}s, "
                   f"serving launches {st['serve_launches']}, infer {st['infer']}")

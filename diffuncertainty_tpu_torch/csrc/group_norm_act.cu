@@ -298,6 +298,7 @@ template <typename T, int ACT>
 __global__ void __launch_bounds__(kMaxThreads)
     group_norm_act_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                           const float* __restrict__ bias, T* __restrict__ y,
+                          float* __restrict__ mean_out, float* __restrict__ var_out,
                           int rows_per_member, int s, int c, int groups, int slice_pix,
                           int cache_pix, float n, float eps) {
   constexpr int V = VecOf<T>::N;
@@ -385,9 +386,13 @@ __global__ void __launch_bounds__(kMaxThreads)
       gq += cluster.map_shared_rank(g_q, r)[g];
     }
     const float mean = gs / n;
-    const float var = fmaxf(gq / n - mean * mean, 0.0f);
+    const float var_raw = gq / n - mean * mean;
     g_mean[g] = mean;
-    g_inv[g] = 1.0f / sqrtf(var + eps);
+    g_inv[g] = 1.0f / sqrtf(fmaxf(var_raw, 0.0f) + eps);
+    if (mean_out != nullptr && rank == 0) {  // under grad: the group statistics
+      mean_out[row * groups + g] = mean;
+      var_out[row * groups + g] = var_raw;
+    }
   }
   cluster_arrive();  // done with the other blocks' shared memory
   __syncthreads();
@@ -416,8 +421,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 template <typename T>
-using KernelFn = void (*)(const T*, const float*, const float*, T*, int, int, int, int, int,
-                          int, float, float);
+using KernelFn = void (*)(const T*, const float*, const float*, T*, float*, float*, int, int, int,
+                          int, int, int, float, float);
 
 template <typename T>
 KernelFn<T> kernel_for(int act) {
@@ -484,11 +489,13 @@ cudaError_t configure(int act, long long rows, long long s, int c, int groups, i
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const float* scale, const float* bias, void* y, int act,
-                   long long rows, long long s, int c, int groups, int rows_per_member,
-                   int cluster, int threads, int slice_pix, int cache_pix, int smem, float eps,
-                   cudaStream_t stream) {
-  if (rows_per_member <= 0 || rows % rows_per_member != 0) return cudaErrorInvalidValue;
+cudaError_t launch(const void* x, const float* scale, const float* bias, void* y, float* mean,
+                   float* var, int act, long long rows, long long s, int c, int groups,
+                   int rows_per_member, int cluster, int threads, int slice_pix, int cache_pix,
+                   int smem, float eps, cudaStream_t stream) {
+  if (rows_per_member <= 0 || rows % rows_per_member != 0 ||
+      (mean == nullptr) != (var == nullptr))
+    return cudaErrorInvalidValue;
   KernelFn<T> fn;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
@@ -497,8 +504,8 @@ cudaError_t launch(const void* x, const float* scale, const float* bias, void* y
   if (err != cudaSuccess) return err;
   const float n = static_cast<float>(s) * static_cast<float>(c / groups);
   err = cudaLaunchKernelEx(&cfg, fn, static_cast<const T*>(x), scale, bias, static_cast<T*>(y),
-                           rows_per_member, static_cast<int>(s), c, groups, slice_pix, cache_pix,
-                           n, eps);
+                           mean, var, rows_per_member, static_cast<int>(s), c, groups, slice_pix,
+                           cache_pix, n, eps);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -511,6 +518,345 @@ cudaError_t clusters(int act, long long s, int c, int groups, int cluster, int t
   cudaLaunchConfig_t cfg;
   cudaError_t err = configure<T>(act, 1, s, c, groups, cluster, threads, slice_pix, cache_pix,
                                  smem, nullptr, &attr, &cfg, &fn);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out, fn, &cfg);
+}
+
+
+// ---------------------------------------------------------------------------
+// Backward. The TPU kernel has none (the JAX package trains on its plain
+// diffuncertainty_tpu/ops/norm.py::group_norm_32); this is the VJP of the
+// same math, f32 statistics and the activation in f32 (the port's twin,
+// ops/cuda_groupnorm.py::_group_norm_act_math), from the group mean and the
+// variance var = E[x^2] - mean^2 (before its clamp) that the forward saved.
+// It takes the twin's derivative in the order autograd does (the plain
+// version, ops/cuda_groupnorm.py::group_norm_act_backward_reference, equals
+// autograd of the twin bit for bit on the CPU), so that a gradient that is
+// exactly 0, such as a bias before a group of one channel, comes out as the
+// same kind of rounding residue. Per element and group, with
+// r = 1/sqrt(max(var, 0) + eps), a = r gamma and b = beta - mean a (the
+// forward's fold), z = x a + b and dz = dy act'(z), per channel q = sum dz
+// and ga = sum dz x - q mean over the pixels:
+//   dbeta = q, dgamma = ga r (summed over each member's rows);
+//   g_var = (-g_r / 2) r^3 with g_r = sum_c ga gamma, or 0 where the clamp
+//   bit (var < 0);
+//   g_mean = sum_c (-q a) - g_var mean - g_var mean;
+//   dx = dz a + x g_var / n + x g_var / n + g_mean / n,
+// the centred r (gamma dz - mean_g(gamma dz) - xh mean_g(gamma dz xh)) in
+// exact arithmetic.
+//
+// Bound on the H100: memory. x and dy are read once and dx written once (2 or
+// 4 bytes a value); some 20 f32 operations a value.
+//
+// Design: the forward's cluster plan without the cache. One cluster of K
+// blocks per element, block r owning the contiguous pixels [r P, (r+1) P),
+// every thread fixed channels (16-byte packets). Pass one reads x and dy from
+// device memory and sums dz and dz x per channel in f32 (shuffles, then a
+// fixed-order table, as the forward); after cluster.sync() every block adds
+// the K blocks' channel sums in rank order through distributed shared memory,
+// so all blocks hold the element's sums, and rank 0 writes the row's dgamma
+// and dbeta to (rows, C) partials. The group terms follow in a fixed order.
+// Pass two reads x and dy again, from the 50 MB L2 where the element's tiles
+// still sit, and writes dx. A second launch (group_norm_affine_grad_kernel)
+// adds each member's rows of the partials in row order into dgamma and dbeta.
+// No atomics: two runs give the same bits.
+
+// Byte offsets in the backward's dynamic shared memory: the table of partials
+// (part_rows x c floats); per channel the block's sums of dz and dz x (read
+// by the cluster), the element's, gamma and beta; per group the mean, the
+// variance, r, and the two coefficients of pass two.
+struct BwdLayout {
+  int part, s1, s2, e1, e2, gam, bet, mean, var, rstd, ga, gb, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int threads, int v, int c, int groups) {
+  BwdLayout l;
+  l.part = 0;
+  l.s1 = l.part + part_rows(threads, c / v) * c * 4;
+  l.s2 = l.s1 + c * 4;
+  l.e1 = l.s2 + c * 4;
+  l.e2 = l.e1 + c * 4;
+  l.gam = l.e2 + c * 4;
+  l.bet = l.gam + c * 4;
+  l.mean = l.bet + c * 4;
+  l.var = l.mean + groups * 4;
+  l.rstd = l.var + groups * 4;
+  l.ga = l.rstd + groups * 4;
+  l.gb = l.ga + groups * 4;
+  l.total = l.gb + groups * 4;
+  return l;
+}
+
+// act'(z) in f32 (SiLU: sigma(z) (1 + z (1 - sigma(z))); ReLU: z > 0; none: 1).
+template <int ACT>
+__device__ __forceinline__ float activate_grad(float z) {
+  if (ACT == kSilu) {
+    const float sg = 1.0f / (1.0f + __expf(-z));
+    return sg * (1.0f + z * (1.0f - sg));
+  }
+  if (ACT == kRelu) return z > 0.0f ? 1.0f : 0.0f;
+  return 1.0f;
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kMaxThreads)
+    group_norm_act_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                              const float* __restrict__ scale, const float* __restrict__ bias,
+                              const float* __restrict__ mean, const float* __restrict__ var,
+                              T* __restrict__ dx, float* __restrict__ part_dgamma,
+                              float* __restrict__ part_dbeta, int rows_per_member, int s, int c,
+                              int groups, int slice_pix, float n, float eps) {
+  constexpr int V = VecOf<T>::N;
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long row = blockIdx.x / k;
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int cv = c / V;
+  const int ppt = nt / cv;
+  const int slot = tid % cv;
+  const int poff = tid / cv;
+  const bool active = poff < ppt;
+  const int p0 = min(s, rank * slice_pix);
+  const int npix = min(s, p0 + slice_pix) - p0;
+  const long long first = (row * s + p0) * static_cast<long long>(cv);
+  const uint4* xg = reinterpret_cast<const uint4*>(x) + first;
+  const uint4* gg = reinterpret_cast<const uint4*>(dy) + first;
+  uint4* dg = reinterpret_cast<uint4*>(dx) + first;
+
+  const BwdLayout l = bwd_layout(nt, V, c, groups);
+  float* part = reinterpret_cast<float*>(smem + l.part);
+  float* s1 = reinterpret_cast<float*>(smem + l.s1);
+  float* s2 = reinterpret_cast<float*>(smem + l.s2);
+  float* e1 = reinterpret_cast<float*>(smem + l.e1);
+  float* e2 = reinterpret_cast<float*>(smem + l.e2);
+  float* gam = reinterpret_cast<float*>(smem + l.gam);
+  float* bet = reinterpret_cast<float*>(smem + l.bet);
+  float* g_mean = reinterpret_cast<float*>(smem + l.mean);
+  float* g_var = reinterpret_cast<float*>(smem + l.var);
+  float* g_rstd = reinterpret_cast<float*>(smem + l.rstd);
+  float* g_a = reinterpret_cast<float*>(smem + l.ga);
+  float* g_b = reinterpret_cast<float*>(smem + l.gb);
+
+  const long long affine_row = (row / rows_per_member) * c;
+  for (int ch = tid; ch < c; ch += nt) {
+    gam[ch] = scale[affine_row + ch];
+    bet[ch] = bias[affine_row + ch];
+  }
+  for (int g = tid; g < groups; g += nt) {
+    g_mean[g] = mean[row * groups + g];
+    g_var[g] = var[row * groups + g];
+    g_rstd[g] = 1.0f / sqrtf(fmaxf(g_var[g], 0.0f) + eps);  // the forward's, bit for bit
+  }
+  __syncthreads();
+
+  const int cpg = c / groups;
+  float fa[V], fb[V];  // the forward's fold: z = x a + b
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int ch = slot * V + j;
+    fa[j] = g_rstd[ch / cpg] * gam[ch];
+    fb[j] = bet[ch] - g_mean[ch / cpg] * fa[j];
+  }
+
+  // pass one: per-thread sums of dz and dz x over the block's pixels
+  float a1[V], a2[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) a1[j] = a2[j] = 0.0f;
+  if (active) {
+    for (int p = poff; p < npix; p += ppt) {
+      float xv[V], gv[V];
+      unpack(xg[p * cv + slot], xv);
+      unpack(gg[p * cv + slot], gv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float dz = gv[j] * activate_grad<ACT>(xv[j] * fa[j] + fb[j]);
+        a1[j] += dz;
+        a2[j] += dz * xv[j];
+      }
+    }
+  }
+  block_channel_sums<V>(a1, part, s1, c, cv, active);
+  block_channel_sums<V>(a2, part, s2, c, cv, active);
+
+  // the element's channel sums from the K blocks' in rank order
+  cluster.sync();
+  for (int ch = tid; ch < c; ch += nt) {
+    float q = 0.0f, pp = 0.0f;
+    for (int r = 0; r < k; ++r) {
+      q += cluster.map_shared_rank(s1, r)[ch];
+      pp += cluster.map_shared_rank(s2, r)[ch];
+    }
+    e1[ch] = q;
+    e2[ch] = pp + (-q) * g_mean[ch / cpg];  // ga
+    if (rank == 0) {
+      part_dgamma[row * c + ch] = e2[ch] * g_rstd[ch / cpg];
+      part_dbeta[row * c + ch] = q;
+    }
+  }
+  cluster_arrive();  // done with the other blocks' shared memory
+  __syncthreads();
+  for (int g = tid; g < groups; g += nt) {
+    const float r = g_rstd[g];
+    float gr = 0.0f, gm = 0.0f;
+    for (int j = 0; j < cpg; ++j) {
+      const int ch = g * cpg + j;
+      gr += e2[ch] * gam[ch];
+      gm += -e1[ch] * (r * gam[ch]);
+    }
+    const float gv = g_var[g] < 0.0f ? 0.0f : (-0.5f * gr) * (r * r * r);
+    gm = gm + (-gv) * g_mean[g] + (-gv) * g_mean[g];
+    g_a[g] = gm / n;
+    g_b[g] = gv / n;
+  }
+  __syncthreads();
+
+  // pass two: dx = dz a + x g_var / n + x g_var / n + g_mean / n
+  if (active) {
+    float ca[V], cb[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int g = (slot * V + j) / cpg;
+      ca[j] = g_a[g];
+      cb[j] = g_b[g];
+    }
+    for (int p = poff; p < npix; p += ppt) {
+      float xv[V], gv[V];
+      unpack(xg[p * cv + slot], xv);
+      unpack(gg[p * cv + slot], gv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float dz = gv[j] * activate_grad<ACT>(xv[j] * fa[j] + fb[j]);
+        const float sq = cb[j] * xv[j];
+        xv[j] = dz * fa[j] + sq + sq + ca[j];
+      }
+      dg[p * cv + slot] = pack(xv);
+    }
+  }
+  cluster_wait();  // no block leaves while another reads its shared memory
+}
+
+// dgamma and dbeta of member blockIdx.y: its rows of the (rows, c) partials
+// added in row order.
+__global__ void group_norm_affine_grad_kernel(const float* __restrict__ part_dgamma,
+                                              const float* __restrict__ part_dbeta,
+                                              float* __restrict__ dscale,
+                                              float* __restrict__ dbias, int rows_per_member,
+                                              int c) {
+  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ch >= c) return;
+  const long long m = blockIdx.y;
+  float ds = 0.0f, db = 0.0f;
+  for (long long r = m * rows_per_member; r < (m + 1) * rows_per_member; ++r) {
+    ds += part_dgamma[r * c + ch];
+    db += part_dbeta[r * c + ch];
+  }
+  dscale[m * c + ch] = ds;
+  dbias[m * c + ch] = db;
+}
+
+template <typename T>
+using BwdKernelFn = void (*)(const T*, const T*, const float*, const float*, const float*,
+                             const float*, T*, float*, float*, int, int, int, int, int, float,
+                             float);
+
+template <typename T>
+BwdKernelFn<T> bwd_kernel_for(int act) {
+  switch (act) {
+    case kNone:
+      return group_norm_act_bwd_kernel<T, kNone>;
+    case kSilu:
+      return group_norm_act_bwd_kernel<T, kSilu>;
+    case kRelu:
+      return group_norm_act_bwd_kernel<T, kRelu>;
+    default:
+      return nullptr;
+  }
+}
+
+// The backward's launch configuration (one cluster per element), after
+// checking the plan; attributes must outlive the config.
+template <typename T>
+cudaError_t configure_bwd(int act, long long rows, long long s, int c, int groups, int cluster,
+                          int threads, int slice_pix, cudaStream_t stream,
+                          cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                          BwdKernelFn<T>* kernel) {
+  constexpr int V = VecOf<T>::N;
+  const BwdKernelFn<T> fn = bwd_kernel_for<T>(act);
+  const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 ||
+                          cluster == kMaxCluster;
+  if (fn == nullptr || rows <= 0 || s <= 0 || s > (1LL << 30) || c <= 0 || c > kMaxChannels ||
+      c % V != 0 || groups <= 0 || c % groups != 0 || threads <= 0 || threads > kMaxThreads ||
+      threads % 32 != 0 || threads < c / V || !cluster_ok || slice_pix <= 0 ||
+      static_cast<long long>(slice_pix) * cluster < s ||
+      static_cast<long long>(slice_pix) * (c / V) > 0x7fffffffLL || rows * cluster > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int smem = bwd_layout(threads, V, c, groups).total;
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  static bool ready[kMaxDevices][3] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[device][act]) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    ready[device][act] = true;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *kernel = fn;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned>(rows * cluster));
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* dy, const float* scale, const float* bias,
+                       const float* mean, const float* var, void* dx, float* part_dgamma,
+                       float* part_dbeta, float* dscale, float* dbias, int act, long long rows,
+                       long long s, int c, int groups, int rows_per_member, int cluster,
+                       int threads, int slice_pix, float eps, cudaStream_t stream) {
+  if (rows_per_member <= 0 || rows % rows_per_member != 0) return cudaErrorInvalidValue;
+  BwdKernelFn<T> fn;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = configure_bwd<T>(act, rows, s, c, groups, cluster, threads, slice_pix,
+                                     stream, &attr, &cfg, &fn);
+  if (err != cudaSuccess) return err;
+  const float n = static_cast<float>(s) * static_cast<float>(c / groups);
+  err = cudaLaunchKernelEx(&cfg, fn, static_cast<const T*>(x), static_cast<const T*>(dy), scale,
+                           bias, mean, var, static_cast<T*>(dx), part_dgamma, part_dbeta,
+                           rows_per_member, static_cast<int>(s), c, groups, slice_pix, n, eps);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((c + 127) / 128, static_cast<unsigned>(rows / rows_per_member));
+  group_norm_affine_grad_kernel<<<grid, 128, 0, stream>>>(part_dgamma, part_dbeta, dscale,
+                                                          dbias, rows_per_member, c);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t clusters_bwd(int act, long long s, int c, int groups, int cluster, int threads,
+                         int slice_pix, int* out) {
+  BwdKernelFn<T> fn;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = configure_bwd<T>(act, 1, s, c, groups, cluster, threads, slice_pix, nullptr,
+                                     &attr, &cfg, &fn);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(out, fn, &cfg);
 }
@@ -543,27 +889,90 @@ int group_norm_act_clusters(int dtype, int act, long long s, int c, int groups, 
 // (0 = fp32, 1 = bf16); scale, bias: (rows / rows_per_member, c) fp32, row b of
 // x taking row b / rows_per_member of the affine (rows_per_member = rows for a
 // (c,) affine; rows * cluster < 2^31, so an int holds it). act: 0 none, 1 SiLU,
-// 2 ReLU.
+// 2 ReLU. mean, var: (rows, groups) f32, the group mean and the variance
+// E[x^2] - mean^2 before its clamp at 0, written when not null (the autograd
+// forward), else not touched.
 // One cluster of `cluster` blocks of `threads` threads per row; block r takes
 // pixels [r * slice_pix, (r + 1) * slice_pix) and holds the first cache_pix of
 // them in its `smem` bytes of dynamic shared memory. Returns a cudaError_t
 // value (0 on success).
-int group_norm_act(const void* x, const void* scale, const void* bias, void* y, int dtype,
-                   int act, long long rows, long long s, int c, int groups, int rows_per_member,
-                   int cluster, int threads, int slice_pix, int cache_pix, int smem, float eps,
-                   void* stream, int device) {
+int group_norm_act(const void* x, const void* scale, const void* bias, void* y, void* mean,
+                   void* var, int dtype, int act, long long rows, long long s, int c,
+                   int groups, int rows_per_member, int cluster, int threads, int slice_pix,
+                   int cache_pix, int smem, float eps, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
+  float* mu = static_cast<float*>(mean);
+  float* va = static_cast<float*>(var);
   switch (dtype) {
     case 0:
-      return launch<float>(x, sc, bi, y, act, rows, s, c, groups, rows_per_member, cluster,
-                           threads, slice_pix, cache_pix, smem, eps, st);
+      return launch<float>(x, sc, bi, y, mu, va, act, rows, s, c, groups, rows_per_member,
+                           cluster, threads, slice_pix, cache_pix, smem, eps, st);
     case 1:
-      return launch<__nv_bfloat16>(x, sc, bi, y, act, rows, s, c, groups, rows_per_member,
-                                   cluster, threads, slice_pix, cache_pix, smem, eps, st);
+      return launch<__nv_bfloat16>(x, sc, bi, y, mu, va, act, rows, s, c, groups,
+                                   rows_per_member, cluster, threads, slice_pix, cache_pix, smem,
+                                   eps, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// How many clusters of the backward's planned shape can be active at once,
+// into *out. Same plan arguments as group_norm_act_backward.
+int group_norm_act_backward_clusters(int dtype, int act, long long s, int c, int groups,
+                                     int cluster, int threads, int slice_pix, int device,
+                                     int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  switch (dtype) {
+    case 0:
+      return clusters_bwd<float>(act, s, c, groups, cluster, threads, slice_pix, out);
+    case 1:
+      return clusters_bwd<__nv_bfloat16>(act, s, c, groups, cluster, threads, slice_pix, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The backward: dx (the type of x) from x and dy = dL/dy ((rows, s, c),
+// contiguous, 16-byte aligned), the affine as group_norm_act takes it and the
+// forward's mean and var (rows, groups) f32; part_dgamma, part_dbeta: (rows,
+// c) f32 scratch (each row's share of dscale and dbias); dscale, dbias: (rows /
+// rows_per_member, c) f32. One cluster of `cluster` blocks of `threads`
+// threads per row, block r taking pixels [r * slice_pix, (r + 1) * slice_pix),
+// then one launch for dscale and dbias. Returns a cudaError_t value.
+int group_norm_act_backward(const void* x, const void* dy, const void* scale, const void* bias,
+                            const void* mean, const void* var, void* dx, void* part_dgamma,
+                            void* part_dbeta, void* dscale, void* dbias, int dtype, int act,
+                            long long rows, long long s, int c, int groups, int rows_per_member,
+                            int cluster, int threads, int slice_pix, float eps, void* stream,
+                            int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  const float* mu = static_cast<const float*>(mean);
+  const float* va = static_cast<const float*>(var);
+  float* p1 = static_cast<float*>(part_dgamma);
+  float* p2 = static_cast<float*>(part_dbeta);
+  float* ds = static_cast<float*>(dscale);
+  float* db = static_cast<float*>(dbias);
+  switch (dtype) {
+    case 0:
+      return launch_bwd<float>(x, dy, sc, bi, mu, va, dx, p1, p2, ds, db, act, rows, s, c,
+                               groups, rows_per_member, cluster, threads, slice_pix, eps, st);
+    case 1:
+      return launch_bwd<__nv_bfloat16>(x, dy, sc, bi, mu, va, dx, p1, p2, ds, db, act, rows, s,
+                                       c, groups, rows_per_member, cluster, threads, slice_pix,
+                                       eps, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -12,7 +12,8 @@ other width; fp32 (the "exact" path, which the JAX package keeps on XLA) ->
 the plain twin. On the CPU the kernel's wrapper runs the twin.
 
 Both routes differentiate: the bf16 kernel through its autograd Function
-(backward: the twin's VJP, ``cuda_attention.qkv_attention_vjp``), fp32
+(``cuda_attention.QKVAttentionFn``: the forward kernel saving each row's max
+and sum, the hand-written backward kernel, no twin on the card), fp32
 through plain autograd of the twin.
 """
 

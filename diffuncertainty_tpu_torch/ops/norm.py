@@ -57,21 +57,31 @@ def group_norm_f32(
     """:func:`group_norm_32` before the cast back: the float32 result."""
     c = x.shape[-1]
     groups = num_groups_for(c) if num_groups is None else num_groups
-    if c % groups:
-        raise ValueError(f"channels {c} not divisible by groups {groups}")
     batch = x.shape[0]
     cpg = c // groups
     acc = torch.promote_types(x.dtype, torch.float32)  # float32, or float64 for gradcheck
     xf = x.to(acc)
+    g_mean, g_var = group_stats(xf, groups)  # on xf: one cast, one gradient to round
+    inv = torch.rsqrt(torch.clamp(g_var, min=0.0) + eps).repeat_interleave(cpg, dim=-1)  # (B, C)
+    scale, bias = member_rows(scale, batch), member_rows(bias, batch)
+    a = inv * scale.to(acc)
+    b = bias.to(acc) - g_mean.repeat_interleave(cpg, dim=-1) * a
+    bshape = (batch,) + (1,) * (x.ndim - 2) + (c,)
+    return xf * a.view(bshape) + b.view(bshape)
+
+
+def group_stats(x: torch.Tensor, groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's group mean and variance E[x^2] - mean^2 before
+    :func:`group_norm_f32` clamps it at 0 (``(B, G)``, float32 or float64)."""
+    c = x.shape[-1]
+    if c % groups:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    batch = x.shape[0]
+    cpg = c // groups
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     spatial = tuple(range(1, x.ndim - 1))
     n = float(xf[0].numel() // c * cpg)
     ch_sum = xf.sum(dim=spatial)  # (B, C)
     ch_sumsq = (xf * xf).sum(dim=spatial)
     g_mean = ch_sum.view(batch, groups, cpg).sum(-1) / n  # (B, G)
-    g_var = torch.clamp(ch_sumsq.view(batch, groups, cpg).sum(-1) / n - g_mean * g_mean, min=0.0)
-    inv = torch.rsqrt(g_var + eps).repeat_interleave(cpg, dim=-1)  # (B, C)
-    scale, bias = member_rows(scale, batch), member_rows(bias, batch)
-    a = inv * scale.to(acc)
-    b = bias.to(acc) - g_mean.repeat_interleave(cpg, dim=-1) * a
-    bshape = (batch,) + (1,) * len(spatial) + (c,)
-    return xf * a.view(bshape) + b.view(bshape)
+    return g_mean, ch_sumsq.view(batch, groups, cpg).sum(-1) / n - g_mean * g_mean

@@ -1,16 +1,17 @@
 """The backward of both hand-written kernels: each wrapper's autograd Function
-(forward the kernel, backward the VJP of its plain twin's math).
+(forward the kernel, saving its statistics; backward the backward kernel).
 
-On the CPU the Function's forward runs the twin (the wrappers take the twin
-for CPU tensors), so these tests hold the Function's plumbing: gradcheck in
+On the CPU the Function's forward runs the twin and its backward the
+backward kernel's plain version (the wrappers take the plain versions for
+CPU tensors), so these tests hold the Function's plumbing: gradcheck in
 float64 on small shapes (attention head widths 16 and 32, GroupNorm widths
 32 and 96 with silu, relu and none; gradcheck's own tolerances, atol 1e-5
 and rtol 1e-3 against finite differences), the Function's gradients equal
 to plain autograd of the twin (float32, to 1e-6), no graph under
-``no_grad`` (the serving paths), and the backward reaching the named VJP
-helpers, never the twins' public names that ``chip_smoke.py`` counts as
-forward twin calls. On the card the same Functions wrap the kernels
-(``chip_smoke.py``'s train phase).
+``no_grad`` (the serving paths), and the backward reaching the plain
+backwards, never the twins' public names that ``chip_smoke.py`` counts as
+forward twin calls nor the twin VJP helpers. On the card the same Functions
+wrap the kernels (``chip_smoke.py``'s train phase).
 """
 
 import pytest
@@ -20,6 +21,18 @@ from diffuncertainty_tpu_torch.ops import attention
 from diffuncertainty_tpu_torch.ops import cuda_attention as ca
 from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
 from torch_threads import one_torch_thread  # noqa: F401
+
+
+def counting_backwards(monkeypatch) -> dict:
+    """Counts the calls of each Function's plain backward (the CPU's route)."""
+    calls = {"attention": 0, "norm": 0}
+    for mod, name, key in ((ca, "qkv_attention_backward_reference", "attention"),
+                           (gn, "group_norm_act_backward_reference", "norm")):
+        def counted(*args, fn=getattr(mod, name), key=key, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, counted)
+    return calls
 
 
 def qkv_input(d: int, dtype=torch.float64, heads: int = 2, t: int = 12, seed: int = 0):
@@ -36,21 +49,21 @@ def norm_inputs(c: int, dtype=torch.float64, seed: int = 0):
 
 
 @pytest.mark.parametrize("d", [16, 32])
-def test_attention_function_passes_gradcheck(d):
+def test_attention_function_passes_gradcheck(d, monkeypatch):
     qkv = qkv_input(d)
-    before = ca.vjp_count()
+    calls = counting_backwards(monkeypatch)
     assert torch.autograd.gradcheck(lambda t: ca.qkv_attention_cuda(t, 2), (qkv,), fast_mode=True)
-    assert ca.vjp_count() > before
+    assert calls["attention"] > 0
 
 
 @pytest.mark.parametrize("c", [32, 96])
 @pytest.mark.parametrize("act", ["silu", "relu", "none"])
-def test_group_norm_function_passes_gradcheck(c, act):
+def test_group_norm_function_passes_gradcheck(c, act, monkeypatch):
     inputs = norm_inputs(c)
-    before = gn.vjp_count()
+    calls = counting_backwards(monkeypatch)
     assert torch.autograd.gradcheck(lambda x, s, b: gn.group_norm_act(x, s, b, act), inputs,
                                      fast_mode=True)
-    assert gn.vjp_count() > before
+    assert calls["norm"] > 0
 
 
 def grads(fn, inputs):
@@ -110,12 +123,14 @@ def test_no_grad_builds_no_graph_and_takes_no_vjp():
     assert ca.qkv_attention_cuda(qkv, 2).grad_fn.name() == "QKVAttentionFnBackward"
     assert gn.group_norm_act(x, scale, bias).grad_fn.name() == "GroupNormActFnBackward"
     assert ca.vjp_count() == gn.vjp_count() == 0
+    assert ca.backward_launch_count() == gn.backward_launch_count() == 0
 
 
 def test_the_backward_calls_the_vjp_helpers_not_the_public_twins(monkeypatch):
     """chip_smoke counts a call of ``qkv_attention_reference`` or
     ``group_norm_act_reference`` as a forward twin call: the backward must
-    reach neither name. On the CPU the forward is the twin, so it is run
+    reach neither name, and no twin VJP helper either: it reaches the plain
+    backwards, once each. On the CPU the forward is the twin, so it is run
     before the names are replaced."""
     qkv = qkv_input(16, torch.float32)
     x, scale, bias = norm_inputs(32, torch.float32)
@@ -128,8 +143,10 @@ def test_the_backward_calls_the_vjp_helpers_not_the_public_twins(monkeypatch):
     for mod, name in ((ca, "qkv_attention_reference"), (attention, "qkv_attention_reference"),
                       (gn, "group_norm_act_reference")):
         monkeypatch.setattr(mod, name, forbidden)
+    calls = counting_backwards(monkeypatch)
     ca.reset_launch_count()
     gn.reset_launch_count()
     (out_a.sum() + out_n.sum()).backward()
     assert qkv.grad is not None and x.grad is not None and scale.grad is not None
-    assert (ca.vjp_count(), gn.vjp_count()) == (1, 1)
+    assert calls == {"attention": 1, "norm": 1}
+    assert (ca.vjp_count(), gn.vjp_count()) == (0, 0)

@@ -161,7 +161,7 @@ def test_ctypes_signature_is_declared_before_calls():
     assert "ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p" in src
     assert "ctypes.c_longlong, ctypes.c_longlong" in src
     c_sig = re.search(r"int group_norm_act\(([^)]*)\)", SRC).group(1)
-    assert c_sig.count("void*") == 5 and c_sig.count("long long") == 2
+    assert c_sig.count("void*") == 7 and c_sig.count("long long") == 2
     q_sig = re.search(r"int group_norm_act_clusters\(([^)]*)\)", SRC).group(1)
     assert q_sig.count("long long") == 1 and q_sig.count("int*") == 1
     assert "ctypes.POINTER(ctypes.c_int)" in src
