@@ -2857,12 +2857,14 @@ def attention_backward_case(b: int, t: int, c: int, calls: int, seed: int) -> di
     autograd of the twin and against the kernel's plain version on the card,
     both under GRAD_TOL; two kernel calls bit-equal; the kernel's time beside
     the twin VJP's, the plain version's, SDPA's backward and the bound (CUDA
-    events, median of 10)."""
+    events, median of 10), and its device time and device kernels a call
+    (``groupnorm_sites.call_kernels``, 10 calls)."""
     import torch
     import torch.nn.functional as F
 
     from diffuncertainty_tpu_torch.ops import cuda_attention as ca
-    from diffuncertainty_tpu_torch.tools.groupnorm_sites import event_ms
+    from diffuncertainty_tpu_torch.tools.groupnorm_sites import (attention_backward_bound,
+                                                                 call_kernels, event_ms, fmt)
 
     gen = torch.Generator("cuda").manual_seed(seed)
     qkv = torch.randn((b, t, 3 * c), generator=gen, device="cuda").to(torch.bfloat16)
@@ -2887,6 +2889,8 @@ def attention_backward_case(b: int, t: int, c: int, calls: int, seed: int) -> di
             "max_abs_err_plain": grad_error(f"{site} vs its plain version", got,
                                             plain)["max_abs_err"]}
     case["ms"] = event_ms(lambda: ca._backward(qkv, out, m, lsum, g_out, 4), runs=10)
+    case["device_ms"], case["device_kernels"] = call_kernels(
+        lambda: ca._backward(qkv, out, m, lsum, g_out, 4), n=10)
     case["vjp_ms"] = event_ms(lambda: ca.qkv_attention_vjp(qkv, 4, g_out), runs=10)
     case["plain_ms"] = event_ms(lambda: ca.qkv_attention_backward_reference(
         qkv, out, m, lsum, g_out, 4), runs=10)
@@ -2897,13 +2901,11 @@ def attention_backward_case(b: int, t: int, c: int, calls: int, seed: int) -> di
     g4 = g_out.view(b, t, 4, ch).permute(0, 2, 1, 3)
     case["library_ms"] = event_ms(lambda: torch.autograd.grad(o, (q, k, v), g4,
                                                               retain_graph=True), runs=10)
-    flops = 10.0 * b * 4 * t * t * ch  # recompute QK^T, dV, dP, dQ, dK
-    nbytes = 2.0 * b * t * (3 * c + c + c + 3 * c) + 2 * 4.0 * b * 4 * t  # qkv, o, dO, m, l; dqkv
-    case["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    case["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
+    case["bound_ms"], case["bound_by"] = attention_backward_bound(b, t, c, 4)
     log(f"{site}: max|g-g32| {case['max_abs_err']:.3e} ({case['max_rel_err']:.3e} of max|g32|), "
         f"max|g-plain| {case['max_abs_err_plain']:.3e}, repeat bit-equal, forward under grad "
-        f"bit-equal; kernel {case['ms']:.4f} ms, twin VJP {case['vjp_ms']:.4f} ms, plain "
+        f"bit-equal; kernel {case['ms']:.4f} ms (device {fmt(case['device_ms'])} in "
+        f"{case['device_kernels']} device kernels), twin VJP {case['vjp_ms']:.4f} ms, plain "
         f"{case['plain_ms']:.4f} ms, sdpa backward {case['library_ms']:.4f} ms, bound "
         f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
     return case
@@ -2913,15 +2915,18 @@ def norm_backward_case(shape: tuple, dt: str, act: str, calls: int, seed: int,
                        members: int = 0, timed: bool = True) -> dict:
     """The GroupNorm backward kernel at ``shape`` (with an ``(members, C)``
     affine when ``members`` > 0), checked as :func:`attention_backward_case`
-    (its three gradients each under GRAD_TOL); timed beside the twin VJP,
-    the plain version, ``F.group_norm`` (+ ``F.silu``) backward and the
-    bound unless ``timed`` is off."""
+    (its three gradients each under GRAD_TOL); one device kernel a call
+    (``groupnorm_sites.call_kernels``: the trace of 10 calls, or of 5 when
+    not ``timed``, shows one device activity in each, and its device time);
+    timed beside the twin VJP, the plain version, ``F.group_norm`` (+
+    ``F.silu``) backward and the bound unless ``timed`` is off."""
     import torch
     import torch.nn.functional as F
 
     from diffuncertainty_tpu_torch.ops import cuda_groupnorm as gn
     from diffuncertainty_tpu_torch.ops.norm import num_groups_for
-    from diffuncertainty_tpu_torch.tools.groupnorm_sites import event_ms
+    from diffuncertainty_tpu_torch.tools.groupnorm_sites import (call_kernels, event_ms, fmt,
+                                                                 norm_backward_bound)
 
     dtype = getattr(torch, dt)
     c = shape[-1]
@@ -2952,19 +2957,30 @@ def norm_backward_case(shape: tuple, dt: str, act: str, calls: int, seed: int,
                   for w, g, r in zip(("x", "scale", "bias"), got, plain)]
     s = x.numel() // (shape[0] * c)
     plan = gn.backward_plan(s, c, dtype, shape[0])
+    call = lambda: gn._backward(x, scale, bias, mean, var, gy, act, 1e-5)  # noqa: E731
+    dev, kernels = call_kernels(call, n=10 if timed else 5)
+    if kernels != 1:
+        raise AssertionError(f"{site}: {kernels} device activities a call in the profiler's "
+                             f"trace, not the one backward kernel")
     case = {"shape": list(shape), "dtype": dt, "act": act, "members": members, "calls": calls,
             "max_abs_err": max(e["max_abs_err"] for e in errs),
             "max_rel_err": max(e["max_rel_err"] for e in errs),
             "max_abs_err_plain": max(e["max_abs_err"] for e in plain_errs),
-            "cluster": plan.cluster, "threads": plan.threads, "slice_pix": plan.slice_pix}
+            "cluster": plan.cluster, "threads": plan.threads, "slice_pix": plan.slice_pix,
+            "cache_pix": plan.cache_pix, "mode": plan.mode, "smem": plan.smem,
+            "device_ms": dev, "device_kernels": kernels,
+            "max_active_clusters": gn.max_active_clusters(s, c, dtype, act, plan, x.device,
+                                                          backward=True)}
     text = (f"{site}: max|g-g32| {case['max_abs_err']:.3e} ({case['max_rel_err']:.3e} of "
             f"max|g32|), max|g-plain| {case['max_abs_err_plain']:.3e}, repeat bit-equal, forward "
-            f"under grad bit-equal; K={plan.cluster}, {plan.threads} threads")
+            f"under grad bit-equal; K={plan.cluster} {plan.mode} ({plan.cache_pix} of "
+            f"{plan.slice_pix} pixels cached, {plan.smem} B), {plan.threads} threads, "
+            f"{case['max_active_clusters']} clusters at once; one device kernel a call, device "
+            f"{fmt(dev)}")
     if not timed:
         log(text)
         return case
-    case["ms"] = event_ms(lambda: gn._backward(x, scale, bias, mean, var, gy, act, 1e-5),
-                          runs=10)
+    case["ms"] = event_ms(call, runs=10)
     case["vjp_ms"] = event_ms(lambda: gn.group_norm_act_vjp(x, scale, bias, act, 1e-5, gy),
                               runs=10)
     case["plain_ms"] = event_ms(lambda: gn.group_norm_act_backward_reference(
@@ -2975,12 +2991,8 @@ def norm_backward_case(shape: tuple, dt: str, act: str, calls: int, seed: int,
     yl = F.silu(yl) if act == "silu" else yl
     case["library_ms"] = event_ms(lambda: torch.autograd.grad(
         yl, (xv, sc, bi), gy.movedim(-1, 1), retain_graph=True), runs=10)
-    numel = x.numel()
-    # x and dy read, dx written; mean and var read; the affine read, its grads written
-    nbytes = 3.0 * numel * x.element_size() + 2 * mean.numel() * 4 + 4 * scale.numel() * 4
-    flops = numel * (12.0 + (4.0 if act == "silu" else 0.0))
-    case["bound_ms"] = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
-    case["bound_by"] = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_FP32_FLOPS else "operations"
+    case["bound_ms"], case["bound_by"] = norm_backward_bound(shape, x.element_size(), act,
+                                                             scale.numel())
     log(f"{text}; kernel {case['ms']:.4f} ms, twin VJP {case['vjp_ms']:.4f} ms, plain "
         f"{case['plain_ms']:.4f} ms, F.group_norm backward {case['library_ms']:.4f} ms, bound "
         f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
@@ -4606,16 +4618,21 @@ def main(argv=None) -> int:
     for path, st in step_stats.items():
         for key, cases in (("attention", st["attention_backward"]),
                            ("norm", st["group_norm_backward"])):
-            per_step = {k: sum(c["calls"] * c[k] for c in cases)
-                        for k in ("ms", "vjp_ms", "plain_ms", "library_ms", "bound_ms")}
+            per_step = {k: per_forward(cases, k) for k in ("ms", "device_ms", "vjp_ms",
+                                                           "plain_ms", "library_ms", "bound_ms")}
+            per_step["device_kernels"] = sorted({c["device_kernels"] for c in cases},
+                                                key=lambda n: -1 if n is None else n)
             per_step["bound_by"] = max(cases, key=lambda c: c["calls"] * c["bound_ms"])["bound_by"]
             per_step["per"] = (f"one bf16 {path} step at batch {BATCH}: the backward kernel at "
-                               f"each of its sites, each alone (CUDA events), beside the twin's "
-                               f"VJP, the plain version, the library's backward and the bound")
+                               f"each of its sites, each alone (CUDA events; device time from "
+                               f"torch.profiler), beside the twin's VJP, the plain version, the "
+                               f"library's backward and the bound")
             backward_per_step[key][path] = per_step
-            log(f"{key} backward per {path} step on {smi}: kernel {per_step['ms']:.3f} ms, twin "
-                f"VJPs {per_step['vjp_ms']:.3f} ms, plain {per_step['plain_ms']:.3f} ms, library "
-                f"backward {per_step['library_ms']:.3f} ms, bound {per_step['bound_ms']:.4f} ms "
+            log(f"{key} backward per {path} step on {smi}: kernel {per_step['ms']:.3f} ms (device "
+                f"{fmt(per_step['device_ms'])}, {per_step['device_kernels']} device kernels a "
+                f"call), twin VJPs {per_step['vjp_ms']:.3f} ms, plain "
+                f"{per_step['plain_ms']:.3f} ms, library backward {per_step['library_ms']:.3f} "
+                f"ms, bound {per_step['bound_ms']:.4f} ms "
                 f"({per_step['bound_by']})")
     # the main path: softmax, else the chosen path that launches the kernels most
     main_path = "softmax" if "softmax" in paths else max(
@@ -4712,6 +4729,8 @@ def main(argv=None) -> int:
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "max_abs_err_plain": max(c["max_abs_err_plain"] for c in cases),
                 "ms": main["ms"],
+                "device_ms": main["device_ms"],
+                "device_kernels_a_call": main["device_kernels"],
                 "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],

@@ -545,33 +545,53 @@ cudaError_t clusters(int act, long long s, int c, int groups, int cluster, int t
 // the centred r (gamma dz - mean_g(gamma dz) - xh mean_g(gamma dz xh)) in
 // exact arithmetic.
 //
-// Bound on the H100: memory. x and dy are read once and dx written once (2 or
-// 4 bytes a value); some 20 f32 operations a value.
+// Bound on the H100: by its bytes, memory (x and dy read once and dx written
+// once, 2 or 4 bytes a value; some 20 f32 operations a value). Measured, the
+// SiLU derivative (its IEEE division, in both passes) and the launch's fixed
+// latency at small elements take more time than the bytes do, so the plan
+// keeps three blocks an SM for more warps in flight rather than a larger
+// cache.
 //
-// Design: the forward's cluster plan without the cache. One cluster of K
-// blocks per element, block r owning the contiguous pixels [r P, (r+1) P),
-// every thread fixed channels (16-byte packets). Pass one reads x and dy from
-// device memory and sums dz and dz x per channel in f32 (shuffles, then a
-// fixed-order table, as the forward); after cluster.sync() every block adds
-// the K blocks' channel sums in rank order through distributed shared memory,
-// so all blocks hold the element's sums, and rank 0 writes the row's dgamma
-// and dbeta to (rows, C) partials. The group terms follow in a fixed order.
-// Pass two reads x and dy again, from the 50 MB L2 where the element's tiles
-// still sit, and writes dx. A second launch (group_norm_affine_grad_kernel)
-// adds each member's rows of the partials in row order into dgamma and dbeta.
-// No atomics: two runs give the same bits.
+// Design: the forward's cluster plan with both inputs cached, in one launch.
+// One cluster of K blocks per element, block r owning the contiguous pixels
+// [r P, (r+1) P), every thread fixed channels (16-byte packets). Block r
+// copies the first `cache_pix` pixels of its slice of x and of dy into its
+// dynamic shared memory with the forward's bulk copies (kChunks chunks, each
+// chunk of both tensors on one mbarrier). Pass one sums dz and dz x per
+// channel in f32 as the chunks land (shuffles, then a fixed-order table, as
+// the forward), the pixels past the cache from device memory ("stream", as
+// the forward's mode of that name); after cluster.sync() every block adds the
+// K blocks' channel sums in rank order through distributed shared memory, so
+// all blocks hold the element's sums, and rank 0 writes the row's dgamma and
+// dbeta to (rows, C) partials. The group terms follow in a fixed order. Pass
+// two reads x and dy from shared memory again (the streamed pixels from
+// device memory, where L2 still holds them) and writes dx. So a resident
+// element's x and dy cross device memory once.
+//
+// dscale and dbias in the same launch: after its row's partials, rank 0 of
+// each cluster counts its row on its member's counter (the only atomic);
+// the cluster that counts the member's last row adds the member's rows of the
+// partials in row order, writes that member's dgamma and dbeta, and sets the
+// counter back to 0 for the next launch. No sum is taken with atomics, so two
+// runs give the same bits. The counters (one unsigned a member) are the
+// caller's, zero before the launch, and not shared with a launch that may run
+// at the same time.
 
-// Byte offsets in the backward's dynamic shared memory: the table of partials
-// (part_rows x c floats); per channel the block's sums of dz and dz x (read
-// by the cluster), the element's, gamma and beta; per group the mean, the
-// variance, r, and the two coefficients of pass two.
+// Byte offsets in the backward's dynamic shared memory: the cached pixels of
+// x, then of dy, the chunks' mbarriers, the table of partials (part_rows x c
+// floats); per channel the block's sums of dz and dz x (read by the cluster),
+// the element's, gamma and beta; per group the mean, the variance, r, and the
+// two coefficients of pass two.
 struct BwdLayout {
-  int part, s1, s2, e1, e2, gam, bet, mean, var, rstd, ga, gb, total;
+  int dys, bars, part, s1, s2, e1, e2, gam, bet, mean, var, rstd, ga, gb, total;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int threads, int v, int c, int groups) {
+__host__ __device__ inline BwdLayout bwd_layout(int cache_bytes, int threads, int v, int c,
+                                                int groups) {
   BwdLayout l;
-  l.part = 0;
+  l.dys = cache_bytes;
+  l.bars = l.dys + cache_bytes;
+  l.part = l.bars + kChunks * 8;
   l.s1 = l.part + part_rows(threads, c / v) * c * 4;
   l.s2 = l.s1 + c * 4;
   l.e1 = l.s2 + c * 4;
@@ -587,6 +607,27 @@ __host__ __device__ inline BwdLayout bwd_layout(int threads, int v, int c, int g
   return l;
 }
 
+// Blocks of at most this many threads are compiled to run three to an SM (at
+// most 85 registers a thread); wider ones (fp32 past 1024 channels) one.
+constexpr int kBwdNarrow = 256;
+
+// One thread arms the barrier for `bytes` in all, for the copies that follow.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A bulk copy of `bytes` that completes on an armed barrier.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // act'(z) in f32 (SiLU: sigma(z) (1 + z (1 - sigma(z))); ReLU: z > 0; none: 1).
 template <int ACT>
 __device__ __forceinline__ float activate_grad(float z) {
@@ -598,14 +639,57 @@ __device__ __forceinline__ float activate_grad(float z) {
   return 1.0f;
 }
 
-template <typename T, int ACT>
-__global__ void __launch_bounds__(kMaxThreads)
+// Adds dz and dz x of packets p, p + step, ... < end (in that order) to a1 and
+// a2, with dz = dy act'(x fa + fb).
+template <int V, int ACT>
+__device__ __forceinline__ void accumulate_grad(const uint4* xsrc, const uint4* gsrc, int p,
+                                                int end, int step, int cv, int slot,
+                                                const float (&fa)[V], const float (&fb)[V],
+                                                float (&a1)[V], float (&a2)[V]) {
+  for (; p < end; p += step) {
+    float xv[V], gv[V];
+    unpack(xsrc[p * cv + slot], xv);
+    unpack(gsrc[p * cv + slot], gv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float dz = gv[j] * activate_grad<ACT>(xv[j] * fa[j] + fb[j]);
+      a1[j] += dz;
+      a2[j] += dz * xv[j];
+    }
+  }
+}
+
+// dst[p * cv + slot] = dz a + x g_var / n + x g_var / n + g_mean / n for
+// packets p, p + step, ... < end (cb = g_var / n, ca = g_mean / n).
+template <int V, int ACT>
+__device__ __forceinline__ void input_grad(const uint4* xsrc, const uint4* gsrc, uint4* dst, int p,
+                                           int end, int step, int cv, int slot,
+                                           const float (&fa)[V], const float (&fb)[V],
+                                           const float (&ca)[V], const float (&cb)[V]) {
+  for (; p < end; p += step) {
+    float xv[V], gv[V];
+    unpack(xsrc[p * cv + slot], xv);
+    unpack(gsrc[p * cv + slot], gv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float dz = gv[j] * activate_grad<ACT>(xv[j] * fa[j] + fb[j]);
+      const float sq = cb[j] * xv[j];
+      xv[j] = dz * fa[j] + sq + sq + ca[j];
+    }
+    dst[p * cv + slot] = pack(xv);
+  }
+}
+
+template <typename T, int ACT, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS, MAX_THREADS <= kBwdNarrow ? 3 : 1)
     group_norm_act_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                               const float* __restrict__ scale, const float* __restrict__ bias,
                               const float* __restrict__ mean, const float* __restrict__ var,
-                              T* __restrict__ dx, float* __restrict__ part_dgamma,
-                              float* __restrict__ part_dbeta, int rows_per_member, int s, int c,
-                              int groups, int slice_pix, float n, float eps) {
+                              T* __restrict__ dx, float* __restrict__ dscale,
+                              float* __restrict__ dbias, float* __restrict__ part_dgamma,
+                              float* __restrict__ part_dbeta, unsigned* __restrict__ counters,
+                              int rows_per_member, int s, int c, int groups, int slice_pix,
+                              int cache_pix, float n, float eps) {
   constexpr int V = VecOf<T>::N;
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -622,12 +706,16 @@ __global__ void __launch_bounds__(kMaxThreads)
   const bool active = poff < ppt;
   const int p0 = min(s, rank * slice_pix);
   const int npix = min(s, p0 + slice_pix) - p0;
+  const int ncache = min(npix, cache_pix);
   const long long first = (row * s + p0) * static_cast<long long>(cv);
   const uint4* xg = reinterpret_cast<const uint4*>(x) + first;
   const uint4* gg = reinterpret_cast<const uint4*>(dy) + first;
   uint4* dg = reinterpret_cast<uint4*>(dx) + first;
 
-  const BwdLayout l = bwd_layout(nt, V, c, groups);
+  const BwdLayout l = bwd_layout(cache_pix * cv * 16, nt, V, c, groups);
+  uint4* xs = reinterpret_cast<uint4*>(smem);
+  uint4* gs = reinterpret_cast<uint4*>(smem + l.dys);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + l.bars);
   float* part = reinterpret_cast<float*>(smem + l.part);
   float* s1 = reinterpret_cast<float*>(smem + l.s1);
   float* s2 = reinterpret_cast<float*>(smem + l.s2);
@@ -641,7 +729,25 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* g_a = reinterpret_cast<float*>(smem + l.ga);
   float* g_b = reinterpret_cast<float*>(smem + l.gb);
 
-  const long long affine_row = (row / rows_per_member) * c;
+  // the cached pixels of x and dy in kChunks pairs of bulk copies, one
+  // mbarrier a pair
+  const int chunk_pix = (ncache + kChunks - 1) / kChunks;
+  if (tid == 0) {
+    for (int i = 0; i < kChunks; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < kChunks; ++i) {
+      const int a = i * chunk_pix;
+      const int e = min(ncache, a + chunk_pix);
+      if (e > a) {
+        const uint32_t bytes = static_cast<uint32_t>((e - a) * cv * 16);
+        mbar_expect(&bars[i], 2 * bytes);
+        bulk_copy(xs + a * cv, xg + a * cv, bytes, &bars[i]);
+        bulk_copy(gs + a * cv, gg + a * cv, bytes, &bars[i]);
+      }
+    }
+  }
+  const long long member = row / rows_per_member;
+  const long long affine_row = member * c;
   for (int ch = tid; ch < c; ch += nt) {
     gam[ch] = scale[affine_row + ch];
     bet[ch] = bias[affine_row + ch];
@@ -662,22 +768,23 @@ __global__ void __launch_bounds__(kMaxThreads)
     fb[j] = bet[ch] - g_mean[ch / cpg] * fa[j];
   }
 
-  // pass one: per-thread sums of dz and dz x over the block's pixels
+  // pass one: per-thread sums of dz and dz x over the block's pixels in
+  // order: the cached ones as their chunks land, then the rest from device
+  // memory
   float a1[V], a2[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) a1[j] = a2[j] = 0.0f;
   if (active) {
-    for (int p = poff; p < npix; p += ppt) {
-      float xv[V], gv[V];
-      unpack(xg[p * cv + slot], xv);
-      unpack(gg[p * cv + slot], gv);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float dz = gv[j] * activate_grad<ACT>(xv[j] * fa[j] + fb[j]);
-        a1[j] += dz;
-        a2[j] += dz * xv[j];
-      }
+    for (int i = 0; i < kChunks; ++i) {
+      const int a = i * chunk_pix;
+      const int e = min(ncache, a + chunk_pix);
+      if (e <= a) break;
+      mbar_wait(&bars[i]);
+      accumulate_grad<V, ACT>(xs, gs, first_pixel(a, poff, ppt), e, ppt, cv, slot, fa, fb, a1,
+                              a2);
     }
+    accumulate_grad<V, ACT>(xg, gg, first_pixel(ncache, poff, ppt), npix, ppt, cv, slot, fa, fb,
+                            a1, a2);
   }
   block_channel_sums<V>(a1, part, s1, c, cv, active);
   block_channel_sums<V>(a2, part, s2, c, cv, active);
@@ -686,6 +793,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   cluster.sync();
   for (int ch = tid; ch < c; ch += nt) {
     float q = 0.0f, pp = 0.0f;
+#pragma unroll 4
     for (int r = 0; r < k; ++r) {
       q += cluster.map_shared_rank(s1, r)[ch];
       pp += cluster.map_shared_rank(s2, r)[ch];
@@ -723,90 +831,95 @@ __global__ void __launch_bounds__(kMaxThreads)
       ca[j] = g_a[g];
       cb[j] = g_b[g];
     }
-    for (int p = poff; p < npix; p += ppt) {
-      float xv[V], gv[V];
-      unpack(xg[p * cv + slot], xv);
-      unpack(gg[p * cv + slot], gv);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float dz = gv[j] * activate_grad<ACT>(xv[j] * fa[j] + fb[j]);
-        const float sq = cb[j] * xv[j];
-        xv[j] = dz * fa[j] + sq + sq + ca[j];
+    input_grad<V, ACT>(xs, gs, dg, first_pixel(0, poff, ppt), ncache, ppt, cv, slot, fa, fb, ca,
+                       cb);
+    input_grad<V, ACT>(xg, gg, dg, first_pixel(ncache, poff, ppt), npix, ppt, cv, slot, fa, fb,
+                       ca, cb);
+  }
+
+  // dscale and dbias: the cluster that counts its member's last row adds the
+  // member's partials in row order
+  if (rank == 0) {
+    __threadfence();  // this row's partials, before its count
+    __syncthreads();
+    unsigned counted = 0;
+    if (tid == 0) {
+      counted = atomicAdd(&counters[member], 1u) + 1u;
+      __threadfence();  // the other rows' partials, after their counts
+    }
+    if (__syncthreads_or(counted == static_cast<unsigned>(rows_per_member))) {
+      const long long r0 = member * rows_per_member;
+      for (int ch = tid; ch < c; ch += nt) {
+        float ds = 0.0f, db = 0.0f;
+#pragma unroll 4
+        for (long long r = r0; r < r0 + rows_per_member; ++r) {
+          ds += __ldcg(&part_dgamma[r * c + ch]);
+          db += __ldcg(&part_dbeta[r * c + ch]);
+        }
+        dscale[affine_row + ch] = ds;
+        dbias[affine_row + ch] = db;
       }
-      dg[p * cv + slot] = pack(xv);
+      if (tid == 0) counters[member] = 0u;  // for the next launch
     }
   }
   cluster_wait();  // no block leaves while another reads its shared memory
 }
 
-// dgamma and dbeta of member blockIdx.y: its rows of the (rows, c) partials
-// added in row order.
-__global__ void group_norm_affine_grad_kernel(const float* __restrict__ part_dgamma,
-                                              const float* __restrict__ part_dbeta,
-                                              float* __restrict__ dscale,
-                                              float* __restrict__ dbias, int rows_per_member,
-                                              int c) {
-  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= c) return;
-  const long long m = blockIdx.y;
-  float ds = 0.0f, db = 0.0f;
-  for (long long r = m * rows_per_member; r < (m + 1) * rows_per_member; ++r) {
-    ds += part_dgamma[r * c + ch];
-    db += part_dbeta[r * c + ch];
-  }
-  dscale[m * c + ch] = ds;
-  dbias[m * c + ch] = db;
-}
-
 template <typename T>
 using BwdKernelFn = void (*)(const T*, const T*, const float*, const float*, const float*,
-                             const float*, T*, float*, float*, int, int, int, int, int, float,
-                             float);
+                             const float*, T*, float*, float*, float*, float*, unsigned*, int, int,
+                             int, int, int, int, float, float);
 
-template <typename T>
+template <typename T, int MAX_THREADS>
 BwdKernelFn<T> bwd_kernel_for(int act) {
   switch (act) {
     case kNone:
-      return group_norm_act_bwd_kernel<T, kNone>;
+      return group_norm_act_bwd_kernel<T, kNone, MAX_THREADS>;
     case kSilu:
-      return group_norm_act_bwd_kernel<T, kSilu>;
+      return group_norm_act_bwd_kernel<T, kSilu, MAX_THREADS>;
     case kRelu:
-      return group_norm_act_bwd_kernel<T, kRelu>;
+      return group_norm_act_bwd_kernel<T, kRelu, MAX_THREADS>;
     default:
       return nullptr;
   }
 }
 
 // The backward's launch configuration (one cluster per element), after
-// checking the plan; attributes must outlive the config.
+// checking the plan as configure does; attributes must outlive the config.
 template <typename T>
 cudaError_t configure_bwd(int act, long long rows, long long s, int c, int groups, int cluster,
-                          int threads, int slice_pix, cudaStream_t stream,
-                          cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
+                          int threads, int slice_pix, int cache_pix, int smem,
+                          cudaStream_t stream, cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg,
                           BwdKernelFn<T>* kernel) {
   constexpr int V = VecOf<T>::N;
-  const BwdKernelFn<T> fn = bwd_kernel_for<T>(act);
+  const bool wide = threads > kBwdNarrow;
+  const BwdKernelFn<T> fn =
+      wide ? bwd_kernel_for<T, kMaxThreads>(act) : bwd_kernel_for<T, kBwdNarrow>(act);
   const bool cluster_ok = cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8 ||
                           cluster == kMaxCluster;
   if (fn == nullptr || rows <= 0 || s <= 0 || s > (1LL << 30) || c <= 0 || c > kMaxChannels ||
       c % V != 0 || groups <= 0 || c % groups != 0 || threads <= 0 || threads > kMaxThreads ||
       threads % 32 != 0 || threads < c / V || !cluster_ok || slice_pix <= 0 ||
       static_cast<long long>(slice_pix) * cluster < s ||
-      static_cast<long long>(slice_pix) * (c / V) > 0x7fffffffLL || rows * cluster > 0x7fffffffLL)
+      static_cast<long long>(slice_pix) * (c / V) > 0x7fffffffLL || cache_pix < 0 ||
+      cache_pix > slice_pix || rows * cluster > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const int smem = bwd_layout(threads, V, c, groups).total;
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  static bool ready[kMaxDevices][3] = {};
+  const long long cache_bytes = static_cast<long long>(cache_pix) * c * sizeof(T);
+  if (2 * cache_bytes > kSmemLimit ||
+      smem != bwd_layout(static_cast<int>(cache_bytes), threads, V, c, groups).total ||
+      smem > kSmemLimit)
+    return cudaErrorInvalidValue;
+  static bool ready[kMaxDevices][3][2] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!ready[device][act]) {
+  if (!ready[device][act][wide]) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
-    ready[device][act] = true;
+    ready[device][act][wide] = true;
   }
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cluster;
@@ -825,38 +938,40 @@ cudaError_t configure_bwd(int act, long long rows, long long s, int c, int group
 
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* dy, const float* scale, const float* bias,
-                       const float* mean, const float* var, void* dx, float* part_dgamma,
-                       float* part_dbeta, float* dscale, float* dbias, int act, long long rows,
-                       long long s, int c, int groups, int rows_per_member, int cluster,
-                       int threads, int slice_pix, float eps, cudaStream_t stream) {
+                       const float* mean, const float* var, void* dx, float* grads,
+                       unsigned* counters, int act, long long rows, long long s, int c,
+                       int groups, int rows_per_member, int cluster, int threads, int slice_pix,
+                       int cache_pix, int smem, float eps, cudaStream_t stream) {
   if (rows_per_member <= 0 || rows % rows_per_member != 0) return cudaErrorInvalidValue;
   BwdKernelFn<T> fn;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
   cudaError_t err = configure_bwd<T>(act, rows, s, c, groups, cluster, threads, slice_pix,
-                                     stream, &attr, &cfg, &fn);
+                                     cache_pix, smem, stream, &attr, &cfg, &fn);
   if (err != cudaSuccess) return err;
   const float n = static_cast<float>(s) * static_cast<float>(c / groups);
+  // grads: dscale, dbias ((members, c) each), then the rows' partials of each
+  const long long members = rows / rows_per_member;
+  float* dscale = grads;
+  float* dbias = dscale + members * c;
+  float* part_dgamma = dbias + members * c;
+  float* part_dbeta = part_dgamma + rows * c;
   err = cudaLaunchKernelEx(&cfg, fn, static_cast<const T*>(x), static_cast<const T*>(dy), scale,
-                           bias, mean, var, static_cast<T*>(dx), part_dgamma, part_dbeta,
-                           rows_per_member, static_cast<int>(s), c, groups, slice_pix, n, eps);
+                           bias, mean, var, static_cast<T*>(dx), dscale, dbias, part_dgamma,
+                           part_dbeta, counters, rows_per_member, static_cast<int>(s), c, groups,
+                           slice_pix, cache_pix, n, eps);
   if (err != cudaSuccess) return err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid((c + 127) / 128, static_cast<unsigned>(rows / rows_per_member));
-  group_norm_affine_grad_kernel<<<grid, 128, 0, stream>>>(part_dgamma, part_dbeta, dscale,
-                                                          dbias, rows_per_member, c);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t clusters_bwd(int act, long long s, int c, int groups, int cluster, int threads,
-                         int slice_pix, int* out) {
+                         int slice_pix, int cache_pix, int smem, int* out) {
   BwdKernelFn<T> fn;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  cudaError_t err = configure_bwd<T>(act, 1, s, c, groups, cluster, threads, slice_pix, nullptr,
-                                     &attr, &cfg, &fn);
+  cudaError_t err = configure_bwd<T>(act, 1, s, c, groups, cluster, threads, slice_pix,
+                                     cache_pix, smem, nullptr, &attr, &cfg, &fn);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(out, fn, &cfg);
 }
@@ -927,32 +1042,37 @@ extern "C" {
 // How many clusters of the backward's planned shape can be active at once,
 // into *out. Same plan arguments as group_norm_act_backward.
 int group_norm_act_backward_clusters(int dtype, int act, long long s, int c, int groups,
-                                     int cluster, int threads, int slice_pix, int device,
-                                     int* out) {
+                                     int cluster, int threads, int slice_pix, int cache_pix,
+                                     int smem, int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   switch (dtype) {
     case 0:
-      return clusters_bwd<float>(act, s, c, groups, cluster, threads, slice_pix, out);
+      return clusters_bwd<float>(act, s, c, groups, cluster, threads, slice_pix, cache_pix, smem,
+                                 out);
     case 1:
-      return clusters_bwd<__nv_bfloat16>(act, s, c, groups, cluster, threads, slice_pix, out);
+      return clusters_bwd<__nv_bfloat16>(act, s, c, groups, cluster, threads, slice_pix,
+                                         cache_pix, smem, out);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// The backward: dx (the type of x) from x and dy = dL/dy ((rows, s, c),
-// contiguous, 16-byte aligned), the affine as group_norm_act takes it and the
-// forward's mean and var (rows, groups) f32; part_dgamma, part_dbeta: (rows,
-// c) f32 scratch (each row's share of dscale and dbias); dscale, dbias: (rows /
-// rows_per_member, c) f32. One cluster of `cluster` blocks of `threads`
-// threads per row, block r taking pixels [r * slice_pix, (r + 1) * slice_pix),
-// then one launch for dscale and dbias. Returns a cudaError_t value.
+// The backward, one launch: dx (the type of x) from x and dy = dL/dy ((rows,
+// s, c), contiguous, 16-byte aligned), the affine as group_norm_act takes it
+// and the forward's mean and var (rows, groups) f32; grads: (2 * members + 2
+// * rows, c) f32 with members = rows / rows_per_member: dscale and dbias
+// (members, c) each, written, then each row's share of both (scratch);
+// counters: members unsigned, 0 on entry and on return, used by no other
+// launch at the same time. One cluster of `cluster` blocks of `threads`
+// threads per row, block r taking pixels [r * slice_pix, (r + 1) * slice_pix)
+// and holding the first cache_pix of them of x and dy in its `smem` bytes of
+// dynamic shared memory. Returns a cudaError_t value.
 int group_norm_act_backward(const void* x, const void* dy, const void* scale, const void* bias,
-                            const void* mean, const void* var, void* dx, void* part_dgamma,
-                            void* part_dbeta, void* dscale, void* dbias, int dtype, int act,
-                            long long rows, long long s, int c, int groups, int rows_per_member,
-                            int cluster, int threads, int slice_pix, float eps, void* stream,
+                            const void* mean, const void* var, void* dx, void* grads,
+                            void* counters, int dtype, int act, long long rows, long long s,
+                            int c, int groups, int rows_per_member, int cluster, int threads,
+                            int slice_pix, int cache_pix, int smem, float eps, void* stream,
                             int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -961,18 +1081,17 @@ int group_norm_act_backward(const void* x, const void* dy, const void* scale, co
   const float* bi = static_cast<const float*>(bias);
   const float* mu = static_cast<const float*>(mean);
   const float* va = static_cast<const float*>(var);
-  float* p1 = static_cast<float*>(part_dgamma);
-  float* p2 = static_cast<float*>(part_dbeta);
-  float* ds = static_cast<float*>(dscale);
-  float* db = static_cast<float*>(dbias);
+  float* gr = static_cast<float*>(grads);
+  unsigned* cnt = static_cast<unsigned*>(counters);
   switch (dtype) {
     case 0:
-      return launch_bwd<float>(x, dy, sc, bi, mu, va, dx, p1, p2, ds, db, act, rows, s, c,
-                               groups, rows_per_member, cluster, threads, slice_pix, eps, st);
+      return launch_bwd<float>(x, dy, sc, bi, mu, va, dx, gr, cnt, act, rows, s, c, groups,
+                               rows_per_member, cluster, threads, slice_pix, cache_pix, smem,
+                               eps, st);
     case 1:
-      return launch_bwd<__nv_bfloat16>(x, dy, sc, bi, mu, va, dx, p1, p2, ds, db, act, rows, s,
-                                       c, groups, rows_per_member, cluster, threads, slice_pix,
-                                       eps, st);
+      return launch_bwd<__nv_bfloat16>(x, dy, sc, bi, mu, va, dx, gr, cnt, act, rows, s, c,
+                                       groups, rows_per_member, cluster, threads, slice_pix,
+                                       cache_pix, smem, eps, st);
     default:
       return cudaErrorInvalidValue;
   }

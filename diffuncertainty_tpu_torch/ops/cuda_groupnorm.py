@@ -18,14 +18,16 @@ it, the wrapper goes through :class:`GroupNormActFn`. Its forward is the
 kernel, which then also writes each row's group mean and variance
 E[x^2] - mean^2 before its clamp at 0 (``(B, G)`` float32; the output is the
 same bits as without them; the clamp's gradient needs the variance's sign).
-Its backward is the hand-written backward kernel of the same source (one cluster
-per element as the forward, :func:`backward_plan`, then a launch that adds
-each member's rows into dscale and dbias in a fixed order), the VJP of the
-twin's math (float32 statistics, the activation in float32) from the saved
-inputs and statistics: dx in ``x``'s dtype, dscale and dbias in the affine's
-shape and dtype. On the CPU it is :func:`group_norm_act_backward_reference`,
-the same closed form in PyTorch. The JAX package trains on its plain
-``group_norm_32``; its Pallas kernel has no backward.
+Its backward is the hand-written backward kernel of the same source, one
+launch a call: one cluster per element as the forward, planned by the
+forward's planner with x and dy both cached (:func:`backward_plan`), whose
+last cluster of each member adds the member's rows into dscale and dbias in
+a fixed order. It is the VJP of the twin's math (float32 statistics, the
+activation in float32) from the saved inputs and statistics: dx in ``x``'s
+dtype, dscale and dbias in the affine's shape and dtype. On the CPU it is
+:func:`group_norm_act_backward_reference`, the same closed form in PyTorch.
+The JAX package trains on its plain ``group_norm_32``; its Pallas kernel has
+no backward.
 :func:`group_norm_act_vjp` (autograd through the twin) stays as the
 yardstick ``chip_smoke.py`` times and holds the kernel to; no training path
 calls it. Under ``no_grad`` the wrapper launches the forward kernel alone and
@@ -65,13 +67,13 @@ PAIR_SMEM = SM_SMEM // 2 - 1024
 # A smaller grid doubles K up to this many blocks (measured on the H100: past
 # it, at 16 rows, the larger clusters cost more than the SMs they fill)
 FILL_BLOCKS = 64
-# The backward, which holds nothing in shared memory, doubles K while the grid
-# has fewer blocks than two per SM
-BACKWARD_FILL_BLOCKS = 2 * SMS
 _launches = 0
 _backward_launches = 0
 _vjps = 0
 _clusters: dict[tuple, int] = {}  # plan key -> cudaOccupancyMaxActiveClusters
+# (device index, stream) -> the backward's per-member counters (int32, zero
+# between launches: the kernel sets each back to 0)
+_counters: dict[tuple, torch.Tensor] = {}
 
 
 class Plan(NamedTuple):
@@ -106,31 +108,37 @@ def kernel_supports(c: int, dtype: torch.dtype) -> bool:
     return block_threads(c, dtype) is not None
 
 
-def fixed_smem(c: int, dtype: torch.dtype, threads: int) -> int:
-    """Shared memory of a block besides its cached pixels (``smem_layout``):
-    the mbarriers, the table of partials (``part_rows`` x ``c`` floats), two
-    per-channel and four per-group float arrays."""
+def fixed_smem(c: int, dtype: torch.dtype, threads: int, backward: bool = False) -> int:
+    """Shared memory of a block besides its cached pixels: the mbarriers,
+    the table of partials (``part_rows`` x ``c`` floats), then for the
+    forward (``smem_layout``) two per-channel and four per-group float
+    arrays, for the backward (``bwd_layout``) six and five."""
     cv = c // _vector(dtype)
     part_rows = threads // 32 if 32 % cv == 0 else threads // cv
-    return CHUNKS * 8 + part_rows * c * 4 + 2 * c * 4 + 4 * num_groups_for(c) * 4
+    arrays = (6 * c + 5 * num_groups_for(c)) if backward else (2 * c + 4 * num_groups_for(c))
+    return CHUNKS * 8 + part_rows * c * 4 + arrays * 4
 
 
-def plan_for(s: int, c: int, dtype: torch.dtype, k: int, threads: int, budget: int) -> Plan:
+def plan_for(s: int, c: int, dtype: torch.dtype, k: int, threads: int, budget: int,
+             backward: bool = False) -> Plan:
     """K blocks of ``threads`` threads, each caching what of its slice fits
-    ``budget`` bytes of shared memory."""
-    pix = c * ELEMENT_BYTES[dtype]
-    fixed = fixed_smem(c, dtype, threads)
+    ``budget`` bytes of shared memory: a pixel of x, or for the
+    ``backward`` a pixel of x and one of dy."""
+    pix = c * ELEMENT_BYTES[dtype] * (2 if backward else 1)
+    fixed = fixed_smem(c, dtype, threads, backward)
     slice_pix = -(-s // k)
-    cache_pix = min(slice_pix, (budget - fixed) // pix)
+    cache_pix = max(0, min(slice_pix, (budget - fixed) // pix))
     return Plan(cluster=k, smem=fixed + cache_pix * pix, threads=threads,
                 mode="resident" if cache_pix == slice_pix else "stream",
                 slice_pix=slice_pix, cache_pix=cache_pix)
 
 
 @functools.lru_cache(maxsize=None)
-def cluster_plan(s: int, c: int, dtype: torch.dtype, rows: int) -> Plan | None:
+def cluster_plan(s: int, c: int, dtype: torch.dtype, rows: int,
+                 backward: bool = False) -> Plan | None:
     """The launch of ``rows`` batch elements of ``s`` pixels and ``c``
-    channels, or None if the kernel does not take ``c`` in ``dtype``.
+    channels, or None if the kernel does not take ``c`` in ``dtype``;
+    ``backward``: the backward kernel's, which caches x and dy.
 
     The smallest cluster whose blocks of (about) 256 threads hold their
     whole slice ("resident", read from device memory once) three to an SM,
@@ -138,46 +146,37 @@ def cluster_plan(s: int, c: int, dtype: torch.dtype, rows: int) -> Plan | None:
     blocks and every block keeps a pixel. An element that even 16 blocks of
     two to an SM do not hold takes K = 16 blocks of 512 threads in "stream"
     mode: each block holds what fits and reads the rest of its slice twice,
-    the second time from L2."""
+    the second time from L2.
+
+    The backward keeps three blocks of (about) 256 threads to an SM
+    throughout: resident at ``THIRD_SMEM`` where that holds the slice, else
+    K = 16 streaming past ``THIRD_SMEM``. Its kernel is compiled for three
+    such blocks, and it computes more than it moves: on the H100 a third
+    block an SM beat a larger cache at every training site (PERF.md)."""
     wide = block_threads(c, dtype)
     if wide is None or s <= 0 or rows <= 0:
         return None
     threads = block_threads(c, dtype, 256) or wide
-    for budget in (THIRD_SMEM, PAIR_SMEM):
+    budgets = (THIRD_SMEM,) if backward else (THIRD_SMEM, PAIR_SMEM)
+    for budget in budgets:
         fits = [k for k in CLUSTER_SIZES
-                if plan_for(s, c, dtype, k, threads, budget).mode == "resident"]
+                if plan_for(s, c, dtype, k, threads, budget, backward).mode == "resident"]
         if fits:
             break
     else:
+        if backward:
+            return plan_for(s, c, dtype, CLUSTER_SIZES[-1], threads, THIRD_SMEM, backward)
         return plan_for(s, c, dtype, CLUSTER_SIZES[-1], wide, PAIR_SMEM)
     k = fits[0]
     while k < CLUSTER_SIZES[-1] and rows * k < FILL_BLOCKS and 2 * k <= s:
         k *= 2
-    return plan_for(s, c, dtype, k, threads, budget)
+    return plan_for(s, c, dtype, k, threads, budget, backward)
 
 
-class BackwardPlan(NamedTuple):
-    cluster: int  # K blocks per batch element
-    threads: int
-    slice_pix: int  # pixels of one block
-
-
-@functools.lru_cache(maxsize=None)
-def backward_plan(s: int, c: int, dtype: torch.dtype, rows: int) -> BackwardPlan | None:
-    """The backward's launch for ``rows`` elements of ``s`` pixels and ``c``
-    channels, or None if the kernel does not take ``c`` in ``dtype``: blocks
-    of (about) 256 threads, K doubling from 1 while the grid has fewer than
-    ``BACKWARD_FILL_BLOCKS`` blocks and every block keeps a pixel. Each block
-    reads its slice of x and dy twice (the second time from L2) and caches
-    nothing, so any K fits."""
-    wide = block_threads(c, dtype)
-    if wide is None or s <= 0 or rows <= 0:
-        return None
-    k = 1
-    while k < CLUSTER_SIZES[-1] and rows * k < BACKWARD_FILL_BLOCKS and 2 * k <= s:
-        k *= 2
-    return BackwardPlan(cluster=k, threads=block_threads(c, dtype, 256) or wide,
-                        slice_pix=-(-s // k))
+def backward_plan(s: int, c: int, dtype: torch.dtype, rows: int) -> Plan | None:
+    """The backward kernel's launch: :func:`cluster_plan` costing a cached
+    pixel of x and one of dy."""
+    return cluster_plan(s, c, dtype, rows, backward=True)
 
 
 def vjp_count() -> int:
@@ -336,18 +335,14 @@ def _library() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # s, c, groups
             *plan, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]  # device, the answer
         lib.group_norm_act_clusters.restype = ctypes.c_int
-        bwd_plan = [ctypes.c_int] * 3  # cluster, threads, slice_pix
         lib.group_norm_act_backward.argtypes = [
-            *[ctypes.c_void_p] * 11,  # x, dy, scale, bias, mean, var, dx, partials, dscale, dbias
+            *[ctypes.c_void_p] * 9,  # x, dy, scale, bias, mean, var, dx, grads, counters
             ctypes.c_int, ctypes.c_int,  # dtype, act
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # rows, s, c, groups
             ctypes.c_int,  # rows per member
-            *bwd_plan, ctypes.c_float, ctypes.c_void_p, ctypes.c_int]  # eps, stream, device
+            *plan, ctypes.c_float, ctypes.c_void_p, ctypes.c_int]  # eps, stream, device
         lib.group_norm_act_backward.restype = ctypes.c_int
-        lib.group_norm_act_backward_clusters.argtypes = [
-            ctypes.c_int, ctypes.c_int,  # dtype, act
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,  # s, c, groups
-            *bwd_plan, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]  # device, the answer
+        lib.group_norm_act_backward_clusters.argtypes = lib.group_norm_act_clusters.argtypes
         lib.group_norm_act_backward_clusters.restype = ctypes.c_int
     return lib
 
@@ -364,23 +359,18 @@ def _launch_args(s: int, c: int, rows_per_member: int, plan: Plan) -> tuple:
     return args[:3] + (rows_per_member,) + args[3:]
 
 
-def max_active_clusters(s: int, c: int, dtype: torch.dtype, act: str,
-                        plan: Plan | BackwardPlan, device: torch.device) -> int:
-    """How many clusters of ``plan`` (the forward's, or the backward's) the
-    card runs at once (``cudaOccupancyMaxActiveClusters``), asked once per
-    plan and device."""
+def max_active_clusters(s: int, c: int, dtype: torch.dtype, act: str, plan: Plan,
+                        device: torch.device, backward: bool = False) -> int:
+    """How many clusters of ``plan`` (the forward's, or with ``backward``
+    the backward kernel's) the card runs at once
+    (``cudaOccupancyMaxActiveClusters``), asked once per plan and device."""
     index = torch.device(device).index or 0
-    key = (index, DTYPES[dtype], ACTS[act], c, plan)
+    key = (index, DTYPES[dtype], ACTS[act], c, plan, backward)
     if key not in _clusters:
         out = ctypes.c_int(0)
         lib = _library()
-        if isinstance(plan, BackwardPlan):
-            err = lib.group_norm_act_backward_clusters(
-                DTYPES[dtype], ACTS[act], s, c, num_groups_for(c), *plan, index,
-                ctypes.byref(out))
-        else:
-            err = lib.group_norm_act_clusters(DTYPES[dtype], ACTS[act], *_plan_args(s, c, plan),
-                                              index, ctypes.byref(out))
+        ask = lib.group_norm_act_backward_clusters if backward else lib.group_norm_act_clusters
+        err = ask(DTYPES[dtype], ACTS[act], *_plan_args(s, c, plan), index, ctypes.byref(out))
         if err != 0:
             raise RuntimeError(f"group_norm_act: cudaOccupancyMaxActiveClusters failed for "
                                f"{plan}: cudaError_t {err}")
@@ -434,46 +424,74 @@ def _forward(x, scale, bias, act, eps, plan, stats: bool = False):
     return (out, mean, var) if stats else out
 
 
-def _backward(x, scale, bias, mean, var, grad_out, act, eps):
-    """(dx, dscale, dbias): the backward kernel on a CUDA tensor, its plain
-    twin on the CPU."""
+def _member_counters(index: int, stream: int, members: int) -> torch.Tensor:
+    """The backward's per-member counters for launches on ``stream`` of
+    device ``index``: one int32 buffer per device and stream, zeroed once
+    when made (a larger member count makes a larger one); the kernel leaves
+    every counter 0."""
+    counters = _counters.get((index, stream))
+    if counters is None or counters.numel() < members:
+        counters = torch.zeros(max(members, 64), dtype=torch.int32, device=f"cuda:{index}")
+        _counters[(index, stream)] = counters
+    return counters
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_args(s: int, c: int, dtype: torch.dtype, rows: int, members: int, act: str,
+                   index: int, plan: Plan | None = None) -> tuple:
+    """The backward launch's arguments from the dtype to the plan
+    (:func:`backward_plan`'s unless ``plan`` is given), for ``rows``
+    elements of ``s`` pixels on device ``index``, once the plan is known to
+    fit there (one occupancy query per plan)."""
+    plan = plan or backward_plan(s, c, dtype, rows)
+    if max_active_clusters(s, c, dtype, act, plan, torch.device("cuda", index),
+                           backward=True) == 0:
+        raise RuntimeError(f"group_norm_act backward: no cluster of {plan} fits on cuda:{index}")
+    return (DTYPES[dtype], ACTS[act], rows, *_launch_args(s, c, rows // members, plan))
+
+
+def _backward(x, scale, bias, mean, var, grad_out, act, eps, plan: Plan | None = None):
+    """(dx, dscale, dbias): the backward kernel on a CUDA tensor (one
+    launch; dscale and dbias are views of one float32 buffer that also holds
+    the rows' partials), its plain twin on the CPU. ``plan`` replaces
+    :func:`backward_plan`'s launch (to measure another one)."""
     global _backward_launches
     if x.device.type == "cpu":
         return group_norm_act_backward_reference(x, scale, bias, mean, var, grad_out, act,
                                                  eps=eps)
     scale32, bias32, members = _check(x, scale, bias, act)
     rows, c = x.shape[0], x.shape[-1]
-    grad_out = grad_out.to(x.dtype).contiguous()
+    if grad_out.dtype != x.dtype or not grad_out.is_contiguous():
+        grad_out = grad_out.to(x.dtype).contiguous()
     if grad_out.data_ptr() % VECTOR_BYTES:
         grad_out = grad_out.clone()
-    groups = num_groups_for(c)
-    if grad_out.shape != x.shape or mean.shape != (rows, groups) or var.shape != mean.shape:
+    if grad_out.shape != x.shape or mean.shape != (rows, num_groups_for(c)) or \
+            var.shape != mean.shape:
         raise ValueError(f"group_norm_act backward: grad {tuple(grad_out.shape)}, mean "
                          f"{tuple(mean.shape)}, var {tuple(var.shape)} do not fit x "
                          f"{tuple(x.shape)}")
     dx = torch.empty_like(x)
-    dscale = torch.zeros((members, c), dtype=torch.float32, device=x.device)
-    dbias = torch.zeros_like(dscale)
+    # dscale and dbias, then each row's share of both (the kernel's scratch)
+    grads = torch.empty((2 * (members + rows), c), dtype=torch.float32, device=x.device)
     if x.numel() > 0:
-        s = x.numel() // (rows * c)
-        plan = backward_plan(s, c, x.dtype, rows)
-        if max_active_clusters(s, c, x.dtype, act, plan, x.device) == 0:
-            raise RuntimeError(f"group_norm_act backward: no cluster of {plan} fits on "
-                               f"{x.device}")
-        part_dgamma = torch.empty((rows, c), dtype=torch.float32, device=x.device)
-        part_dbeta = torch.empty_like(part_dgamma)
+        index, s = x.device.index, x.numel() // (rows * c)
+        args = _backward_args(s, c, x.dtype, rows, members, act, index, plan)
+        stream = torch._C._cuda_getCurrentRawStream(index)
         err = _library().group_norm_act_backward(
             x.data_ptr(), grad_out.data_ptr(), scale32.data_ptr(), bias32.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), dx.data_ptr(), part_dgamma.data_ptr(),
-            part_dbeta.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), DTYPES[x.dtype],
-            ACTS[act], rows, s, c, groups, rows // members, *plan, eps,
-            torch.cuda.current_stream(x.device).cuda_stream, x.device.index)
+            mean.data_ptr(), var.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+            _member_counters(index, stream, members).data_ptr(), *args, eps, stream, index)
         if err != 0:
-            raise RuntimeError(f"group_norm_act backward kernel launch failed for {plan}: "
-                               f"cudaError_t {err}")
+            raise RuntimeError(f"group_norm_act backward kernel launch failed for "
+                               f"{plan or backward_plan(s, c, x.dtype, rows)}: cudaError_t {err}")
         _backward_launches += 1
-    return (dx, dscale.reshape(scale.shape).to(scale.dtype),
-            dbias.reshape(bias.shape).to(bias.dtype))
+    else:
+        grads.zero_()  # no rows: the affine's gradients are 0
+    if scale.ndim == 1:
+        dscale, dbias = grads[0], grads[1]
+    else:
+        dscale, dbias = grads[:members], grads[members:2 * members]
+    return dx, dscale.to(scale.dtype), dbias.to(bias.dtype)
 
 
 def _check(x, scale, bias, act):

@@ -348,19 +348,20 @@ def test_backward_ctypes_signatures_are_declared_before_calls():
     src = inspect.getsource(ca._library)
     assert "bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4" in src
     src = inspect.getsource(gn._library)
-    assert "*[ctypes.c_void_p] * 11," in src
+    assert "*[ctypes.c_void_p] * 9," in src
     sig = re.search(r"int group_norm_act_backward\(([^)]*)\)", NORM_SRC).group(1)
-    assert sig.count("void*") == 12 and sig.count("long long") == 2
+    assert sig.count("void*") == 10 and sig.count("long long") == 2
     sig = re.search(r"int group_norm_act_backward_clusters\(([^)]*)\)", NORM_SRC).group(1)
     assert sig.count("long long") == 1 and sig.count("int*") == 1
 
 
-def _source_bwd_layout(threads: int, v: int, c: int, groups: int) -> int:
+def _source_bwd_layout(cache_bytes: int, threads: int, v: int, c: int, groups: int) -> int:
     """``bwd_layout(...).total`` evaluated from the source's own lines."""
     body = re.search(r"inline BwdLayout bwd_layout\(.*?\{(.*?)return l;", NORM_SRC,
                      re.S).group(1)
     cv = c // v
-    env = {"threads": threads, "v": v, "c": c, "groups": groups,
+    env = {"cache_bytes": cache_bytes, "threads": threads, "v": v, "c": c, "groups": groups,
+           "kChunks": gn.CHUNKS,
            "part_rows": lambda t, n: t // 32 if 32 % n == 0 else t // n}
     for name, expr in re.findall(r"l\.(\w+) = (.*?);", body):
         env[name] = eval(expr.replace("l.", "").replace("c / v", str(cv)).replace("/", "//"),
@@ -371,9 +372,10 @@ def _source_bwd_layout(threads: int, v: int, c: int, groups: int) -> int:
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_norm_backward_plan_fits_the_source_limits(dtype):
     """At every width the forward takes (a multiple of the packet up to
-    MAX_CHANNELS) and a range of sizes, the backward plan's cluster, block
-    and slice satisfy the source's launch checks and its shared memory
-    fits; the grid fills two blocks an SM where the rows allow."""
+    MAX_CHANNELS) and a range of sizes, the backward plan's cluster, block,
+    slice and cache satisfy the source's launch checks, its shared memory
+    (both caches) is the source's layout and fits; the grid fills
+    FILL_BLOCKS blocks where the rows and pixels allow."""
     v = gn.VECTOR_BYTES // gn.ELEMENT_BYTES[dtype]
     limit = int(re.search(r"kSmemLimit = (\d+)", NORM_SRC).group(1))
     for c in range(v, gn.MAX_CHANNELS + 1, v):
@@ -382,28 +384,43 @@ def test_norm_backward_plan_fits_the_source_limits(dtype):
             plan = gn.backward_plan(s, c, dtype, rows)
             assert plan.cluster in gn.CLUSTER_SIZES and plan.slice_pix * plan.cluster >= s
             assert plan.threads % 32 == 0 and c // v <= plan.threads <= gn.MAX_THREADS
-            assert (rows * plan.cluster >= gn.BACKWARD_FILL_BLOCKS
+            assert 0 <= plan.cache_pix <= plan.slice_pix and plan.smem <= gn.PAIR_SMEM
+            assert (rows * plan.cluster >= gn.FILL_BLOCKS
                     or plan.cluster == max(gn.CLUSTER_SIZES) or 2 * plan.cluster > s)
         if c in (8, 32, 96, 256, 1000, 1536, 2048) or c % 256 == 0:
-            threads = gn.backward_plan(1024, c, dtype, 16).threads
-            assert _source_bwd_layout(threads, v, c, num_groups_for(c)) <= limit
+            plan = gn.backward_plan(1024, c, dtype, 16)
+            cache = plan.cache_pix * c * gn.ELEMENT_BYTES[dtype]
+            assert plan.smem == _source_bwd_layout(cache, plan.threads, v, c,
+                                                   num_groups_for(c)) <= limit
     assert gn.backward_plan(64, 6, dtype, 2) is None  # the forward does not take it either
-    assert gn.BACKWARD_FILL_BLOCKS == 2 * gn.SMS
 
 
 def test_norm_backward_plans_at_the_training_sites():
-    """unet16's training sites at batch 16 take K = 16 blocks an element
-    (256 blocks, two an SM), blocks of at most 256 threads."""
+    """unet16's training sites at batch 16 take the forward's planner with x
+    and dy cached, three blocks of at most 256 threads to an SM: each
+    element's x and dy held whole in shared memory except at the 128x128
+    sites and the wider 64x64 and 32x32 ones, which stream from K = 16
+    blocks."""
+    streamed = {((128, 128, 32), "bfloat16"), ((128, 128, 32), "float32"),
+                ((128, 128, 64), "bfloat16"), ((128, 128, 96), "bfloat16"),
+                ((64, 64, 96), "bfloat16"), ((64, 64, 128), "bfloat16"),
+                ((64, 64, 192), "bfloat16"), ((32, 32, 256), "bfloat16"),
+                ((32, 32, 384), "bfloat16")}
     for shape, dt, _act in norm_sites("softmax", 128):
         s = math.prod(shape[:-1])
         plan = gn.backward_plan(s, shape[-1], getattr(torch, dt), 16)
-        assert plan.cluster == 16 and plan.threads <= 256
+        assert plan == gn.cluster_plan(s, shape[-1], getattr(torch, dt), 16, backward=True)
+        assert plan.threads <= 256 and plan.smem <= gn.THIRD_SMEM
+        assert (plan.mode == "stream") is ((shape, dt) in streamed)
+        assert plan.mode == "resident" or plan.cluster == 16
 
 
 def test_norm_backward_source_is_deterministic_and_clamp_aware():
     body = NORM_SRC[NORM_SRC.index("// Backward."):]
-    assert re.search(r"atomic\w*\(", NORM_SRC) is None
-    assert "cluster.map_shared_rank(s1, r)" in body and "group_norm_affine_grad_kernel" in body
+    # the one atomic counts rows on an unsigned counter; every sum is in order
+    assert re.findall(r"atomic\w*\([^;]*;", NORM_SRC) == ["atomicAdd(&counters[member], 1u) + 1u;"]
+    assert "cluster.map_shared_rank(s1, r)" in body
+    assert "group_norm_affine_grad_kernel" not in NORM_SRC
     assert "g_var[g] < 0.0f ? 0.0f" in body  # the clamp's gradient, from the saved sign
     # the backward's r is the forward's, bit for bit
     assert "g_inv[g] = 1.0f / sqrtf(fmaxf(var_raw, 0.0f) + eps);" in NORM_SRC
